@@ -15,7 +15,10 @@ behind the engine's backend seam:
                         phase_commitments, ipp_create and their batches)
   csrc/                 the Hopper kernels (sm_90a)
 
-It imports ``torch`` and never ``jax``.
+Batched proving and verification are the engine's own
+``prove_provers(provers, gens, backend=TorchBackend("cuda"))`` and
+``batch_verify(verifiers, proofs, pc_gens, gens, backend=...)``,
+re-exported here.  It imports ``torch`` and never ``jax``.
 """
 
 from bulletproofs_r1cs_gadgets_tpu.core import scvec
@@ -32,7 +35,7 @@ from bulletproofs_r1cs_gadgets_tpu.core.ristretto import (
 )
 from bulletproofs_r1cs_gadgets_tpu.core.scalar import Scalar
 from bulletproofs_r1cs_gadgets_tpu.core.transcript import Transcript
-from bulletproofs_r1cs_gadgets_tpu.core.verifier import Verifier
+from bulletproofs_r1cs_gadgets_tpu.core.verifier import Verifier, batch_verify
 from bulletproofs_r1cs_gadgets_tpu.gadgets.poseidon import PoseidonParams
 from bulletproofs_r1cs_gadgets_tpu.models.compiled import CompiledVSMT2
 from bulletproofs_r1cs_gadgets_tpu.models.vsmt2 import (
@@ -40,7 +43,8 @@ from bulletproofs_r1cs_gadgets_tpu.models.vsmt2 import (
     leaf_index_bit_scalars,
 )
 from bulletproofs_r1cs_gadgets_tpu.native import _native
-from bulletproofs_r1cs_gadgets_tpu.utils.constants import L, P
+from bulletproofs_r1cs_gadgets_tpu.parallel.batch import prove_provers
+from bulletproofs_r1cs_gadgets_tpu.utils.constants import D2, L, P
 
 from .ops.torch_backend import TorchBackend
 
@@ -51,5 +55,5 @@ __all__ = [
     "BulletproofGens", "Transcript", "R1CSProof", "RistrettoPoint",
     "VerificationError", "multiscalar_mul", "scvec", "PoseidonParams",
     "CompiledVSMT2", "VanillaSparseMerkleTree", "leaf_index_bit_scalars",
-    "L", "P", "NATIVE_LOADED",
+    "D2", "L", "P", "NATIVE_LOADED", "prove_provers", "batch_verify",
 ]

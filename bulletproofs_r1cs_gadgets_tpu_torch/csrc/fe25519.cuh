@@ -21,14 +21,15 @@ struct fe {
 };
 
 // 2 * d mod p (edwards25519 d), little-endian words; the Python side
-// checks these words against the JAX package's constant.
-__device__ __constant__ uint32_t FE_D2[8] = {
+// checks these words against the JAX package's constant.  Constants are
+// static: every source that includes this header has its own copy.
+static __device__ __constant__ uint32_t FE_D2[8] = {
     0x26b2f159u, 0xebd69b94u, 0x8283b156u, 0x00e0149au,
     0xeef3d130u, 0x198e80f2u, 0x56dffce7u, 0x2406d9dcu,
 };
 
 // p = 2^255 - 19
-__device__ __constant__ uint32_t FE_P[8] = {
+static __device__ __constant__ uint32_t FE_P[8] = {
     0xffffffedu, 0xffffffffu, 0xffffffffu, 0xffffffffu,
     0xffffffffu, 0xffffffffu, 0xffffffffu, 0x7fffffffu,
 };

@@ -21,7 +21,9 @@ __device__ __forceinline__ ge ge_identity() {
 // add-2008-hwcd-3 (unified, a = -1, with the 2d constant); 9 muls.  The
 // two point operations stay out of line: inlined, every ladder step would
 // copy ~1k instructions of unrolled multiplies and the build would crawl.
-__device__ __noinline__ ge ge_add(const ge& p, const ge& q) {
+// Out-of-line functions here are static: each source that includes this
+// header keeps its own copy, and the sources link into one library.
+static __device__ __noinline__ ge ge_add(const ge& p, const ge& q) {
     fe A = fe_mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
     fe B = fe_mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
     fe C = fe_mul(fe_mul(p.T, q.T), fe_d2());
@@ -40,7 +42,7 @@ __device__ __noinline__ ge ge_add(const ge& p, const ge& q) {
 }
 
 // dbl-2008-hwcd (a = -1); reads X, Y, Z only
-__device__ __noinline__ ge ge_double(const ge& p) {
+static __device__ __noinline__ ge ge_double(const ge& p) {
     fe A = fe_sq(p.X);
     fe B = fe_sq(p.Y);
     fe Zs = fe_sq(p.Z);
@@ -98,4 +100,18 @@ __device__ __forceinline__ void ge_store(int32_t* dst, const ge& p) {
     c.Z = fe_canon(p.Z);
     c.T = fe_canon(p.T);
     ge_store_raw(dst, c);
+}
+
+// Sum of one value per thread (blockDim.x a power of two, sh holding
+// blockDim.x points); the total lands in sh[0].  The group law is exact,
+// so the tree's order does not change the sum.
+static __device__ void block_sum(ge v, ge* sh) {
+    int tid = threadIdx.x;
+    sh[tid] = v;
+    __syncthreads();
+#pragma unroll 1
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (tid < s) sh[tid] = ge_add(sh[tid], sh[tid + s]);
+        __syncthreads();
+    }
 }

@@ -1,5 +1,6 @@
 // Hopper kernels for the VSMT-2 slice: the chained w4 MSM (msm_w4), the
-// two-segment pair MSM (msm_w4_pair) and the IPP generator fold
+// two-segment pair MSM (msm_w4_pair), the per-segment totals of the
+// batched frozen rounds (msm_lane) and the IPP generator fold
 // (fold_bits).  Plain C entry points for ctypes (ops/build.py): each
 // launches on the caller's stream, never synchronises, allocates nothing,
 // and returns cudaGetLastError().
@@ -69,18 +70,6 @@ __device__ ge ladder_w4(const ge& P, const uint32_t w[8]) {
     return acc;
 }
 
-// Sum of one value per thread; the total lands in sh[0].
-__device__ void block_sum(ge v, ge* sh) {
-    int tid = threadIdx.x;
-    sh[tid] = v;
-    __syncthreads();
-#pragma unroll 1
-    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-        if (tid < s) sh[tid] = ge_add(sh[tid], sh[tid + s]);
-        __syncthreads();
-    }
-}
-
 // Pass 1: one ladder per point, block-reduced into one partial per block.
 // Blocks [0, blocks_lo) cover points [0, lo_n); the rest cover points
 // [half, half + hi_n) (the pair kernel's high segment; hi_n = 0 for msm_w4).
@@ -120,6 +109,41 @@ msm_w4_final(const int32_t* __restrict__ partials, const int32_t* __restrict__ a
         v = ge_add(v, ge_load(partials + 32ll * j));
     block_sum(v, sh);
     if (threadIdx.x == 0) ge_store(out + 32 * seg, ge_add(sh[0], ge_load(acc + 32 * seg)));
+}
+
+// msm_lane pass 1: block (b, s) runs the ladders of points
+// [b * T, (b + 1) * T) of segment s (rows s * seg + i) and writes one
+// partial per block, segment-major.
+__global__ void __launch_bounds__(MSM_THREADS)
+msm_lane_partials(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
+                  int32_t* __restrict__ partials, int seg) {
+    __shared__ ge sh[MSM_THREADS];
+    int b = blockIdx.x;
+    int s = blockIdx.y;
+    long long i = (long long)b * blockDim.x + threadIdx.x;
+    ge v = ge_identity();
+    if (i < seg) {
+        long long row = (long long)s * seg + i;
+        uint32_t w[8];
+        load_words(words + 8 * row, w);
+        if (!fe_is_zero_words(w)) v = ladder_w4(ge_load(pts + 32 * row), w);
+    }
+    block_sum(v, sh);
+    if (threadIdx.x == 0)
+        ge_store_raw(partials + 32ll * ((long long)s * gridDim.x + b), sh[0]);
+}
+
+// msm_lane pass 2: block s sums segment s's `bps` partials into out[s].
+__global__ void __launch_bounds__(MSM_THREADS)
+msm_lane_final(const int32_t* __restrict__ partials, int32_t* __restrict__ out, int bps) {
+    __shared__ ge sh[MSM_THREADS];
+    int s = blockIdx.x;
+    ge v = ge_identity();
+#pragma unroll 1
+    for (int j = threadIdx.x; j < bps; j += blockDim.x)
+        v = ge_add(v, ge_load(partials + 32ll * ((long long)s * bps + j)));
+    block_sum(v, sh);
+    if (threadIdx.x == 0) ge_store(out + 32 * s, sh[0]);
 }
 
 // out[i] = wl_i * L_i + wr_i * R_i by the dual bit-serial ladder over bits
@@ -185,6 +209,18 @@ int bp_msm_w4_pair(const int32_t* pts, const int32_t* words, const int32_t* acc2
     if (nb > 0)
         msm_w4_partials<<<nb, MSM_THREADS, 0, s>>>(pts, words, partials, lo_n, half, hi_n, blo);
     msm_w4_final<<<2, MSM_THREADS, 0, s>>>(partials, acc2, out, blo, nb);
+    return (int)cudaGetLastError();
+}
+
+// v independent MSM totals: out[s] = sum over points [s * seg, (s + 1) * seg).
+// partials: scratch for v * max(1, ceil(seg / MSM_THREADS)) points.
+int bp_msm_lane(const int32_t* pts, const int32_t* words, int32_t* out,
+                int32_t* partials, int v, int seg, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    int bps = msm_blocks(seg);
+    if (v > 0 && bps > 0)
+        msm_lane_partials<<<dim3(bps, v), MSM_THREADS, 0, s>>>(pts, words, partials, seg);
+    if (v > 0) msm_lane_final<<<v, MSM_THREADS, 0, s>>>(partials, out, bps);
     return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile at first use with ``nvcc`` for ``sm_90a`` into a plain
-C shared library under ``build/`` (gitignored), named by a hash of the
-sources so an edit rebuilds, and load through ``ctypes``.  The C entry
-points take pointers and the stream as ``c_void_p`` and return
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception.  There is no fallback: without ``nvcc`` or a card this raises.
+The sources compile at first use with ``nvcc`` for ``sm_90a`` into one
+plain C shared library under ``build/`` (gitignored), named by a hash of
+the sources, the headers and the flags so an edit rebuilds: one ``nvcc -c``
+per source, all started together, then one link.  The library loads
+through ``ctypes``.  The C entry points take pointers and the stream as
+``c_void_p`` and return ``cudaGetLastError()``; :func:`check` turns a
+non-zero code into an exception.  There is no fallback: without ``nvcc``
+or a card this raises.
 
 Run ``python -m bulletproofs_r1cs_gadgets_tpu_torch.ops.build`` to build
 ahead of time and print ptxas's register / spill report.
@@ -28,8 +30,22 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+# entry point -> argument types (every one returns an int)
+SIGNATURES = {
+    "bp_msm_threads": [],
+    "bp_msm_w4": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
+    "bp_msm_w4_pair": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "bp_msm_lane": [_VP, _VP, _VP, _VP, _I, _I, _VP],
+    "bp_fold_bits": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
+    "bp_win5_points_per_block": [],
+    "bp_win5_windows": [],
+    "bp_table_w5": [_VP, _VP, _I, _VP],
+    "bp_msm_win5": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+}
 
 
 def _sources() -> tuple[list[str], list[str]]:
@@ -60,6 +76,19 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libbp_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(procs: list[subprocess.Popen], verbose: bool) -> None:
+    failed = []
+    for proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(proc.args)} ({proc.returncode}):\n"
+                          f"{out}\n{err}")
+        elif verbose:
+            print(out + err)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build(verbose: bool = False) -> str:
     """Compile the kernels unless the library for these sources exists;
     returns its path.  ``verbose`` adds ptxas's per-kernel report."""
@@ -69,16 +98,17 @@ def build(verbose: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu, _ = _sources()
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
+    objs = [f"{tmp}.{i}.o" for i in range(len(cu))]
+    nvcc = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas=-v"] if verbose else [])
+    pipe = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _run([
+        subprocess.Popen([*nvcc, "-I", CSRC, "-c", "-o", obj, src], **pipe)
+        for src, obj in zip(cu, objs)
+    ], verbose)
+    _run([subprocess.Popen([*nvcc, "-shared", "-o", tmp, *objs], **pipe)],
+         False)
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, so)
     return so
 
@@ -90,15 +120,10 @@ def load() -> ctypes.CDLL:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the kernels cannot run")
     lib = ctypes.CDLL(build())
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.bp_msm_threads.argtypes = []
-    lib.bp_msm_threads.restype = i
-    lib.bp_msm_w4.argtypes = [vp, vp, vp, vp, vp, i, vp]
-    lib.bp_msm_w4.restype = i
-    lib.bp_msm_w4_pair.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp]
-    lib.bp_msm_w4_pair.restype = i
-    lib.bp_fold_bits.argtypes = [vp, vp, vp, vp, vp, i, vp]
-    lib.bp_fold_bits.restype = i
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

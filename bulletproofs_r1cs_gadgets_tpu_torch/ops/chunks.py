@@ -7,6 +7,8 @@ TPU kernel consumes:
 
 * MSM words: signed 4-bit digits d_i in [-8, 7], nibble code d & 15,
   sum d_i 16^i == scalar (``signed_digit_words``, ``_signed_recode``).
+* w5 walker words: 51 signed base-32 digits d_i in [-16, 15], one per
+  byte (code d & 31), sum d_i 32^i == scalar (``signed_digit5_bytes``).
 * Fold words: the scalar's raw little-endian 32-bit words
   (``scvec.words_u32``, as ``tail_fold`` and ``const_words`` use).
 
@@ -22,7 +24,9 @@ computation: :func:`pack_pair` with :func:`segment_words` serves both
 ``segment_words``; the frozen tail's ``frozen_pair_words`` is
 ``segment_words`` too), and :func:`fold_words` serves
 ``fold_chunks`` and ``tail_fold`` (whose ``_tail_shift`` is a slice
-here).
+here).  The flotilla's pack (``flotilla_pack`` / ``flotilla_words``)
+keeps the reference's segment order with segments of the batch's
+largest frozen pack instead of 2048-point chunks.
 """
 
 from __future__ import annotations
@@ -35,31 +39,81 @@ from bulletproofs_r1cs_gadgets_tpu.core.ristretto import RistrettoPoint
 from . import cuda_curve as cc
 from . import field as F
 
-_W4_C = np.uint64(0x8888888888888888)
+W5_WINDOWS = cc.W5_WINDOWS
 
 
-def _signed_recode(arr: np.ndarray, C: np.uint64) -> np.ndarray:
-    """(scalar + C) ^ C for a constant C holding 2^(w-1) in every w-bit
-    group: the w-bit codes of signed digits in [-2^(w-1), 2^(w-1)) that
-    sum to the scalar (one carried 4-limb add and an XOR)."""
+def _limbs(c: int) -> np.ndarray:
+    return np.array(
+        [(c >> (64 * i)) & 0xFFFFFFFFFFFFFFFF for i in range(4)], dtype="<u8"
+    )
+
+
+_W4_C = _limbs(sum(8 << (4 * i) for i in range(64)))
+_W5_C = _limbs(sum(16 << (5 * i) for i in range(W5_WINDOWS)))
+
+
+def _signed_recode(arr: np.ndarray, C: np.ndarray) -> np.ndarray:
+    """(scalar + C) ^ C, as (m, 4) u64 limbs, for a constant C (4 limbs)
+    holding 2^(w-1) in every w-bit group: the w-bit codes of signed
+    digits in [-2^(w-1), 2^(w-1)) that sum to the scalar (one carried
+    4-limb add and an XOR)."""
     a = np.ascontiguousarray(arr, dtype="<u8")
     t = np.empty_like(a)
     carry = np.zeros(a.shape[0], np.uint64)
     with np.errstate(over="ignore"):
         for i in range(4):
-            s = a[:, i] + C
+            s = a[:, i] + C[i]
             c_new = s < a[:, i]
             t[:, i] = s + carry
             carry = (c_new | (t[:, i] < s)).astype(np.uint64)
-    # scalars are < L < 2^253, so the top limb cannot overflow
+    # scalars are < L < 2^253 and C < 2^256 - 2^253: no carry out
     assert not carry.any(), "signed-digit recode overflow"
-    return (t ^ C).view("<u4").view(np.int32).reshape(arr.shape[0], 8)
+    return t ^ C
 
 
 def signed_digit_words(arr: np.ndarray) -> np.ndarray:
     """(m, 4) u64 scalars -> (m, 8) int32 packed signed nibble digits.
     A zero scalar encodes as zero words (adds nothing)."""
-    return _signed_recode(arr, _W4_C)
+    t = _signed_recode(arr, _W4_C)
+    return t.view("<u4").view(np.int32).reshape(arr.shape[0], 8)
+
+
+_POS5 = 5 * np.arange(W5_WINDOWS)
+
+
+def _digit5_bytes(t: torch.Tensor) -> torch.Tensor:
+    """(m, 4) int64 recoded limbs (``_signed_recode`` with the w5
+    constant) -> (m, 16) int32 holding the 51 5-bit codes, one per byte.
+    Runs on t's device: each code is read from the two bytes it spans."""
+    dev = t.device
+    by = t.view(torch.uint8)  # (m, 32), little-endian
+    b = torch.as_tensor(_POS5 >> 3, device=dev)
+    lo = by[:, b].to(torch.int32)
+    hi = by[:, (b + 1).clamp(max=31)].to(torch.int32)
+    sh = torch.as_tensor(_POS5 & 7, dtype=torch.int32, device=dev)
+    codes = ((lo | (hi << 8)) >> sh) & 31
+    out = torch.zeros((t.shape[0], 64), dtype=torch.uint8, device=dev)
+    out[:, :W5_WINDOWS] = codes.to(torch.uint8)
+    return out.view(torch.int32)
+
+
+def _recode5(arr: np.ndarray, device) -> torch.Tensor:
+    t = _signed_recode(arr, _W5_C).view(np.int64)
+    return torch.from_numpy(t).to(device)
+
+
+def signed_digit5_bytes(arr: np.ndarray) -> np.ndarray:
+    """(m, 4) u64 scalars -> (m, 16) int32 packing 51 signed base-32
+    digits, one per byte (byte i holds digit i's code d & 31).  A zero
+    scalar encodes as zero words."""
+    return _digit5_bytes(_recode5(arr, "cpu")).numpy()
+
+
+def w5_words(arr: np.ndarray, device) -> torch.Tensor:
+    """w5 walker word rows (``msm_win5``) on `device`: the scalars'
+    recoded limbs are uploaded (32 B per row) and split into digit bytes
+    there."""
+    return _digit5_bytes(_recode5(arr, device))
 
 
 def bit_words(arr: np.ndarray) -> np.ndarray:
@@ -96,11 +150,35 @@ def pack_pair(G: torch.Tensor, H: torch.Tensor, n: int):
 
 
 def frozen_pack(G: torch.Tensor, H: torch.Tensor, S: int) -> torch.Tensor:
-    """Frozen-tail point array: [G(S) | H(S)] duplicated, (4S, 4, 8).  The
-    pair kernel walks the L words over the first copy and the R words
-    over the second (``frozen_pack_chunk`` + ``_frozen_dup``)."""
-    packed = torch.cat([G[:S], H[:S]])
-    return torch.cat([packed, packed])
+    """Frozen-tail pack [G(S) | H(S)], (2S, 4, 8) (``frozen_pack_chunk``):
+    the flotilla's input; duplicated (``_frozen_dup``) it is the pair
+    kernel's, which walks the L words over the first copy and the R words
+    over the second."""
+    return torch.cat([G[:S], H[:S]])
+
+
+def flotilla_pack(packs: list[torch.Tensor], seg: int) -> torch.Tensor:
+    """B frozen packs [G(S_j) | H(S_j)] -> ONE (2B * seg, 4, 8) point array
+    for ``msm_lane``: job j's pack, identity padded to `seg` points, at
+    segments 2j and 2j+1 (L and R walks)."""
+    out = []
+    for p in packs:
+        pad = F.identity_points(seg - p.shape[0], p.device)
+        padded = torch.cat([p, pad])
+        out.extend([padded, padded])
+    return torch.cat(out)
+
+
+def flotilla_words(rows_pairs: list[tuple[np.ndarray, np.ndarray]],
+                   seg: int, device) -> torch.Tensor:
+    """B (rowsL, rowsR) composite-scalar row pairs -> w4 words matching
+    :func:`flotilla_pack`: job j's L rows at segment 2j, R rows at 2j+1,
+    zero rows (adding nothing) beyond each."""
+    arr = np.zeros((2 * len(rows_pairs) * seg, 4), np.uint64)
+    for j, (rowsL, rowsR) in enumerate(rows_pairs):
+        arr[2 * j * seg : 2 * j * seg + rowsL.shape[0]] = rowsL
+        arr[(2 * j + 1) * seg : (2 * j + 1) * seg + rowsR.shape[0]] = rowsR
+    return w4_words(arr, device)
 
 
 # ------------------------------------------------------------ MSM chain

@@ -1,17 +1,19 @@
-"""Wrappers for the port's three Hopper kernels, with their plain versions.
+"""Wrappers for the port's six Hopper kernels, with their plain versions.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and then
 
 * for CPU tensors, runs the plain torch version beside it (this is what
   the CPU tests exercise);
-* for CUDA tensors, launches its kernel from ``csrc/msm_fold.cu`` on the
-  current stream, raises if the launch failed, and adds one to
-  ``LAUNCHES[name]``.  There is no fallback to the plain version.
+* for CUDA tensors, launches its kernel from ``csrc/msm_fold.cu`` or
+  ``csrc/win5.cu`` on the current stream, raises if the launch failed,
+  and adds one to ``LAUNCHES[name]``.  There is no fallback to the plain
+  version.
 
-Tensors (see :mod:`.field`): points ``(n, 4, 8)`` int32, scalar words
-``(n, 8)`` int32, accumulators ``(1, 4, 8)`` / ``(2, 4, 8)``.  Outputs are
-canonical points.
+Tensors (see :mod:`.field`): points ``(n, 4, 8)`` int32, w4 and bit
+scalar words ``(n, 8)`` int32, w5 words ``(n, 16)`` int32, w5 tables
+``(n, 16, 4, 8)`` int32 (niels entries), accumulators ``(k, 4, 8)``.
+Outputs are canonical.
 
 Kernel notes (what each replaces, what bounds it on an H100, what its
 design does about that):
@@ -35,11 +37,38 @@ segment chains its own accumulator.
 :1533).  Bound: integer multiplies (253 doublings + up to 253 adds per
 point).  Design: one thread per output point runs the dual bit-serial
 ladder over bits 252..0 with the {L, R, L+R} selection; no reduction.
+
+``msm_lane`` replaces ``pallas_curve.msm_lane_dyn`` (:1515,
+``_msm_lane_kernel`` :1473): v independent MSM totals, one per segment of
+``seg`` points (the flotilla of batched frozen IPP rounds).  Same bound
+as ``msm_w4``.  Design: ``msm_w4``'s per-thread ladder over a 2-D grid
+(blocks x segments), one partial per block, a second launch with one
+block per segment; the TPU's lattice-position output is a (v, 4, 8)
+tensor.
+
+``table_w5`` replaces ``pallas_curve.table_grid5_full`` (:1233,
+``_table16_body`` :1174, ``_to_niels`` :934): the 16 multiples (k+1)P of
+each generator in niels form, built once per generator set.  Bound: the
+2 KiB store per point (15 point operations per point are cheap beside
+it).  Design: one thread per point, the TPU's doubling/adding sequence,
+canonical stores.
+
+``msm_win5`` replaces ``pallas_curve.msm_win5_dyn`` (:1345,
+``_msm_win5_kernel`` :1263, ``_win5_digit_select`` :1236): the w5
+window-accumulator MSM over a ``table_w5`` table, with the TPU's
+[v, poff, woff, split, poff2] walk in points.  Bound: integer
+multiplies (51 niels adds of 8 field multiplies per point, against ~330
+point operations per point for the w4 ladder), then the 128 B table read
+per point and window.  Design: the windows run in parallel, one per
+block row; each thread sums 16 selected entries of one window, a block
+tree and a second launch reduce each window, and one thread folds the 51
+window totals by Horner (see ``csrc/win5.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -47,12 +76,24 @@ from . import build
 from . import curve as C
 from . import field as F
 
-LAUNCHES = {"msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0}
+LAUNCHES = {
+    "msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0,
+    "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
+}
+_COUNT_LOCK = threading.Lock()  # batched IPP rounds launch from a pool
+TBL5 = 16
+W5_WINDOWS = 51  # ceil(253 / 5)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 # ------------------------------------------------------------ checks
@@ -156,6 +197,70 @@ def fold_bits_plain(left, right, wl, wr) -> torch.Tensor:
     return F.limbs_to_words(acc)
 
 
+def msm_lane_plain(points, words, v: int) -> torch.Tensor:
+    """(v, 4, 8): the w4 ladder per point with a nonzero word row (as in
+    the kernel), then one sum per segment."""
+    n = points.shape[0]
+    live = words.ne(0).any(dim=1)
+    per_point = C.identity(n, points.device)
+    per_point[live] = ladder_w4_plain(
+        F.words_to_limbs(points[live]), words[live]
+    )
+    totals = C.block_reduce(per_point.view(v, n // v, 4, F.NLIMBS))
+    return F.limbs_to_words(totals[:, 0])
+
+
+def table_w5_plain(points) -> torch.Tensor:
+    """(n, 16, 4, 8): entry k = (k+1)P in niels form, by the kernel's
+    sequence (odd multiples t(k-1) + P, even ones doubled from t(k/2)),
+    so the canonical words equal the kernel's bit for bit."""
+    p = F.words_to_limbs(points)
+    t = [p, C.point_double(p)]
+    for k in range(3, TBL5 + 1):
+        t.append(
+            C.point_add(t[k - 2], p) if k % 2 else C.point_double(t[k // 2 - 1])
+        )
+    return F.limbs_to_words(torch.stack([C.to_niels(q) for q in t], dim=1))
+
+
+def _digits5(words: torch.Tensor, win: int) -> torch.Tensor:
+    w = words[:, win // 4].to(torch.int64) & 0xFFFFFFFF
+    return (w >> (8 * (win % 4))) & 31
+
+
+def msm_win5_plain(table, words, chain, v, poff, woff, split, poff2):
+    """The window-accumulator walk: each window's sum of every step's
+    selected niels entry (windows batched, about 2^16 selections at a
+    time), then Horner over the window sums, most significant first."""
+    dev = table.device
+    j = torch.arange(v, device=dev)
+    rows = torch.where(j < split, poff + j, poff2 + j - split)
+    tbl = F.words_to_limbs(table[rows])  # (v, 16, 4, 16)
+    w = words[woff : woff + v]
+    ident_n = C.identity(1, dev)[:, [1, 1, 3, 2]]  # niels (1, 1, 0, 1)
+    group = max(1, (1 << 16) // max(v, 1))
+    sums = []
+    for w0 in range(0, W5_WINDOWS, group):
+        e = torch.stack([
+            _digits5(w, win) for win in range(w0, min(w0 + group, W5_WINDOWS))
+        ])  # (g, v)
+        neg = e >= 16
+        mag = torch.where(neg, 32 - e, e)
+        ent = tbl[j, (mag - 1).clamp(min=0)]  # (g, v, 4, 16)
+        ent = torch.where((mag == 0)[..., None, None], ident_n, ent)
+        sel = C.point_add_niels(
+            C.identity(1, dev).expand_as(ent), C.niels_negate(ent, neg)
+        )
+        sums.append(C.block_reduce(sel)[:, 0])
+    sums = torch.cat(sums)  # (51, 4, 16)
+    acc = sums[W5_WINDOWS - 1 :]
+    for win in range(W5_WINDOWS - 2, -1, -1):
+        for _ in range(5):
+            acc = C.point_double(acc)
+        acc = C.point_add(acc, sums[win : win + 1])
+    return F.limbs_to_words(C.point_add(acc, F.words_to_limbs(chain)))
+
+
 # ------------------------------------------------------------- wrappers
 def msm_w4(points: torch.Tensor, words: torch.Tensor,
            acc: torch.Tensor) -> torch.Tensor:
@@ -179,7 +284,7 @@ def msm_w4(points: torch.Tensor, words: torch.Tensor,
         ),
         "msm_w4",
     )
-    LAUNCHES["msm_w4"] += 1
+    _count("msm_w4")
     return out
 
 
@@ -210,7 +315,7 @@ def msm_w4_pair(points: torch.Tensor, words: torch.Tensor,
         ),
         "msm_w4_pair",
     )
-    LAUNCHES["msm_w4_pair"] += 1
+    _count("msm_w4_pair")
     return out
 
 
@@ -234,5 +339,95 @@ def fold_bits(left: torch.Tensor, right: torch.Tensor, wl: torch.Tensor,
         ),
         "fold_bits",
     )
-    LAUNCHES["fold_bits"] += 1
+    _count("fold_bits")
+    return out
+
+
+def msm_lane(points: torch.Tensor, words: torch.Tensor, v: int
+             ) -> torch.Tensor:
+    """(v, 4, 8): row s = sum_i d_i * points_i over segment s, points
+    [s * seg, (s + 1) * seg) with seg = len(points) / v (signed w4 words)."""
+    dev = points.device
+    n = points.shape[0]
+    if v < 1 or n % v or n == 0:
+        raise ValueError(f"msm_lane: {n} points do not split into {v} segments")
+    seg = n // v
+    _check(points, "points", (n, 4, 8), dev)
+    _check(words, "words", (n, 8), dev)
+    if _route(dev) == "plain":
+        return msm_lane_plain(points, words, v)
+    lib = build.load()
+    out = torch.empty((v, 4, 8), dtype=torch.int32, device=dev)
+    partials = torch.empty(
+        (v * _msm_partials(lib, seg), 4, 8), dtype=torch.int32, device=dev
+    )
+    build.check(
+        lib.bp_msm_lane(
+            _ptr(points), _ptr(words), _ptr(out), _ptr(partials), v, seg,
+            _stream(dev),
+        ),
+        "msm_lane",
+    )
+    _count("msm_lane")
+    return out
+
+
+def table_w5(points: torch.Tensor) -> torch.Tensor:
+    """(n, 16, 4, 8): entry k of row i = (k+1) * points_i, niels form."""
+    dev = points.device
+    n = points.shape[0]
+    _check(points, "points", (n, 4, 8), dev)
+    if _route(dev) == "plain":
+        return table_w5_plain(points)
+    lib = build.load()
+    out = torch.empty((n, TBL5, 4, 8), dtype=torch.int32, device=dev)
+    build.check(
+        lib.bp_table_w5(_ptr(points), _ptr(out), n, _stream(dev)), "table_w5"
+    )
+    _count("table_w5")
+    return out
+
+
+def msm_win5(table: torch.Tensor, words: torch.Tensor, chain: torch.Tensor,
+             v: int, poff: int = 0, woff: int = 0, split: int | None = None,
+             poff2: int = 0) -> torch.Tensor:
+    """(1, 4, 8) = chain + sum_{j < v} d_j * P_row(j) over a ``table_w5``
+    table, d_j from word row woff + j (w5 bytes).  Step j reads table row
+    poff + j for j < split and poff2 + (j - split) beyond (default split:
+    v, one segment)."""
+    dev = table.device
+    N, M = table.shape[0], words.shape[0]
+    _check(table, "table", (N, TBL5, 4, 8), dev)
+    _check(words, "words", (M, 16), dev)
+    _check(chain, "chain", (1, 4, 8), dev)
+    if split is None:
+        split, poff2 = v, poff
+    if not (
+        0 <= split <= v and min(poff, poff2, woff) >= 0
+        and poff + split <= N and poff2 + (v - split) <= N and woff + v <= M
+    ):
+        raise ValueError(
+            f"msm_win5: walk v={v} poff={poff} woff={woff} split={split} "
+            f"poff2={poff2} leaves table ({N}) / words ({M})"
+        )
+    if _route(dev) == "plain":
+        return msm_win5_plain(table, words, chain, v, poff, woff, split, poff2)
+    if table.data_ptr() % 16:
+        raise ValueError("msm_win5: table not 16-byte aligned")
+    lib = build.load()
+    out = torch.empty((1, 4, 8), dtype=torch.int32, device=dev)
+    nb = -(-v // lib.bp_win5_points_per_block())
+    windows = lib.bp_win5_windows()
+    partials = torch.empty(
+        (max(1, windows * nb), 4, 8), dtype=torch.int32, device=dev
+    )
+    wtot = torch.empty((windows, 4, 8), dtype=torch.int32, device=dev)
+    build.check(
+        lib.bp_msm_win5(
+            _ptr(table), _ptr(words), _ptr(chain), _ptr(out), _ptr(partials),
+            _ptr(wtot), v, poff, woff, split, poff2, _stream(dev),
+        ),
+        "msm_win5",
+    )
+    _count("msm_win5")
     return out

@@ -50,6 +50,40 @@ def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def to_niels(p: torch.Tensor) -> torch.Tensor:
+    """Extended -> niels form (Y+X, Y-X, 2d*T, Z) (``_to_niels`` :934)."""
+    X, Y, Z, T = p.unbind(-2)
+    return torch.stack(
+        [F.add(Y, X), F.sub(Y, X), F.mul(T, _d2_limbs(p.device)), Z], dim=-2
+    )
+
+
+def niels_negate(q: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Niels -P where `mask` is true: swap Y+X with Y-X, negate 2dT."""
+    ypx, ymx, t2d, Z = q.unbind(-2)
+    m = mask[..., None]
+    return torch.stack(
+        [torch.where(m, ymx, ypx), torch.where(m, ypx, ymx),
+         torch.where(m, F.neg(t2d), t2d), Z],
+        dim=-2,
+    )
+
+
+def point_add_niels(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p (extended) + q (niels): ``emit_point_add_niels`` :949, the
+    add-2008-hwcd-3 formula with q's sums and 2d product precomputed."""
+    X1, Y1, Z1, T1 = p.unbind(-2)
+    ypx, ymx, t2d, Z2 = q.unbind(-2)
+    lhs = torch.stack([F.sub(Y1, X1), F.add(Y1, X1), T1, Z1], dim=-2)
+    rhs = torch.stack([ymx, ypx, t2d, Z2], dim=-2)
+    A, B, C, ZZ = F.mul(lhs, rhs).unbind(-2)
+    Dv = F.add(ZZ, ZZ)
+    E, Fv, G, H = F.sub(B, A), F.sub(Dv, C), F.add(Dv, C), F.add(B, A)
+    return F.mul(
+        torch.stack([E, G, Fv, E], dim=-2), torch.stack([Fv, H, G, H], dim=-2)
+    )
+
+
 def point_double(p: torch.Tensor) -> torch.Tensor:
     """dbl-2008-hwcd (a = -1); reads X, Y, Z."""
     X1, Y1, Z1, _ = p.unbind(-2)
@@ -81,14 +115,16 @@ def point_select(mask: torch.Tensor, p: torch.Tensor, q: torch.Tensor):
 
 
 def block_reduce(p: torch.Tensor) -> torch.Tensor:
-    """(n, 4, 16) -> (1, 4, 16) group sum by a halving add tree."""
-    n = p.shape[0]
+    """(..., n, 4, 16) -> (..., 1, 4, 16) group sums over the point axis
+    by a halving add tree."""
+    n = p.shape[-3]
     if n == 0:
-        return identity(1, p.device)
+        return identity(1, p.device).expand(*p.shape[:-3], 1, 4, F.NLIMBS)
     while n > 1:
         if n % 2:
-            p = torch.cat([p, identity(1, p.device)])
+            pad = identity(1, p.device).expand(*p.shape[:-3], 1, 4, F.NLIMBS)
+            p = torch.cat([p, pad], dim=-3)
             n += 1
-        p = point_add(p[: n // 2], p[n // 2 :])
+        p = point_add(p[..., : n // 2, :, :], p[..., n // 2 :, :, :])
         n //= 2
     return p

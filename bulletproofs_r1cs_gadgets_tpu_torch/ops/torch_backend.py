@@ -3,18 +3,27 @@
 The engine (``core/prover.py``, ``core/verifier.py``) reaches the device
 through a narrow seam: ``phase_commitments`` / ``ipp_create`` for the
 prover and ``msm_gens`` / ``msm`` for the verifier.  :class:`TorchBackend`
-implements that seam for the configuration in which the JAX package's
-``PallasBackend`` takes its chunk-list route (generator arrays not in
-capacity-array mode), which needs three kernels: ``msm_w4`` for every MSM,
-``fold_bits`` for the IPP generator folds and ``msm_w4_pair`` for the
-frozen-tail rounds.
+implements that seam on six kernels, following the JAX package's
+``PallasBackend`` under its default flags where those kernels reach:
+
+* every walk over the SHARED generators (the phase-1 commitments, IPP
+  round 1 and the verifier's G/H segments) runs the w5 walker
+  ``msm_win5`` over ``table_w5`` tables built once per generator set,
+  when the size is in the reference's grid range (``walker_min_n``);
+* IPP rounds 2 and later run the chunk-list route: ``msm_w4`` per side
+  and ``fold_bits`` folds, then ``msm_w4_pair`` once frozen (the
+  reference's combined-layout rounds are not ported yet);
+* in a batch whose active jobs are all frozen, one ``msm_lane`` launch
+  computes every job's L and R (the flotilla);
+* every other MSM is one ``msm_w4`` launch.
 
 Proof bytes do not depend on the route: every commitment and every L/R
 point is the same group element whichever kernels compute it, and
-ristretto compression is canonical.  The host-side Q terms, the
-factor-vector bookkeeping and the frozen-tail helpers are the JAX
-package's (``ops/pallas_backend.py`` :540-654, :657-1103), re-homed here
-because that module imports JAX.
+ristretto compression is canonical.  The host-side Q terms and blinding
+heads, the factor-vector bookkeeping, the frozen-tail helpers and the
+batch scheduler are the JAX package's (``ops/pallas_backend.py``
+:317-532, :540-654, :657-1103), re-homed here because that module imports
+JAX.
 
 Scalar vectors arrive as ``(n, 4) uint64`` numpy arrays (``core/scvec``);
 points live on the device as flat ``(n, 4, 8)`` int32 tensors (one launch
@@ -22,6 +31,9 @@ per MSM or fold, whatever n).
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,6 +51,7 @@ from bulletproofs_r1cs_gadgets_tpu.core.scalar import Scalar
 from bulletproofs_r1cs_gadgets_tpu.utils.config import DEFAULT_CONFIG
 from bulletproofs_r1cs_gadgets_tpu.utils.constants import L as _L
 
+from . import build
 from . import chunks as ck
 from . import cuda_curve as cc
 from . import field as F
@@ -46,6 +59,16 @@ from . import field as F
 MIN_DEVICE_N = DEFAULT_CONFIG.engine.pallas_min_device_n
 # Frozen-tail side cap (see the frozen-tail helpers below).
 FROZEN_MAX_SIDE = 1024
+# The reference's grid range: the shared-table walker serves n points when
+# they span 2..GRID_CHUNKS chunks of CHUNK points (``_nchunks`` and
+# ``_gens_big`` / ``_gens_table``, pallas_backend.py:118, :161-193).
+CHUNK = 2048
+GRID_CHUNKS = 128
+WALKER_MIN_N = CHUNK + 1
+WALKER_MAX_N = GRID_CHUNKS * CHUNK
+# A flotilla round walks 2 segments per job, at most GRID_CHUNKS of them
+# (pallas_backend.py:474).
+FLOTILLA_MAX_SEGMENTS = GRID_CHUNKS
 
 
 def _as_array(scalars) -> np.ndarray:
@@ -62,22 +85,28 @@ class TorchBackend:
 
     ``frozen_max_side`` is the IPP's frozen-tail side cap; lowering it (to
     0 to disable freezing) lets small CPU tests walk the unfrozen rounds.
-    Proof bytes do not depend on it."""
+    ``walker_min_n`` is the smallest walk over the shared generators that
+    takes the w5 walker (the reference's: more than one 2048-point chunk;
+    up to ``WALKER_MAX_N``); lowering it lets small CPU tests reach the
+    walker.  Proof bytes depend on neither."""
 
     def __init__(self, device="cpu", min_device_n: int = MIN_DEVICE_N,
-                 frozen_max_side: int = FROZEN_MAX_SIDE):
+                 frozen_max_side: int = FROZEN_MAX_SIDE,
+                 walker_min_n: int = WALKER_MIN_N):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.min_device_n = min_device_n
         self.frozen_max_side = frozen_max_side
+        self.walker_min_n = walker_min_n
         self._gens_cache: dict = {}
         self._point_cache: dict = {}
 
     def evict_gens(self) -> None:
-        """Free every cached generator tensor (the cache is keyed by
-        ``id(gens_share._gens)``, so dead gens objects can never be hit
-        again yet still pin device memory)."""
+        """Free every cached generator tensor and w5 table (the cache is
+        keyed by ``id(gens_share._gens)``, so dead gens objects can never
+        be hit again yet still pin device memory: 1 GiB of tables at
+        2^18)."""
         self._gens_cache.clear()
         self._point_cache.clear()
 
@@ -92,6 +121,31 @@ class TorchBackend:
             got = F.from_raw(raw, self.device)
             self._gens_cache[key] = got
         return got[:n]
+
+    def _gens_table5(self, gens_share, n: int, which: str) -> torch.Tensor:
+        """``table_w5`` table of the first >= n generators, built once per
+        gens object (``PallasBackend._gens_table``).  It covers n rounded
+        up to a power of two (at most the capacity), so the phase-1 walk
+        over the multipliers and the IPP's round 1 over the padded size
+        share one build."""
+        key = (id(gens_share._gens), which, "tbl5")
+        got = self._gens_cache.get(key)
+        if got is None or got.shape[0] < n:
+            cap = gens_share._gens.gens_capacity
+            m = max(n, min(1 << (n - 1).bit_length(), cap))
+            got = cc.table_w5(self._gens(gens_share, m, which))
+            self._gens_cache[key] = got
+        return got
+
+    def walks(self, n: int) -> bool:
+        """Whether a walk of n shared generators takes the w5 walker."""
+        return self.walker_min_n <= n <= WALKER_MAX_N
+
+    def _win5(self, table, arr, v, chain=None, **kw):
+        """One ``msm_win5`` walk with w5 words of `arr` (scalar rows)."""
+        if chain is None:
+            chain = F.identity_points(1, self.device)
+        return cc.msm_win5(table, ck.w5_words(arr, self.device), chain, v, **kw)
 
     def _cached_point(self, tag: str, point: RistrettoPoint) -> torch.Tensor:
         key = (tag, point.compress())
@@ -117,8 +171,10 @@ class TorchBackend:
     def msm_gens(
         self, scalars, head_points, gens_share, padded_n, tail_points
     ) -> RistrettoPoint:
-        """Verifier mega-MSM over [head, G(padded_n), H(padded_n), tail]
-        in one launch; the generator segments come from the device cache."""
+        """Verifier mega-MSM over [head, G(padded_n), H(padded_n), tail]:
+        in the walker's range the chain head ``msm_w4`` -> ``msm_win5``
+        over the G table -> over the H table -> tail ``msm_w4``
+        (pallas_backend.py:235-261); otherwise one ``msm_w4`` launch."""
         nh, nt = len(head_points), len(tail_points)
         total = nh + 2 * padded_n + nt
         arr = _as_array(scalars)
@@ -128,6 +184,21 @@ class TorchBackend:
                 + gens_share.H(padded_n) + tail_points
             )
             return multiscalar_mul(scvec.to_scalars(arr), pts)
+        if self.walks(padded_n):
+            acc = ck.msm_chain(
+                F.from_points(head_points, self.device),
+                ck.w4_words(arr[:nh], self.device),
+            )
+            g_end, h_end = nh + padded_n, nh + 2 * padded_n
+            tG = self._gens_table5(gens_share, padded_n, "G")
+            tH = self._gens_table5(gens_share, padded_n, "H")
+            acc = self._win5(tG, arr[nh:g_end], padded_n, chain=acc)
+            acc = self._win5(tH, arr[g_end:h_end], padded_n, chain=acc)
+            acc = ck.msm_chain(
+                F.from_points(tail_points, self.device),
+                ck.w4_words(arr[h_end:], self.device), acc,
+            )
+            return ck.fetch_points([acc])[0]
         pts = torch.cat([
             F.from_points(head_points, self.device),
             self._gens(gens_share, padded_n, "G"),
@@ -164,16 +235,29 @@ class TorchBackend:
         i_blinding, o_blinding, s_blinding, B_blinding, offset,
     ):
         """Launch the three phase-1 MSMs; returns their device
-        accumulators (no sync)."""
+        accumulators (no sync) and, on the walker route, the blinding
+        heads i/o/s_blinding * B_blinding as host points to add after the
+        fetch (pallas_backend.py:317-356)."""
         assert offset == 0, "phase-2 device commitments not yet routed"
         n = len(a_L)
         dev = self.device
+        a_L, a_R, a_O = _as_array(a_L), _as_array(a_R), _as_array(a_O)
+        s_L, s_R = _as_array(s_L), _as_array(s_R)
+        if self.walks(n):
+            tG = self._gens_table5(gens_share, n, "G")
+            tH = self._gens_table5(gens_share, n, "H")
+            heads = tuple(
+                B_blinding.scalar_mul(b)
+                for b in (i_blinding, o_blinding, s_blinding)
+            )
+            acc_AI = self._win5(tH, a_R, n, chain=self._win5(tG, a_L, n))
+            acc_AO = self._win5(tG, a_O, n)
+            acc_S = self._win5(tH, s_R, n, chain=self._win5(tG, s_L, n))
+            return (acc_AI, acc_AO, acc_S), heads
         bb = self._cached_point("Bb", B_blinding)
         G = self._gens(gens_share, n, "G")
         H = self._gens(gens_share, n, "H")
         bGH = torch.cat([bb, G, H])
-        a_L, a_R, a_O = _as_array(a_L), _as_array(a_R), _as_array(a_O)
-        s_L, s_R = _as_array(s_L), _as_array(s_R)
         row = scvec.scalar_to_row
         acc_AI = ck.msm_chain(
             bGH, ck.segment_words([row(i_blinding)[None], a_L, a_R], dev)
@@ -185,7 +269,7 @@ class TorchBackend:
         acc_S = ck.msm_chain(
             bGH, ck.segment_words([row(s_blinding)[None], s_L, s_R], dev)
         )
-        return acc_AI, acc_AO, acc_S
+        return (acc_AI, acc_AO, acc_S), None
 
     def phase_commitments(self, *args):
         return self.phase_commitments_batch([args])[0]
@@ -194,17 +278,22 @@ class TorchBackend:
         """Phase-1 vector commitments for B provers: every MSM is launched,
         then all are fetched with ONE sync.  Returns [(A_I, A_O, S)]."""
         out: list = [None] * len(jobs)
-        accs, order = [], []
+        accs, heads, order = [], [], []
         for idx, job in enumerate(jobs):
             if len(job[1]) < self.min_device_n:
                 out[idx] = self._phase_host(*job)
             else:
-                accs.extend(self._phase_begin(*job))
+                job_accs, job_heads = self._phase_begin(*job)
+                accs.extend(job_accs)
+                heads.append(job_heads)
                 order.append(idx)
         if accs:
             pts = ck.fetch_points(accs)
             for j, idx in enumerate(order):
-                out[idx] = tuple(p.compress() for p in pts[3 * j : 3 * j + 3])
+                trio = pts[3 * j : 3 * j + 3]
+                if heads[j] is not None:
+                    trio = [p + h for p, h in zip(trio, heads[j])]
+                out[idx] = tuple(p.compress() for p in trio)
         return out
 
     # ------------------------------------------------------------------ IPP
@@ -221,7 +310,12 @@ class TorchBackend:
 
     def ipp_create_batch(self, jobs: list[tuple]) -> list[InnerProductProof]:
         """Inner-product arguments for B proofs in lockstep: per round,
-        every job's L/R MSMs launch, then ONE sync fetches them all."""
+        every job's L/R MSMs launch, then ONE sync fetches them all.  When
+        more than one job is active and every active job is frozen, the
+        round is a flotilla round: one ``msm_lane`` launch over every
+        job's frozen pack (pallas_backend.py:429-537).  A thread pool runs
+        the jobs' host stages; each job's transcript order is unchanged,
+        only device work interleaves."""
         out: list = [None] * len(jobs)
         states: list[tuple[int, _IppJob]] = []
         for idx, job in enumerate(jobs):
@@ -238,14 +332,46 @@ class TorchBackend:
                 )
             else:
                 states.append((idx, _IppJob(self, *job)))
-        while True:
-            active = [s for _, s in states if s.n > 1]
-            if not active:
-                break
-            accs = [acc for s in active for acc in s.round_dispatch()]
-            pts = ck.fetch_points(accs)
-            for j, s in enumerate(active):
-                s.round_finish(pts[2 * j], pts[2 * j + 1])
+        if states and self.device.type == "cuda":
+            build.load()  # build once, before any pool thread launches
+        pool = None
+        if len(states) > 1:
+            pool = ThreadPoolExecutor(
+                max_workers=min(len(states), max(1, (os.cpu_count() or 4) - 1))
+            )
+        run = pool.map if pool is not None else map
+        flot_ids: tuple = ()
+        flot_pts = seg = None
+        try:
+            while True:
+                active = [s for _, s in states if s.n > 1]
+                if not active:
+                    break
+                if (len(active) > 1 and all(s.frozen for s in active)
+                        and 2 * len(active) <= FLOTILLA_MAX_SEGMENTS):
+                    ids = tuple(id(s) for s in active)
+                    if ids != flot_ids:
+                        seg = max(2 * s.fzS for s in active)
+                        flot_pts = ck.flotilla_pack(
+                            [s.fz_pack for s in active], seg
+                        )
+                        flot_ids = ids
+                    rows = list(run(_IppJob.frozen_rows, active))
+                    totals = cc.msm_lane(
+                        flot_pts, ck.flotilla_words(rows, seg, self.device),
+                        2 * len(active),
+                    )
+                    pts = ck.fetch_points([totals])
+                else:
+                    pairs = list(run(_IppJob.round_dispatch, active))
+                    pts = ck.fetch_points([a for pair in pairs for a in pair])
+                list(run(
+                    lambda j: active[j].round_finish(pts[2 * j], pts[2 * j + 1]),
+                    range(len(active)),
+                ))
+        finally:
+            if pool is not None:
+                pool.shutdown()
         for idx, s in states:
             out[idx] = s.result()
         return out
@@ -351,10 +477,12 @@ class _IppJob:
     out = D_L + c * D_R with at most two c values (one breakpoint, see
     :func:`_ratio_pieces`), and F folds by one scalar on host.  The
     factors multiply into the L/R MSM *scalars*, so a fold is one
-    ``fold_bits`` launch with ones on the left.  Once both sides fit the
-    frozen side cap the job switches to the frozen tail (one
-    ``msm_w4_pair`` launch per round, no folds).  Q terms are added on
-    host in round_finish."""
+    ``fold_bits`` launch with ones on the left.  Round 1 walks the
+    unfolded generators, so in the walker's range it runs ``msm_win5``
+    over the shared tables.  Once both sides fit the frozen side cap the
+    job switches to the frozen tail (one ``msm_w4_pair`` launch per round,
+    or its share of a batch's ``msm_lane`` launch; no folds).  Q terms are
+    added on host in round_finish."""
 
     def __init__(
         self, backend: TorchBackend, transcript, Q, G_factors, H_factors,
@@ -374,23 +502,33 @@ class _IppJob:
         # phase challenge u), breakpoint bp
         self.rho_G = self.rho_H = meta.get("u", Scalar.one())
         self.y_inv = meta.get("y_inv", Scalar.one())
+        # a is zero beyond the real multiplier count until the first fold
+        self._a_nz = int(meta.get("n_real", padded_n))
         self.Qpt = Q
         self.frozen = False
-        self.fz = None
+        self.fz_pack = self.fz = None
         self.fzS = 0
         self.FFG = self.FFH = None
         self.L_vec: list[bytes] = []
         self.R_vec: list[bytes] = []
         self.G = backend._gens(gens_share, padded_n, "G")
         self.H = backend._gens(gens_share, padded_n, "H")
+        self.tG = self.tH = None
         if padded_n <= self.max_side:
             # small proof: frozen from round 1, no generator folds at all
             self._freeze(self.G, self.H, padded_n)
+        elif backend.walks(padded_n):
+            # round 1 walks the unfolded generators: the shared w5 tables
+            self.tG = backend._gens_table5(gens_share, padded_n, "G")
+            self.tH = backend._gens_table5(gens_share, padded_n, "H")
 
     def _freeze(self, G, H, S: int) -> None:
         """Enter frozen-tail mode with side size S (factor vectors start
-        at one; callers absorb a skipped fold with frozen_fold_update)."""
-        self.fz = ck.frozen_pack(G, H, S)
+        at one; callers absorb a skipped fold with frozen_fold_update).
+        The pair kernel's duplicated pack is built at its first use:
+        flotilla rounds walk the batch's pack instead."""
+        self.fz_pack = ck.frozen_pack(G, H, S)
+        self.fz = None
         self.frozen = True
         self.fzS = S
         self.FFG = _ones_rows(S).copy()
@@ -411,22 +549,48 @@ class _IppJob:
         scH_L = scvec.mul(b_R, self.HF[:n])
         scG_R = scvec.mul(a_R, self.GF[:n])
         scH_R = scvec.mul(b_L, self.HF[n : 2 * n])
+        # a_R is zero beyond nzR in round 1 (dense after the first fold)
+        a_nz, self._a_nz = self._a_nz, 2 * n
+        self._nzR = max(0, min(a_nz - n, n))
         return scG_L, scH_L, scG_R, scH_R
+
+    def frozen_rows(self):
+        """One frozen round's host step: halve n and return the composite
+        (rowsL, rowsR) over [G(S) | H(S)] (a flotilla round packs many
+        jobs' rows into one launch)."""
+        scG_L, scH_L, scG_R, scH_R = self._round_scalars()
+        return frozen_walk_rows(
+            self.fzS, self.n, scG_L, scH_L, scG_R, scH_R, self.FFG, self.FFH,
+        )
 
     def round_dispatch(self):
         """Halve n, compute this round's scalars on host and launch the L/R
         MSMs; returns the (accL, accR) device accumulators (no sync)."""
-        scG_L, scH_L, scG_R, scH_R = self._round_scalars()
-        n = self.n
         if self.frozen:
-            rowsL, rowsR = frozen_walk_rows(
-                self.fzS, n, scG_L, scH_L, scG_R, scH_R, self.FFG, self.FFH,
-            )
+            rowsL, rowsR = self.frozen_rows()
+            if self.fz is None:
+                self.fz = torch.cat([self.fz_pack, self.fz_pack])
             pair = cc.msm_w4_pair(
                 self.fz, ck.segment_words([rowsL, rowsR], self.dev),
                 F.identity_points(2, self.dev), 2 * self.fzS,
             )
             return pair[0:1], pair[1:2]
+        scG_L, scH_L, scG_R, scH_R = self._round_scalars()
+        n = self.n
+        if self.tG is not None:
+            # round 1 over the shared tables (pallas_backend.py:873-884):
+            # G words [scG_R | scG_L], H words [scH_L | scH_R]; R's G walk
+            # stops at a_R's zero tail
+            wG = ck.w5_words(np.concatenate([scG_R, scG_L]), self.dev)
+            wH = ck.w5_words(np.concatenate([scH_L, scH_R]), self.dev)
+            ident = F.identity_points(1, self.dev)
+            vR = max(1, self._nzR) if self._nzR < n else n
+            accL = cc.msm_win5(self.tG, wG, ident, n, poff=n, woff=n)
+            accL = cc.msm_win5(self.tH, wH, accL, n)
+            accR = cc.msm_win5(self.tG, wG, ident, vR)
+            accR = cc.msm_win5(self.tH, wH, accR, n, poff=n, woff=n)
+            self.tG = self.tH = None
+            return accL, accR
         ptsL, ptsR = ck.pack_pair(self.G, self.H, n)
         accL = ck.msm_chain(ptsL, ck.segment_words([scG_L, scH_L], self.dev))
         accR = ck.msm_chain(ptsR, ck.segment_words([scG_R, scH_R], self.dev))

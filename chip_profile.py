@@ -1,0 +1,229 @@
+#!/usr/bin/env python3
+"""Where the time goes on one NVIDIA GPU: the port's profile run.
+
+    python3 chip_profile.py [--out profile.json]
+
+Measures, for a VSMT-2 depth-253 proof (143,704 multipliers padded to
+2^18) through ``TorchBackend("cuda")``:
+
+1. the two routes of the single-proof path in one process: the w5 route
+   (shared-generator walks on ``msm_win5``, the default) and the
+   chunk-list route (``walker_min_n`` above 2^18: every walk on
+   ``msm_w4``); warm prove and verify times alternated w4, w5, w5, w4,
+   w4, w5, w5, w4, each proof checked by the port's verifier;
+2. one ``torch.profiler`` trace per route of a warm prove and a verify:
+   wall time, device time (the union of the device intervals), the
+   device's idle share (1 - device / wall) and device time per kernel;
+3. ``msm_win5`` against ``msm_w4`` over the same 143,704 and 2^18
+   generators (CUDA events; the results must be equal), the w5 and w4
+   word encoders' wall times, and ``table_w5`` over 2^18 generators;
+4. a batch of 8 depth-253 provers through ``prove_provers`` with one host
+   worker and with the default host pool (wall times), and a profiled
+   batch with one host worker.
+
+Prints the card's nvidia-smi name and power limit first and one JSON line
+per part; ``--out`` also writes every number to a JSON file.  Needs one
+CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ROUTE_ORDER = ["w4", "w5", "w5", "w4", "w4", "w5", "w5", "w4"]
+BATCH = 8
+
+
+def device_time_ms(prof, torch) -> tuple[float, dict]:
+    """Union of the trace's device intervals (ms) and the device time per
+    kernel name (top 12: [launches, ms])."""
+    spans, by = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        got = by.setdefault(e.name[:40], [0, 0.0])
+        got[0] += 1
+        got[1] += (b - a) / 1000
+    total, cur = 0.0, None
+    for a, b in sorted(spans):
+        if cur is None or a > cur[1]:
+            total += 0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    total += 0 if cur is None else cur[1] - cur[0]
+    top = dict(sorted(by.items(), key=lambda kv: -kv[1][1])[:12])
+    return total / 1000, top
+
+
+def profiled(torch, fn) -> dict:
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000
+    dev, by = device_time_ms(prof, torch)
+    return dict(wall_ms=wall, device_ms=dev, idle_share=1 - dev / wall,
+                by_kernel=by)
+
+
+def wall_s(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write every number to this file")
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: chip_profile runs only on a GPU")
+    import chip_smoke as cs
+    import bulletproofs_r1cs_gadgets_tpu_torch as bp
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import build
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import cuda_curve as cc
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
+
+    out = {}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    out["card"] = smi.stdout.strip()
+    print(out["card"], flush=True)
+    build.load()
+    gens = bp.BulletproofGens(cs.GENS_N)
+    params, tree = cs.build_tree(bp, cs.DEPTH)
+    comp, tape, comms, prover = cs.synthesize(
+        bp, params, tree, cs.DEPTH, cs.SEED
+    )
+    snap = prover.snapshot()
+
+    def fresh():  # the prover as synthesized, its rng from the seed again
+        prover.restore(snap)
+        prover.rng = np.random.RandomState(cs.SEED)
+
+    # 1-2. the two routes of one proof
+    routes = {
+        "w4": bp.TorchBackend("cuda", walker_min_n=2 * cs.GENS_N),
+        "w5": bp.TorchBackend("cuda"),
+    }
+    proofs = {}
+    for name, be in routes.items():  # cold: tables, uploads
+        fresh()
+        proofs[name] = prover.prove(gens, backend=be)
+        cs.verify(bp, comp, tape, comms, proofs[name], gens, be)
+    assert proofs["w4"].to_bytes() == proofs["w5"].to_bytes()
+    prove_s = {"w4": [], "w5": []}
+    verify_s = {"w4": [], "w5": []}
+    for name in ROUTE_ORDER:
+        be = routes[name]
+        fresh()
+        prove_s[name].append(
+            wall_s(torch, lambda: prover.prove(gens, backend=be))
+        )
+        verify_s[name].append(wall_s(
+            torch,
+            lambda: cs.verify(bp, comp, tape, comms, proofs[name], gens, be),
+        ))
+    out["warm_prove_s"], out["verify_s"] = prove_s, verify_s
+    print(json.dumps({"warm_prove_s": prove_s, "verify_s": verify_s}),
+          flush=True)
+    for name, be in routes.items():
+        def prove_once():
+            fresh()
+            prover.prove(gens, backend=be)
+
+        out[f"profile_prove_{name}"] = profiled(torch, prove_once)
+        out[f"profile_verify_{name}"] = profiled(
+            torch,
+            lambda: cs.verify(bp, comp, tape, comms, proofs[name], gens, be),
+        )
+        print(name, json.dumps(out[f"profile_prove_{name}"]),
+              json.dumps(out[f"profile_verify_{name}"]), flush=True)
+
+    # 3. the walker against the w4 ladder over the same generators
+    dev = torch.device("cuda", 0)
+    be, share = routes["w5"], gens.share(0)
+    tG = be._gens_table5(share, cs.GENS_N, "G")
+    G = be._gens(share, cs.GENS_N, "G")
+    rng = np.random.RandomState(cs.SEED)
+    kern = {}
+    for n in (cs.N1, cs.GENS_N):
+        rows = cs.random_scalar_rows(bp, n, rng)
+        w5, w4 = ck.w5_words(rows, dev), ck.w4_words(rows, dev)
+        chain = F.identity_points(1, dev)
+        Gn = G[:n].contiguous()
+        assert (F.to_points(cc.msm_win5(tG, w5, chain, n))
+                == F.to_points(cc.msm_w4(Gn, w4, chain)))
+        kern[f"msm_win5_ms_{n}"] = cs.time_ms(
+            torch, lambda: cc.msm_win5(tG, w5, chain, n), 5
+        )
+        kern[f"msm_w4_ms_{n}"] = cs.time_ms(
+            torch, lambda: cc.msm_w4(Gn, w4, chain), 5
+        )
+        kern[f"w5_encode_ms_{n}"] = 200 * wall_s(
+            torch, lambda: [ck.w5_words(rows, dev) for _ in range(5)]
+        )
+        kern[f"w4_encode_ms_{n}"] = 200 * wall_s(
+            torch, lambda: [ck.w4_words(rows, dev) for _ in range(5)]
+        )
+    kern[f"table_w5_ms_{cs.GENS_N}"] = cs.time_ms(
+        torch, lambda: cc.table_w5(G), 3
+    )
+    out.update(kern)
+    print(json.dumps(kern), flush=True)
+    be.evict_gens()
+
+    # 4. the batch of 8
+    comp8 = bp.CompiledVSMT2(params, cs.DEPTH, constrain_index_bits=False)
+    circuit = (comp8, comp8.tape(tree.root))
+    jobs = [
+        cs.synthesize(bp, params, tree, cs.DEPTH, cs.SEED + 100 * i, i + 1,
+                      circuit)[3]
+        for i in range(BATCH)
+    ]
+    snaps = [p.snapshot() for p in jobs]
+    bb = bp.TorchBackend("cuda")
+
+    def batch(workers):
+        for p, s in zip(jobs, snaps):
+            p.restore(s)
+        return lambda: bp.prove_provers(jobs, gens, backend=bb,
+                                        host_workers=workers)
+
+    batch(1)()  # cold: tables, uploads
+    res = {
+        "batch8_s_workers1": wall_s(torch, batch(1)),
+        "batch8_s_default_pool": wall_s(torch, batch(None)),
+        "profile_batch8_workers1": profiled(torch, batch(1)),
+    }
+    out.update(res)
+    print(json.dumps(res), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

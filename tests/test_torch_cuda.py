@@ -5,8 +5,9 @@ This file imports no JAX, so it also runs where the port runs:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 Each kernel is held against its plain torch version on the same CUDA
-tensors, and a proof through ``TorchBackend("cuda")`` against the host
-engine's bytes.  Tolerance: exact (equal points, equal bytes).
+tensors, and a proof and a batch of three proofs (``prove_provers``)
+through ``TorchBackend("cuda")`` against the host engine's bytes.
+Tolerance: exact (equal points, equal table words, equal bytes).
 """
 
 import numpy as np
@@ -23,6 +24,8 @@ from bulletproofs_r1cs_gadgets_tpu_torch import (
     Transcript,
     VerificationError,
     Verifier,
+    batch_verify,
+    prove_provers,
     scvec,
 )
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
@@ -73,32 +76,74 @@ def test_kernels_match_plain_on_card(cuda_device):
     wr = ck.fold_words(_scalar_rows(150, 74)[::-1].copy(), dev)
     assert F.to_points(cc.fold_bits(pts[:150], pts[150:], wl, wr)) == \
         F.to_points(cc.fold_bits_plain(pts[:150], pts[150:], wl, wr))
-    assert {k: cc.LAUNCHES[k] - before[k] for k in before} == \
-        {"msm_w4": 1, "msm_w4_pair": 3, "fold_bits": 1}
+    assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
+        "msm_w4": 1, "msm_w4_pair": 3, "fold_bits": 1,
+        "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
+    }
 
 
-def _chain(cs, v, v2):
+def test_w5_and_lane_kernels_match_plain_on_card(cuda_device):
+    dev = cuda_device
+    pts = F.from_points(_points(300, 80), dev)
+    before = dict(cc.LAUNCHES)
+    tbl = cc.table_w5(pts)
+    assert torch.equal(tbl, cc.table_w5_plain(pts))
+    rows = _scalar_rows(300, 81)
+    words = ck.w5_words(rows, dev)
+    words[3] = 0x10101010  # code 16 in every byte: digits of -16
+    chain = F.from_points(_points(1, 82), dev)
+    for kw in (dict(v=300), dict(v=120, poff=7, woff=3),
+               dict(v=250, poff=40, split=200, poff2=10)):
+        got = cc.msm_win5(tbl, words, chain, **kw)
+        sp = kw.get("split", kw["v"])
+        plain = cc.msm_win5_plain(
+            tbl, words, chain, kw["v"], kw.get("poff", 0), kw.get("woff", 0),
+            sp, kw.get("poff2", kw.get("poff", 0)),
+        )
+        assert F.to_points(got) == F.to_points(plain)
+    w4 = ck.w4_words(_scalar_rows(300, 83), dev)
+    w4[100:200] = 0  # an all-zero segment
+    got = F.to_points(cc.msm_lane(pts, w4, 3))
+    assert got == F.to_points(cc.msm_lane_plain(pts, w4, 3))
+    assert got[1].is_identity()
+    assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
+        "msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0,
+        "table_w5": 1, "msm_win5": 3, "msm_lane": 1,
+    }
+
+
+def _chain(cs, v, v2, links=32):
     _, _, o = cs.multiply(v + v2, v - v2)
-    for _ in range(32):
+    for _ in range(links):
         _, _, o = cs.multiply(o + Scalar(1), o + Scalar(2))
 
 
-def _prove(backend):
-    """33 multipliers padded to 64, deterministic prover randomness."""
+def _prover(seed=5, links=32):
+    """links + 1 multipliers (33 padded to 64 by default), deterministic
+    prover randomness."""
     prover = Prover(PedersenGens.default(), Transcript(b"cuda-chain"),
-                    rng=np.random.RandomState(5))
+                    rng=np.random.RandomState(seed))
     com, v = prover.commit(Scalar(41), Scalar(97))
     com2, v2 = prover.commit(Scalar(5), Scalar(13))
-    _chain(prover, v, v2)
-    return (com, com2), prover.prove(BulletproofGens(64), backend=backend)
+    _chain(prover, v, v2, links)
+    return (com, com2), prover
+
+
+def _prove(backend):
+    comms, prover = _prover()
+    return comms, prover.prove(BulletproofGens(64), backend=backend)
+
+
+def _verifier(comms, links=32):
+    verifier = Verifier(Transcript(b"cuda-chain"))
+    v, v2 = (verifier.commit(c) for c in comms)
+    _chain(verifier, v, v2, links)
+    return verifier
 
 
 def _verify(comms, proof, backend):
-    verifier = Verifier(Transcript(b"cuda-chain"))
-    v, v2 = (verifier.commit(c) for c in comms)
-    _chain(verifier, v, v2)
-    verifier.verify(proof, PedersenGens.default(), BulletproofGens(64),
-                    backend=backend)
+    _verifier(comms).verify(proof, PedersenGens.default(),
+                            BulletproofGens(64), backend=backend)
 
 
 @pytest.mark.parametrize("max_side", [1024, 16])
@@ -114,3 +159,30 @@ def test_torch_backend_on_card_matches_host(cuda_device, max_side):
     raw[len(raw) - 64] ^= 1  # low byte of the IPP's `a` scalar
     with pytest.raises(VerificationError):
         _verify(comms, R1CSProof.from_bytes(bytes(raw)), backend)
+
+
+def test_batch_on_card_matches_host(cuda_device):
+    """prove_provers over three provers (64, 64 and 256 padded) on the
+    card, walker threshold lowered: byte-identical to the host's
+    sequential proofs, flotilla rounds launched, and one batch_verify
+    accepts them and rejects a tampered member."""
+    specs = [(5, 32), (6, 32), (7, 128)]
+    gens = BulletproofGens(256)
+    ref = [_prover(*s)[1].prove(gens) for s in specs]
+    built = [_prover(*s) for s in specs]
+    backend = TorchBackend(cuda_device, min_device_n=1, frozen_max_side=64,
+                           walker_min_n=1)
+    before = cc.LAUNCHES["msm_lane"]
+    got = prove_provers([p for _, p in built], gens, backend=backend,
+                        host_workers=1)
+    assert [p.to_bytes() for p in got] == [p.to_bytes() for p in ref]
+    assert cc.LAUNCHES["msm_lane"] - before == 3
+    pc = PedersenGens.default()
+    verifiers = [_verifier(c, s[1]) for (c, _), s in zip(built, specs)]
+    batch_verify(verifiers, got, pc, gens, backend=backend)
+    raw = bytearray(got[2].to_bytes())
+    raw[len(raw) - 64] ^= 1
+    bad = got[:2] + [R1CSProof.from_bytes(bytes(raw))]
+    verifiers = [_verifier(c, s[1]) for (c, _), s in zip(built, specs)]
+    with pytest.raises(VerificationError):
+        batch_verify(verifiers, bad, pc, gens, backend=backend)

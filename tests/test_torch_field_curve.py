@@ -18,6 +18,10 @@ from bulletproofs_r1cs_gadgets_tpu.utils.constants import P
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import curve as C
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
 
+# The plain versions run many small tensor ops: intra-op threads gain
+# nothing there and contend with the other test workers' processes.
+torch.set_num_threads(1)
+
 EDGES = [0, 1, 2, 19, P - 1, P, P + 1, 2**255 - 1, 2**256 - 1, 2**256 - 38]
 
 

@@ -39,6 +39,10 @@ from test_ipp_factor_fold import (
     sim_msm_grid_pair,
 )
 
+# The plain versions run many small tensor ops: intra-op threads gain
+# nothing there and contend with the other test workers' processes.
+torch.set_num_threads(1)
+
 CHUNK = jck.CHUNK
 CSRC = (
     pathlib.Path(__file__).resolve().parent.parent
