@@ -1,10 +1,27 @@
-"""bulletproofs_r1cs_gadgets_tpu_torch: the PyTorch + CUDA port of the
-device layer of ``bulletproofs_r1cs_gadgets_tpu``.
+"""bulletproofs_r1cs_gadgets_tpu_torch: the PyTorch + CUDA port of
+``bulletproofs_r1cs_gadgets_tpu``.
 
-The engine (``core/``), the gadgets, the trees and templates (``models/``)
-and the C++ host library (``native/``) are the JAX package's, imported as
-they are (none of them imports JAX).  This package replaces what sits
-behind the engine's backend seam:
+It imports ``torch`` and never ``jax``, and nothing of the JAX package.
+The host layers that use no JAX are the port's own copies, in the JAX
+package's relative layout (made verbatim, so the two stay comparable file
+by file):
+
+  core/                 the R1CS engine: scalars, ristretto points,
+                        Merlin transcripts, Pedersen / Bulletproof
+                        generators, prover, verifier, IPP, scvec
+  utils/                constants, config, stats, metrics (spans and
+                        traces through ``torch.profiler``)
+  gadgets/              Poseidon, r1cs utilities, zero / nonzero, scalar
+                        utilities, bound check
+  models/               the VSMT-2 / VSMT-4 trees and compiled circuits
+  parallel/batch.py     the batch scheduler (``prove_provers``)
+  native/               the C++ host library, built by ``g++`` into
+                        ``build/`` at first use (pure-Python fallback)
+  carry.py              the JAX package's parameters (generator and
+                        Poseidon arrays) as the port's objects
+  golden/               proof digests of the JAX package's host engine
+
+What sits behind the engine's backend seam is the port's device layer:
 
   ops/field.py          point layout, codecs, plain torch field ops
   ops/curve.py          plain torch point ops
@@ -18,33 +35,32 @@ behind the engine's backend seam:
 Batched proving and verification are the engine's own
 ``prove_provers(provers, gens, backend=TorchBackend("cuda"))`` and
 ``batch_verify(verifiers, proofs, pc_gens, gens, backend=...)``,
-re-exported here.  It imports ``torch`` and never ``jax``.
+re-exported here.
 """
-
-from bulletproofs_r1cs_gadgets_tpu.core import scvec
-from bulletproofs_r1cs_gadgets_tpu.core.errors import VerificationError
-from bulletproofs_r1cs_gadgets_tpu.core.pedersen import (
+from .core import scvec
+from .core.errors import VerificationError
+from .core.pedersen import (
     BulletproofGens,
     PedersenGens,
 )
-from bulletproofs_r1cs_gadgets_tpu.core.proof import R1CSProof
-from bulletproofs_r1cs_gadgets_tpu.core.prover import Prover
-from bulletproofs_r1cs_gadgets_tpu.core.ristretto import (
+from .core.proof import R1CSProof
+from .core.prover import Prover
+from .core.ristretto import (
     RistrettoPoint,
     multiscalar_mul,
 )
-from bulletproofs_r1cs_gadgets_tpu.core.scalar import Scalar
-from bulletproofs_r1cs_gadgets_tpu.core.transcript import Transcript
-from bulletproofs_r1cs_gadgets_tpu.core.verifier import Verifier, batch_verify
-from bulletproofs_r1cs_gadgets_tpu.gadgets.poseidon import PoseidonParams
-from bulletproofs_r1cs_gadgets_tpu.models.compiled import CompiledVSMT2
-from bulletproofs_r1cs_gadgets_tpu.models.vsmt2 import (
+from .core.scalar import Scalar
+from .core.transcript import Transcript
+from .core.verifier import Verifier, batch_verify
+from .gadgets.poseidon import PoseidonParams
+from .models.compiled import CompiledVSMT2
+from .models.vsmt2 import (
     VanillaSparseMerkleTree,
     leaf_index_bit_scalars,
 )
-from bulletproofs_r1cs_gadgets_tpu.native import _native
-from bulletproofs_r1cs_gadgets_tpu.parallel.batch import prove_provers
-from bulletproofs_r1cs_gadgets_tpu.utils.constants import D2, L, P
+from .native import _native
+from .parallel.batch import prove_provers
+from .utils.constants import D2, L, P
 
 from .ops.torch_backend import TorchBackend
 

@@ -41,10 +41,15 @@ SIGNATURES = {
     "bp_msm_w4_pair": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "bp_msm_lane": [_VP, _VP, _VP, _VP, _I, _I, _VP],
     "bp_fold_bits": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
-    "bp_win5_points_per_block": [],
+    "bp_win_points_per_block": [],
     "bp_win5_windows": [],
+    "bp_win4_windows": [],
     "bp_table_w5": [_VP, _VP, _I, _VP],
+    "bp_table_w4": [_VP, _VP, _I, _VP],
     "bp_msm_win5": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "bp_msm_win_pair": [_VP] * 6 + [_I] * 10 + [_VP],
+    "bp_fold_w3h": [_VP, _VP, _VP, _I, _I, _VP],
+    "bp_fold_w3h_comb": [_VP, _VP, _VP, _I, _I, _VP],
 }
 
 

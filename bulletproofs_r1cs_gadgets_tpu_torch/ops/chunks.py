@@ -11,6 +11,12 @@ TPU kernel consumes:
   byte (code d & 31), sum d_i 32^i == scalar (``signed_digit5_bytes``).
 * Fold words: the scalar's raw little-endian 32-bit words
   (``scvec.words_u32``, as ``tail_fold`` and ``const_words`` use).
+* Half-width fold words: a fold constant c split as alpha / beta with
+  |alpha|, |beta| < 2^127 (``half_gcd_split``), each as 44 signed base-8
+  digits in [-4, 3], one per nibble (``w3h_digit_words``); a fold takes
+  one (beta, alpha) pair below the breakpoint and another beyond it (the
+  reference's ``_pw_w3h_rows`` expands them per point; the port's kernels
+  take the two pairs and the breakpoint).
 
 Scalars arrive as ``(n, 4) uint64`` numpy arrays (``core/scvec.py``) and
 are encoded in numpy into int32 rows before ``torch.from_numpy``.
@@ -34,8 +40,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bulletproofs_r1cs_gadgets_tpu.core import scvec
-from bulletproofs_r1cs_gadgets_tpu.core.ristretto import RistrettoPoint
+from ..core import scvec
+from ..core.ristretto import RistrettoPoint
 from . import cuda_curve as cc
 from . import field as F
 
@@ -114,6 +120,65 @@ def w5_words(arr: np.ndarray, device) -> torch.Tensor:
     recoded limbs are uploaded (32 B per row) and split into digit bytes
     there."""
     return _digit5_bytes(_recode5(arr, device))
+
+
+W3H_DIGITS = 44  # 3-bit signed digits covering |x| < 2^130 (half-width)
+
+
+def w3h_digit_words(x: int) -> np.ndarray:
+    """Signed int |x| < 2^130 -> (8,) int32 packed 3-bit signed digits,
+    one per nibble: x = sum d_i 8^i, d_i in [-4, 3], nibble code d & 7
+    (0 adds nothing; e >= 4 is the digit e - 8)."""
+    assert abs(x) < 1 << 130
+    C = 4 * ((1 << (3 * W3H_DIGITS)) - 1) // 7  # 4 in every digit
+    t = x + C
+    assert 0 <= t < 1 << (3 * W3H_DIGITS)
+    buf = 0
+    for i in range(W3H_DIGITS):
+        # q in 0..7, d = q - 4 in -4..3, code d & 7 = q ^ 4
+        buf |= (((t >> (3 * i)) & 7) ^ 4) << (4 * i)
+    return np.frombuffer(buf.to_bytes(32, "little"), dtype="<i4").astype(np.int32)
+
+
+def half_gcd_split(c: int, mod: int) -> tuple[int, int]:
+    """Signed (alpha, beta) with alpha == beta * c (mod `mod`) and
+    |alpha|, |beta| < 2^127 for a 253-bit modulus: the extended-GCD
+    midpoint (the first remainder below 2^127 has |t| <= mod / r_prev
+    < 2^126).  A fold by c then runs as the half-width dual ladder
+    beta * L + alpha * R, with beta^-1 carried in the factor vectors."""
+    c %= mod
+    if c == 0:
+        return 0, 1
+    r0, r1 = mod, c
+    t0, t1 = 0, 1
+    while r1 >= 1 << 127:
+        q = r0 // r1
+        r0, r1 = r1, r0 - q * r1
+        t0, t1 = t1, t0 - q * t1
+    assert abs(t1) < 1 << 127 and (r1 - t1 * c) % mod == 0
+    return r1, t1
+
+
+def w3h_fold_words(sides, device) -> torch.Tensor:
+    """Fold words for ``fold_w3h`` (one side) or ``fold_w3h_comb`` (two):
+    `sides` lists one ((alpha_A, beta_A), (alpha_B, beta_B)) pair of
+    :func:`half_gcd_split` results per side.  Returns (sides, 2, 2, 8)
+    int32: [side][pair][beta digits, alpha digits]."""
+    w = np.stack([
+        np.stack([np.stack([w3h_digit_words(beta), w3h_digit_words(alpha)])
+                  for alpha, beta in pairs])
+        for pairs in sides
+    ])
+    return torch.from_numpy(np.ascontiguousarray(w)).to(device)
+
+
+def comb_walks(n: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """``msm_win_pair``'s two walks (v, poff, woff, split, poff2) for a
+    combined round of side n over the table of [G(2n) | H(2n)] with words
+    [scG_L | scH_L | scG_R | scH_R] (``ck.msm_win_pair``): L walks table
+    rows [n, 3n) with words [0, 2n); R walks rows [0, n) then [3n, 4n)
+    with words [2n, 4n)."""
+    return (2 * n, n, 0, 2 * n, n), (2 * n, 0, 2 * n, n, 3 * n)
 
 
 def bit_words(arr: np.ndarray) -> np.ndarray:

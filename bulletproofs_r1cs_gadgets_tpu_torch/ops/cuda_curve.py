@@ -1,18 +1,21 @@
-"""Wrappers for the port's six Hopper kernels, with their plain versions.
+"""Wrappers for the port's ten Hopper kernels, with their plain versions.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and then
 
 * for CPU tensors, runs the plain torch version beside it (this is what
   the CPU tests exercise);
-* for CUDA tensors, launches its kernel from ``csrc/msm_fold.cu`` or
-  ``csrc/win5.cu`` on the current stream, raises if the launch failed,
+* for CUDA tensors, launches its kernel from ``csrc/msm_fold.cu``,
+  ``csrc/win.cu`` or ``csrc/fold_w3h.cu`` on the current stream, raises
+  if the launch failed,
   and adds one to ``LAUNCHES[name]``.  There is no fallback to the plain
   version.
 
 Tensors (see :mod:`.field`): points ``(n, 4, 8)`` int32, w4 and bit
-scalar words ``(n, 8)`` int32, w5 words ``(n, 16)`` int32, w5 tables
-``(n, 16, 4, 8)`` int32 (niels entries), accumulators ``(k, 4, 8)``.
+scalar words ``(n, 8)`` int32, w5 words ``(n, 16)`` int32, w5 / w4
+tables ``(n, 16, 4, 8)`` / ``(n, 8, 4, 8)`` int32 (niels entries),
+half-width fold words ``(sides, 2, 2, 8)`` int32, accumulators
+``(k, 4, 8)``.
 Outputs are canonical.
 
 Kernel notes (what each replaces, what bounds it on an H100, what its
@@ -62,7 +65,37 @@ point operations per point for the w4 ladder), then the 128 B table read
 per point and window.  Design: the windows run in parallel, one per
 block row; each thread sums 16 selected entries of one window, a block
 tree and a second launch reduce each window, and one thread folds the 51
-window totals by Horner (see ``csrc/win5.cu``).
+window totals by Horner (see ``csrc/win.cu``).
+
+``table_w4`` replaces ``pallas_curve.table_grid_full`` / ``_half`` /
+``_full_donate`` / ``_half_donate`` (:1012-1026, ``_table_body`` :922,
+``_to_niels`` :934): the 8 multiples over the combined [G' | H'] layout,
+rebuilt each combined round.  One kernel: the four TPU variants are
+capacity shapes and XLA buffer donation; here `out` takes the previous
+round's table storage.  Bound: the 1 KiB store per point.  Design:
+``table_w5``'s kernel template at 8 entries (entry for entry its first
+half).
+
+``msm_win_pair`` replaces ``pallas_curve.msm_win_pair_dyn`` (:1462,
+``_msm_win_pair_kernel`` :1360, ``_win_digit_select`` :1037): both w4
+window walks of a combined IPP round in one launch.  Bound: integer
+multiplies (64 niels adds per point), then the table stream.  Design:
+``msm_win5``'s kernel template at 4 bits (64 windows, 8 entries) with a
+walk dimension, each walk with its own [v, poff, woff, split, poff2];
+both walks' Horner folds run in one last launch, one thread each.
+
+``fold_w3h`` replaces ``pallas_curve.fold_grid_w3h`` (:646,
+``_fold_w3h_call`` :618, ``_fold_w3h_kernel`` :604, ``_emit_fold_w3h``
+:574, ``_w3_digit_select`` :561), and ``fold_w3h_comb`` replaces
+``fold_grid_w3h_comb`` (:685, ``_fold_w3h_comb_call`` :649): out[i] =
+beta * P[i] + alpha * P[i + v] with two signed half-width pairs split at
+a breakpoint, one side or both sides of the combined layout.  Bound:
+integer multiplies (~226 point operations per point).  Design: one
+thread per output point, two 4-entry tables and one shared doubling
+chain over 44 signed w3 digits; the kernels take the two pairs' digit
+words and the breakpoint (the TPU passes per-lane word arrays), and
+write a tensor apart from their input (the TPU folds in place, which
+blocks running in any order cannot).
 """
 
 from __future__ import annotations
@@ -79,10 +112,14 @@ from . import field as F
 LAUNCHES = {
     "msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0,
     "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
+    "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
 }
 _COUNT_LOCK = threading.Lock()  # batched IPP rounds launch from a pool
 TBL5 = 16
 W5_WINDOWS = 51  # ceil(253 / 5)
+TBL4 = 8
+W4_WINDOWS = 64
+W3H_DIGITS = 44
 
 
 def reset_launches() -> None:
@@ -210,17 +247,26 @@ def msm_lane_plain(points, words, v: int) -> torch.Tensor:
     return F.limbs_to_words(totals[:, 0])
 
 
-def table_w5_plain(points) -> torch.Tensor:
-    """(n, 16, 4, 8): entry k = (k+1)P in niels form, by the kernel's
-    sequence (odd multiples t(k-1) + P, even ones doubled from t(k/2)),
-    so the canonical words equal the kernel's bit for bit."""
+def _table_plain(points, entries: int) -> torch.Tensor:
+    """(n, entries, 4, 8): entry k = (k+1)P in niels form, by the
+    kernel's sequence (odd multiples t(k-1) + P, even ones doubled from
+    t(k/2)), so the canonical words equal the kernel's bit for bit."""
     p = F.words_to_limbs(points)
     t = [p, C.point_double(p)]
-    for k in range(3, TBL5 + 1):
+    for k in range(3, entries + 1):
         t.append(
             C.point_add(t[k - 2], p) if k % 2 else C.point_double(t[k // 2 - 1])
         )
     return F.limbs_to_words(torch.stack([C.to_niels(q) for q in t], dim=1))
+
+
+def table_w5_plain(points) -> torch.Tensor:
+    return _table_plain(points, TBL5)
+
+
+def table_w4_plain(points) -> torch.Tensor:
+    """The first 8 entries of ``table_w5_plain``, word for word."""
+    return _table_plain(points, TBL4)
 
 
 def _digits5(words: torch.Tensor, win: int) -> torch.Tensor:
@@ -228,37 +274,94 @@ def _digits5(words: torch.Tensor, win: int) -> torch.Tensor:
     return (w >> (8 * (win % 4))) & 31
 
 
-def msm_win5_plain(table, words, chain, v, poff, woff, split, poff2):
-    """The window-accumulator walk: each window's sum of every step's
-    selected niels entry (windows batched, about 2^16 selections at a
-    time), then Horner over the window sums, most significant first."""
+def _win_plain(table, words, chain, v, poff, woff, split, poff2, bits):
+    """The window-accumulator walk over a niels table: each window's sum
+    of every step's selected entry (windows batched, about 2^16
+    selections at a time), then Horner over the window sums, most
+    significant first.  `bits` 5: w5 bytes and a 16-entry table; 4: w4
+    nibbles and an 8-entry table."""
+    windows, entries, digit = (
+        (W5_WINDOWS, TBL5, _digits5) if bits == 5 else (W4_WINDOWS, TBL4, _digits)
+    )
     dev = table.device
     j = torch.arange(v, device=dev)
     rows = torch.where(j < split, poff + j, poff2 + j - split)
-    tbl = F.words_to_limbs(table[rows])  # (v, 16, 4, 16)
+    tbl = F.words_to_limbs(table[rows])  # (v, entries, 4, 16)
     w = words[woff : woff + v]
     ident_n = C.identity(1, dev)[:, [1, 1, 3, 2]]  # niels (1, 1, 0, 1)
     group = max(1, (1 << 16) // max(v, 1))
     sums = []
-    for w0 in range(0, W5_WINDOWS, group):
+    for w0 in range(0, windows, group):
         e = torch.stack([
-            _digits5(w, win) for win in range(w0, min(w0 + group, W5_WINDOWS))
+            digit(w, win) for win in range(w0, min(w0 + group, windows))
         ])  # (g, v)
-        neg = e >= 16
-        mag = torch.where(neg, 32 - e, e)
+        neg = e >= entries
+        mag = torch.where(neg, 2 * entries - e, e)
         ent = tbl[j, (mag - 1).clamp(min=0)]  # (g, v, 4, 16)
         ent = torch.where((mag == 0)[..., None, None], ident_n, ent)
         sel = C.point_add_niels(
             C.identity(1, dev).expand_as(ent), C.niels_negate(ent, neg)
         )
         sums.append(C.block_reduce(sel)[:, 0])
-    sums = torch.cat(sums)  # (51, 4, 16)
-    acc = sums[W5_WINDOWS - 1 :]
-    for win in range(W5_WINDOWS - 2, -1, -1):
-        for _ in range(5):
+    sums = torch.cat(sums)  # (windows, 4, 16)
+    acc = sums[windows - 1 :]
+    for win in range(windows - 2, -1, -1):
+        for _ in range(bits):
             acc = C.point_double(acc)
         acc = C.point_add(acc, sums[win : win + 1])
     return F.limbs_to_words(C.point_add(acc, F.words_to_limbs(chain)))
+
+
+def msm_win5_plain(table, words, chain, v, poff, woff, split, poff2):
+    return _win_plain(table, words, chain, v, poff, woff, split, poff2, 5)
+
+
+def msm_win_pair_plain(table, words, chain2, walks) -> torch.Tensor:
+    """(2, 4, 8): row s = chain2[s] + walk s (v, poff, woff, split,
+    poff2) over a ``table_w4`` table with w4 words."""
+    return torch.cat([
+        _win_plain(table, words, chain2[s : s + 1], *walks[s], 4)
+        for s in range(2)
+    ])
+
+
+def _fold_w3h_side(points, words, bp) -> torch.Tensor:
+    """One side of the half-width fold: points (2v, 4, 8), words
+    (2, 2, 8) [pair][beta, alpha] -> (v, 4, 8), out[i] = beta * P[i] +
+    alpha * P[i + v] with pair 0 below bp and pair 1 from bp on."""
+    v = points.shape[0] // 2
+    dev = points.device
+    pair = (torch.arange(v, device=dev) >= bp).long()
+    rows = torch.arange(v, device=dev)
+    acc = C.identity(v, dev)
+    steps = []
+    for half, k in ((points[:v], 0), (points[v:], 1)):
+        p = F.words_to_limbs(half)
+        t2 = C.point_double(p)
+        table = torch.stack([acc, p, t2, C.point_add(t2, p), C.point_double(t2)])
+        steps.append((words[pair, k], table))
+    for pos in range(W3H_DIGITS - 1, -1, -1):
+        for _ in range(3):
+            acc = C.point_double(acc)
+        for w, table in steps:
+            e = _digits(w, pos) & 7
+            neg = e >= 4
+            mag = torch.where(neg, 8 - e, e)  # code 4 is the digit -4
+            acc = C.point_add(acc, C.point_negate(table[mag, rows], neg))
+    return F.limbs_to_words(acc)
+
+
+def fold_w3h_plain(points, words, bp) -> torch.Tensor:
+    return _fold_w3h_side(points, words[0], bp)
+
+
+def fold_w3h_comb_plain(points, words, bp) -> torch.Tensor:
+    """[G(2v) | H(2v)] -> [G'(v) | H'(v)], side s with words[s]."""
+    half = points.shape[0] // 2
+    return torch.cat([
+        _fold_w3h_side(points[s * half : (s + 1) * half], words[s], bp)
+        for s in range(2)
+    ])
 
 
 # ------------------------------------------------------------- wrappers
@@ -416,7 +519,7 @@ def msm_win5(table: torch.Tensor, words: torch.Tensor, chain: torch.Tensor,
         raise ValueError("msm_win5: table not 16-byte aligned")
     lib = build.load()
     out = torch.empty((1, 4, 8), dtype=torch.int32, device=dev)
-    nb = -(-v // lib.bp_win5_points_per_block())
+    nb = -(-v // lib.bp_win_points_per_block())
     windows = lib.bp_win5_windows()
     partials = torch.empty(
         (max(1, windows * nb), 4, 8), dtype=torch.int32, device=dev
@@ -431,3 +534,120 @@ def msm_win5(table: torch.Tensor, words: torch.Tensor, chain: torch.Tensor,
     )
     _count("msm_win5")
     return out
+
+
+def table_w4(points: torch.Tensor, out: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """(n, 8, 4, 8): entry k of row i = (k+1) * points_i, niels form.
+    `out`, a table of at least n rows (the previous round's), takes the
+    result in its first n rows instead of a new tensor."""
+    dev = points.device
+    n = points.shape[0]
+    _check(points, "points", (n, 4, 8), dev)
+    if out is not None:
+        if out.shape[0] < n:
+            raise ValueError(f"table_w4: out holds {out.shape[0]} < {n} rows")
+        _check(out, "out", (out.shape[0], TBL4, 4, 8), dev)
+        out = out[:n]
+    if _route(dev) == "plain":
+        got = table_w4_plain(points)
+        return got if out is None else out.copy_(got)
+    lib = build.load()
+    if out is None:
+        out = torch.empty((n, TBL4, 4, 8), dtype=torch.int32, device=dev)
+    build.check(
+        lib.bp_table_w4(_ptr(points), _ptr(out), n, _stream(dev)), "table_w4"
+    )
+    _count("table_w4")
+    return out
+
+
+def msm_win_pair(table: torch.Tensor, words: torch.Tensor,
+                 chain2: torch.Tensor, walks) -> torch.Tensor:
+    """(2, 4, 8): row s = chain2[s] + sum_{j < v} d_j * P_row(j) over a
+    ``table_w4`` table for walk s = (v, poff, woff, split, poff2): step j
+    reads word row woff + j (w4 nibbles) and table row poff + j below
+    split, poff2 + (j - split) from there on (``ck.comb_walks`` gives a
+    combined round's two walks)."""
+    dev = table.device
+    N, M = table.shape[0], words.shape[0]
+    _check(table, "table", (N, TBL4, 4, 8), dev)
+    _check(words, "words", (M, 8), dev)
+    _check(chain2, "chain2", (2, 4, 8), dev)
+    walks = tuple(tuple(int(x) for x in w) for w in walks)
+    if len(walks) != 2 or any(len(w) != 5 for w in walks):
+        raise ValueError(f"msm_win_pair: two walks of 5 ints, got {walks}")
+    for v, poff, woff, split, poff2 in walks:
+        if not (
+            0 <= split <= v and min(poff, poff2, woff) >= 0
+            and poff + split <= N and poff2 + (v - split) <= N
+            and woff + v <= M
+        ):
+            raise ValueError(
+                f"msm_win_pair: walk {(v, poff, woff, split, poff2)} leaves "
+                f"table ({N}) / words ({M})"
+            )
+    if _route(dev) == "plain":
+        return msm_win_pair_plain(table, words, chain2, walks)
+    if table.data_ptr() % 16:
+        raise ValueError("msm_win_pair: table not 16-byte aligned")
+    lib = build.load()
+    out = torch.empty((2, 4, 8), dtype=torch.int32, device=dev)
+    per = lib.bp_win_points_per_block()
+    nb = max(-(-w[0] // per) for w in walks)
+    windows = lib.bp_win4_windows()
+    partials = torch.empty(
+        (max(1, 2 * windows * nb), 4, 8), dtype=torch.int32, device=dev
+    )
+    wtot = torch.empty((2 * windows, 4, 8), dtype=torch.int32, device=dev)
+    build.check(
+        lib.bp_msm_win_pair(
+            _ptr(table), _ptr(words), _ptr(chain2), _ptr(out), _ptr(partials),
+            _ptr(wtot), *walks[0], *walks[1], _stream(dev),
+        ),
+        "msm_win_pair",
+    )
+    _count("msm_win_pair")
+    return out
+
+
+def _fold_w3h_launch(name, points, words, bp, v, sides, out):
+    dev = points.device
+    _check(points, "points", (2 * sides * v, 4, 8), dev)
+    _check(words, "words", (sides, 2, 2, 8), dev)
+    if out is None:
+        out = torch.empty((sides * v, 4, 8), dtype=torch.int32, device=dev)
+    else:
+        _check(out, "out", (sides * v, 4, 8), dev)
+    bp = min(max(int(bp), 0), v)
+    if _route(dev) == "plain":
+        plain = fold_w3h_plain if sides == 1 else fold_w3h_comb_plain
+        return out.copy_(plain(points, words, bp))
+    lib = build.load()
+    build.check(
+        getattr(lib, f"bp_{name}")(
+            _ptr(points), _ptr(out), _ptr(words), v, bp, _stream(dev)
+        ),
+        name,
+    )
+    _count(name)
+    return out
+
+
+def fold_w3h(points: torch.Tensor, words: torch.Tensor, bp: int,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    """(v, 4, 8) from points (2v, 4, 8): out[i] = beta * P[i] + alpha *
+    P[i + v], (beta, alpha) = words[0, 0] below bp and words[0, 1] from
+    bp on (``ck.w3h_fold_words``).  `out` (v, 4, 8), which must not
+    overlap `points`, takes the result instead of a new tensor."""
+    v = points.shape[0] // 2
+    return _fold_w3h_launch("fold_w3h", points, words, bp, v, 1, out)
+
+
+def fold_w3h_comb(points: torch.Tensor, words: torch.Tensor, bp: int
+                  ) -> torch.Tensor:
+    """(2v, 4, 8) = [G'(v) | H'(v)] from points (4v, 4, 8) = [G(2v) |
+    H(2v)] in one launch, side s folded with words[s] (both sides split
+    at bp).  Always a new tensor: never in place."""
+    v = points.shape[0] // 4
+    return _fold_w3h_launch("fold_w3h_comb", points, words, bp, v, 2, None)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from bulletproofs_r1cs_gadgets_tpu.utils.constants import D2
+from ..utils.constants import D2
 from . import field as F
 
 _d2: dict = {}

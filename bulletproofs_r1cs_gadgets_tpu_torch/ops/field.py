@@ -32,8 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bulletproofs_r1cs_gadgets_tpu.core.ristretto import RistrettoPoint
-from bulletproofs_r1cs_gadgets_tpu.utils.constants import P
+from ..core.ristretto import RistrettoPoint
+from ..utils.constants import P
 
 NLIMBS = 16
 LIMB_BITS = 16

@@ -3,19 +3,31 @@
 The engine (``core/prover.py``, ``core/verifier.py``) reaches the device
 through a narrow seam: ``phase_commitments`` / ``ipp_create`` for the
 prover and ``msm_gens`` / ``msm`` for the verifier.  :class:`TorchBackend`
-implements that seam on six kernels, following the JAX package's
-``PallasBackend`` under its default flags where those kernels reach:
+implements that seam on ten kernels, following the JAX package's
+``PallasBackend`` under its default flags:
 
 * every walk over the SHARED generators (the phase-1 commitments, IPP
   round 1 and the verifier's G/H segments) runs the w5 walker
   ``msm_win5`` over ``table_w5`` tables built once per generator set,
   when the size is in the reference's grid range (``walker_min_n``);
-* IPP rounds 2 and later run the chunk-list route: ``msm_w4`` per side
-  and ``fold_bits`` folds, then ``msm_w4_pair`` once frozen (the
-  reference's combined-layout rounds are not ported yet);
+* after a walker round 1 with at least 2 * COMB_MIN_N points per side
+  left, the IPP moves to the combined layout: ``fold_w3h`` folds G and H
+  into the two halves of one tensor C = [G' | H'] and ``table_w4`` builds
+  its 8-entry table; each round while n >= COMB_MIN_N is one
+  ``msm_win_pair`` launch (L and R) and one ``fold_w3h_comb`` launch,
+  with the table rebuilt in its old storage while n >= 2 * COMB_MIN_N
+  (pallas_backend.py:841-857, :1027-1068);
+* the rounds below COMB_MIN_N (and every round 2+ off the walker) run the
+  chunk-list route: ``msm_w4`` per side and ``fold_bits`` folds, then
+  ``msm_w4_pair`` once frozen;
 * in a batch whose active jobs are all frozen, one ``msm_lane`` launch
   computes every job's L and R (the flotilla);
 * every other MSM is one ``msm_w4`` launch.
+
+The half-width folds split each fold constant c as alpha / beta
+(``ck.half_gcd_split``) and fold by beta * L + alpha * R; beta^-1 goes
+into the host factor vectors, whose two pieces then differ by the ratio
+beta_A / beta_B (the full bookkeeping of pallas_backend.py:964-1004).
 
 Proof bytes do not depend on the route: every commitment and every L/R
 point is the same group element whichever kernels compute it, and
@@ -38,18 +50,18 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from bulletproofs_r1cs_gadgets_tpu.core import scvec
-from bulletproofs_r1cs_gadgets_tpu.core.ipp import (
+from ..core import scvec
+from ..core.ipp import (
     InnerProductProof,
     _skip_domain_sep,
 )
-from bulletproofs_r1cs_gadgets_tpu.core.ristretto import (
+from ..core.ristretto import (
     RistrettoPoint,
     multiscalar_mul,
 )
-from bulletproofs_r1cs_gadgets_tpu.core.scalar import Scalar
-from bulletproofs_r1cs_gadgets_tpu.utils.config import DEFAULT_CONFIG
-from bulletproofs_r1cs_gadgets_tpu.utils.constants import L as _L
+from ..core.scalar import Scalar
+from ..utils.config import DEFAULT_CONFIG
+from ..utils.constants import L as _L
 
 from . import build
 from . import chunks as ck
@@ -66,6 +78,12 @@ CHUNK = 2048
 GRID_CHUNKS = 128
 WALKER_MIN_N = CHUNK + 1
 WALKER_MAX_N = GRID_CHUNKS * CHUNK
+# The combined layout's threshold (the reference's CHUNK): IPP rounds of
+# side n >= COMB_MIN_N run combined after a walker round 1 of side
+# >= 2 * COMB_MIN_N.  Read at call time and by nothing else, so tests
+# lower it to reach the combined rounds at small sizes, and raising it
+# above the padded size turns the combined route off.
+COMB_MIN_N = CHUNK
 # A flotilla round walks 2 segments per job, at most GRID_CHUNKS of them
 # (pallas_backend.py:474).
 FLOTILLA_MAX_SEGMENTS = GRID_CHUNKS
@@ -80,8 +98,10 @@ def _as_array(scalars) -> np.ndarray:
 
 class TorchBackend:
     """Routes the engine's heavy vector math to the port's kernels on
-    `device` (CUDA tensors launch the kernels; CPU tensors run their plain
-    torch versions).
+    `device`: the card by default, where every wrapper launches its
+    kernel.  Only a caller that asks for ``device="cpu"`` gets the
+    kernels' plain torch versions on the host (as the CPU tests do);
+    without a CUDA device the default refuses to construct.
 
     ``frozen_max_side`` is the IPP's frozen-tail side cap; lowering it (to
     0 to disable freezing) lets small CPU tests walk the unfrozen rounds.
@@ -90,12 +110,18 @@ class TorchBackend:
     up to ``WALKER_MAX_N``); lowering it lets small CPU tests reach the
     walker.  Proof bytes depend on neither."""
 
-    def __init__(self, device="cpu", min_device_n: int = MIN_DEVICE_N,
+    def __init__(self, device="cuda", min_device_n: int = MIN_DEVICE_N,
                  frozen_max_side: int = FROZEN_MAX_SIDE,
                  walker_min_n: int = WALKER_MIN_N):
         self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchBackend: no CUDA device; pass device='cpu' to run "
+                    "the kernels' plain versions on the host"
+                )
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
         self.min_device_n = min_device_n
         self.frozen_max_side = frozen_max_side
         self.walker_min_n = walker_min_n
@@ -476,13 +502,18 @@ class _IppJob:
     hold D with true folded gens G' = F_i * D_i; each round folds D by
     out = D_L + c * D_R with at most two c values (one breakpoint, see
     :func:`_ratio_pieces`), and F folds by one scalar on host.  The
-    factors multiply into the L/R MSM *scalars*, so a fold is one
-    ``fold_bits`` launch with ones on the left.  Round 1 walks the
-    unfolded generators, so in the walker's range it runs ``msm_win5``
-    over the shared tables.  Once both sides fit the frozen side cap the
-    job switches to the frozen tail (one ``msm_w4_pair`` launch per round,
-    or its share of a batch's ``msm_lane`` launch; no folds).  Q terms are
-    added on host in round_finish."""
+    factors multiply into the L/R MSM *scalars*, so a fold needs no
+    per-point scalars: a ``fold_bits`` launch with ones on the left, or,
+    on the combined layout, a half-width ``fold_w3h(_comb)`` launch by
+    beta * D_L + alpha * D_R with beta^-1 folded into F.  Round 1 walks
+    the unfolded generators, so in the walker's range it runs
+    ``msm_win5`` over the shared tables and then moves to the combined
+    layout (C = [G' | H'] and its ``table_w4`` table, one
+    ``msm_win_pair`` per round) while n >= COMB_MIN_N.  Once both sides fit the
+    frozen side cap the job switches to the frozen tail (one
+    ``msm_w4_pair`` launch per round, or its share of a batch's
+    ``msm_lane`` launch; no folds).  Q terms are added on host in
+    round_finish."""
 
     def __init__(
         self, backend: TorchBackend, transcript, Q, G_factors, H_factors,
@@ -514,6 +545,10 @@ class _IppJob:
         self.G = backend._gens(gens_share, padded_n, "G")
         self.H = backend._gens(gens_share, padded_n, "H")
         self.tG = self.tH = None
+        # combined layout [G' | H'] and its w4 table (rounds 2+ while
+        # n >= COMB_MIN_N, after a walker round 1)
+        self.C = self.tC = None
+        self._walked = False  # this round walked the shared tables
         if padded_n <= self.max_side:
             # small proof: frozen from round 1, no generator folds at all
             self._freeze(self.G, self.H, padded_n)
@@ -577,6 +612,17 @@ class _IppJob:
             return pair[0:1], pair[1:2]
         scG_L, scH_L, scG_R, scH_R = self._round_scalars()
         n = self.n
+        if self.C is not None and n >= COMB_MIN_N:
+            # combined round (pallas_backend.py:841-857): both walks in ONE
+            # launch, words [scG_L | scH_L | scG_R | scH_R]
+            words = ck.w4_words(
+                np.concatenate([scG_L, scH_L, scG_R, scH_R]), self.dev
+            )
+            pair = cc.msm_win_pair(
+                self.tC, words, F.identity_points(2, self.dev),
+                ck.comb_walks(n),
+            )
+            return pair[0:1], pair[1:2]
         if self.tG is not None:
             # round 1 over the shared tables (pallas_backend.py:873-884):
             # G words [scG_R | scG_L], H words [scH_L | scH_R]; R's G walk
@@ -590,6 +636,7 @@ class _IppJob:
             accR = cc.msm_win5(self.tG, wG, ident, vR)
             accR = cc.msm_win5(self.tH, wH, accR, n, poff=n, woff=n)
             self.tG = self.tH = None
+            self._walked = True
             return accL, accR
         ptsL, ptsR = ck.pack_pair(self.G, self.H, n)
         accL = ck.msm_chain(ptsL, ck.segment_words([scG_L, scH_L], self.dev))
@@ -628,15 +675,67 @@ class _IppJob:
             hfac * (self.rho_H if powA else one),
             hfac * (self.rho_H if powB else one),
         )
-        self.GF = scvec.scale(self.GF[:n], u_inv)
-        self.HF = scvec.scale(self.HF[:n], u)
-        # the factor vectors stay 2-piece with breakpoint bp and ratio rho
-        if self.bp > n:
-            self.rho_G = self.rho_H = one
+        walked, self._walked = self._walked, False
+        # half-width splits on the combined rounds and the round-1
+        # transition (pallas_backend.py:964-1004): beta^-1 folds into the
+        # factor vectors, so the pieces' ratio picks up beta_A / beta_B
+        use_w3h = not self.frozen and n >= COMB_MIN_N and (
+            self.C is not None or (walked and n >= 2 * COMB_MIN_N)
+        )
+        if use_w3h:
+            sG = [ck.half_gcd_split(c.v, _L) for c in cG]
+            sH = [ck.half_gcd_split(c.v, _L) for c in cH]
+            bGi = [Scalar(s[1] % _L).invert() for s in sG]
+            bHi = [Scalar(s[1] % _L).invert() for s in sH]
+            self.GF = scvec.mul(
+                self.GF[:n], _pw_rows(u_inv * bGi[0], u_inv * bGi[1], rbp, n)
+            )
+            self.HF = scvec.mul(
+                self.HF[:n], _pw_rows(u * bHi[0], u * bHi[1], rbp, n)
+            )
+            ratio_G = Scalar(sG[0][1] % _L) * bGi[1]
+            ratio_H = Scalar(sH[0][1] % _L) * bHi[1]
+        else:
+            self.GF = scvec.scale(self.GF[:n], u_inv)
+            self.HF = scvec.scale(self.HF[:n], u)
+            ratio_G = ratio_H = one
+        # the factor vectors stay 2-piece with breakpoint bp and ratio rho:
+        #   bp <= n: bp' = bp,     rho' = rho * beta_A / beta_B
+        #   bp >  n: bp' = bp - n, rho' = beta_A / beta_B
+        if self.bp <= n:
+            self.rho_G = self.rho_G * ratio_G
+            self.rho_H = self.rho_H * ratio_H
+        else:
+            self.rho_G, self.rho_H = ratio_G, ratio_H
             self.bp = self.bp - n
         if self.frozen:
             self.FFG = frozen_fold_update(self.FFG, n, rbp, cG[0], cG[1])
             self.FFH = frozen_fold_update(self.FFH, n, rbp, cH[0], cH[1])
+            return
+        if self.C is not None:
+            # combined fold (pallas_backend.py:1027-1046): both sides into
+            # a NEW tensor (blocks run in any order, so never in place),
+            # then the next round's table in the old table's storage, or
+            # the tail once the sides are one chunk
+            self.C = cc.fold_w3h_comb(
+                self.C, ck.w3h_fold_words([sG, sH], self.dev), rbp
+            )
+            if n >= 2 * COMB_MIN_N:
+                self.tC = cc.table_w4(self.C, out=self.tC)
+            else:
+                self.G, self.H = self.C[:n], self.C[n : 2 * n]
+                self.C = self.tC = None
+            return
+        if use_w3h:
+            # round 1 -> combined layout (pallas_backend.py:1047-1068):
+            # each side folds into its half of C, one table over both
+            C = torch.empty((2 * n, 4, 8), dtype=torch.int32, device=self.dev)
+            cc.fold_w3h(self.G[: 2 * n], ck.w3h_fold_words([sG], self.dev),
+                        rbp, out=C[:n])
+            cc.fold_w3h(self.H[: 2 * n], ck.w3h_fold_words([sH], self.dev),
+                        rbp, out=C[n:])
+            self.C, self.G, self.H = C, None, None
+            self.tC = cc.table_w4(C)
             return
         if n <= self.max_side // 2:
             # both sides (size 2n) fit the cap: freeze pre-fold and absorb

@@ -6,20 +6,25 @@
 Measures, for a VSMT-2 depth-253 proof (143,704 multipliers padded to
 2^18) through ``TorchBackend("cuda")``:
 
-1. the two routes of the single-proof path in one process: the w5 route
-   (shared-generator walks on ``msm_win5``, the default) and the
-   chunk-list route (``walker_min_n`` above 2^18: every walk on
-   ``msm_w4``); warm prove and verify times alternated w4, w5, w5, w4,
-   w4, w5, w5, w4, each proof checked by the port's verifier;
+1. the three routes of the single-proof path in one process: the
+   combined route (the default: shared-generator walks on ``msm_win5``,
+   then IPP rounds 2-7 on the combined layout, ``msm_win_pair`` +
+   ``fold_w3h_comb`` + ``table_w4``), the w5 route (the combined layout
+   off, its threshold COMB_MIN_N raised above 2^18, so rounds 2+ run
+   ``msm_w4`` + ``fold_bits``) and the chunk-list route
+   (``walker_min_n`` above 2^18, every walk on ``msm_w4``); warm prove and
+   verify times in the order w4, w5, comb, comb, w5, w4 twice, each proof
+   checked by the port's verifier and all three routes' bytes equal;
 2. one ``torch.profiler`` trace per route of a warm prove and a verify:
    wall time, device time (the union of the device intervals), the
    device's idle share (1 - device / wall) and device time per kernel;
 3. ``msm_win5`` against ``msm_w4`` over the same 143,704 and 2^18
    generators (CUDA events; the results must be equal), the w5 and w4
    word encoders' wall times, and ``table_w5`` over 2^18 generators;
-4. a batch of 8 depth-253 provers through ``prove_provers`` with one host
-   worker and with the default host pool (wall times), and a profiled
-   batch with one host worker.
+4. a batch of 8 depth-253 provers through ``prove_provers`` on the
+   combined and the w5 route: wall times with one host worker and with
+   the default host pool (w5, comb, comb, w5), peak device memory, and a
+   profiled batch with one host worker per route.
 
 Prints the card's nvidia-smi name and power limit first and one JSON line
 per part; ``--out`` also writes every number to a JSON file.  Needs one
@@ -29,6 +34,7 @@ CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -36,13 +42,13 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ROUTE_ORDER = ["w4", "w5", "w5", "w4", "w4", "w5", "w5", "w4"]
+ROUTE_ORDER = ["w4", "w5", "comb", "comb", "w5", "w4"] * 2
 BATCH = 8
 
 
 def device_time_ms(prof, torch) -> tuple[float, dict]:
     """Union of the trace's device intervals (ms) and the device time per
-    kernel name (top 12: [launches, ms])."""
+    kernel name (top 16: [launches, ms])."""
     spans, by = [], {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -60,7 +66,7 @@ def device_time_ms(prof, torch) -> tuple[float, dict]:
         else:
             cur[1] = max(cur[1], b)
     total += 0 if cur is None else cur[1] - cur[0]
-    top = dict(sorted(by.items(), key=lambda kv: -kv[1][1])[:12])
+    top = dict(sorted(by.items(), key=lambda kv: -kv[1][1])[:16])
     return total / 1000, top
 
 
@@ -122,25 +128,33 @@ def main() -> int:
         prover.restore(snap)
         prover.rng = np.random.RandomState(cs.SEED)
 
-    # 1-2. the two routes of one proof
-    routes = {
-        "w4": bp.TorchBackend("cuda", walker_min_n=2 * cs.GENS_N),
-        "w5": bp.TorchBackend("cuda"),
+    # 1-2. the three routes of one proof
+    shared = bp.TorchBackend("cuda")
+    routes = {  # name: (backend, context of its proves)
+        "w4": (bp.TorchBackend("cuda", walker_min_n=2 * cs.GENS_N),
+               contextlib.nullcontext),
+        "w5": (shared, cs.combined_off),
+        "comb": (shared, contextlib.nullcontext),
     }
+
+    def prove(name):
+        be, ctx = routes[name]
+        with ctx():
+            return prover.prove(gens, backend=be)
+
     proofs = {}
-    for name, be in routes.items():  # cold: tables, uploads
+    for name, (be, _) in routes.items():  # cold: tables, uploads
         fresh()
-        proofs[name] = prover.prove(gens, backend=be)
+        proofs[name] = prove(name)
         cs.verify(bp, comp, tape, comms, proofs[name], gens, be)
-    assert proofs["w4"].to_bytes() == proofs["w5"].to_bytes()
-    prove_s = {"w4": [], "w5": []}
-    verify_s = {"w4": [], "w5": []}
+    assert (proofs["w4"].to_bytes() == proofs["w5"].to_bytes()
+            == proofs["comb"].to_bytes())
+    prove_s = {name: [] for name in routes}
+    verify_s = {name: [] for name in routes}
     for name in ROUTE_ORDER:
-        be = routes[name]
+        be = routes[name][0]
         fresh()
-        prove_s[name].append(
-            wall_s(torch, lambda: prover.prove(gens, backend=be))
-        )
+        prove_s[name].append(wall_s(torch, lambda: prove(name)))
         verify_s[name].append(wall_s(
             torch,
             lambda: cs.verify(bp, comp, tape, comms, proofs[name], gens, be),
@@ -148,10 +162,10 @@ def main() -> int:
     out["warm_prove_s"], out["verify_s"] = prove_s, verify_s
     print(json.dumps({"warm_prove_s": prove_s, "verify_s": verify_s}),
           flush=True)
-    for name, be in routes.items():
+    for name, (be, _) in routes.items():
         def prove_once():
             fresh()
-            prover.prove(gens, backend=be)
+            prove(name)
 
         out[f"profile_prove_{name}"] = profiled(torch, prove_once)
         out[f"profile_verify_{name}"] = profiled(
@@ -163,7 +177,7 @@ def main() -> int:
 
     # 3. the walker against the w4 ladder over the same generators
     dev = torch.device("cuda", 0)
-    be, share = routes["w5"], gens.share(0)
+    be, share = shared, gens.share(0)
     tG = be._gens_table5(share, cs.GENS_N, "G")
     G = be._gens(share, cs.GENS_N, "G")
     rng = np.random.RandomState(cs.SEED)
@@ -204,19 +218,30 @@ def main() -> int:
     ]
     snaps = [p.snapshot() for p in jobs]
     bb = bp.TorchBackend("cuda")
+    batch_ctx = {"w5": cs.combined_off, "comb": contextlib.nullcontext}
 
-    def batch(workers):
-        for p, s in zip(jobs, snaps):
-            p.restore(s)
-        return lambda: bp.prove_provers(jobs, gens, backend=bb,
-                                        host_workers=workers)
+    def batch(workers, route):
+        def run():
+            for p, s in zip(jobs, snaps):
+                p.restore(s)
+            with batch_ctx[route]():
+                bp.prove_provers(jobs, gens, backend=bb, host_workers=workers)
+        return run
 
-    batch(1)()  # cold: tables, uploads
-    res = {
-        "batch8_s_workers1": wall_s(torch, batch(1)),
-        "batch8_s_default_pool": wall_s(torch, batch(None)),
-        "profile_batch8_workers1": profiled(torch, batch(1)),
-    }
+    batch(1, "comb")()  # cold: tables, uploads
+    res = {}
+    for route in ("w5", "comb", "comb", "w5"):
+        for workers, tag in ((1, "workers1"), (None, "default_pool")):
+            res.setdefault(f"batch8_s_{tag}_{route}", []).append(
+                wall_s(torch, batch(workers, route))
+            )
+    for route in ("w5", "comb"):
+        torch.cuda.reset_peak_memory_stats()
+        res[f"batch8_s_peak_mem_{route}"] = wall_s(torch, batch(None, route))
+        res[f"batch8_peak_mem_bytes_{route}"] = torch.cuda.max_memory_allocated()
+        res[f"profile_batch8_workers1_{route}"] = profiled(
+            torch, batch(1, route)
+        )
     out.update(res)
     print(json.dumps(res), flush=True)
     if args.out:

@@ -10,10 +10,12 @@ through ``TorchBackend("cuda")``, and checks every kernel on the way.
 Phases, each printing one line with its wall time (any failure exits
 non-zero and prints no result):
 
-0. device: nvidia-smi name and power limit, torch / CUDA versions; no
-   CUDA device is a failure (this never runs on the CPU).
-1. build the kernels from ``bulletproofs_r1cs_gadgets_tpu_torch/csrc``
-   (one ``nvcc -c`` per source, all in parallel, then one link).
+0. device: nvidia-smi name and power limit, torch / CUDA versions, the
+   card's 32-bit multiply rate (for the bounds); no CUDA device is a
+   failure (this never runs on the CPU).
+1. the port's C++ host library must have loaded; then build the kernels
+   from ``bulletproofs_r1cs_gadgets_tpu_torch/csrc`` (one ``nvcc -c`` per
+   source, all in parallel, then one link).
 2. each kernel against its plain torch version on the card at main-path
    shapes (msm_w4 over 2^14 points, msm_w4_pair over a 4096-point frozen
    pack with limits 0 / partial / full, fold_bits over 2048 lanes,
@@ -21,16 +23,25 @@ non-zero and prints no result):
    at the main path's walks (phase 1's 143,704 points, IPP round 1's
    2^17 at offset 2^17 and its short a_R walk, the verifier's 2^18)
    plus a poff / split / poff2 walk, msm_lane over 16 segments of 2048
-   points with an all-zero one), and on a subset against the host MSM.
-   Tolerance: exact (equal points, equal table words).
+   points with an all-zero one, fold_w3h over the 2^18 generators into
+   2^17 (random half-gcd pairs split at round 1's breakpoint, and the
+   edge pairs (0, 1) / (1, -1)), fold_w3h_comb over a 2^18-point
+   combined tensor, table_w4 over 2^18 points, msm_win_pair at IPP
+   rounds 2 (n = 2^16) and 7 (n = 2048)), and on a subset against the
+   host MSM or scalar multiplication.  Tolerance: exact (equal points,
+   equal table words).
 3. a VSMT-2 depth-4 proof through the port, byte-identical to the host
-   path with the same prover randomness and verified by the port's and
-   the host verifier; then a batch of three depth-4 provers through
+   path with the same prover randomness, its digest equal to the JAX
+   package's (``golden/vsmt2_depth4.json``), and verified by the port's
+   and the host verifier; then a batch of three depth-4 provers through
    ``prove_provers``, each proof byte-identical to the same prover proved
    alone through the port (flotilla rounds run).
 4. the depth-253 proof: one cold prove, two warm proves, the port's
-   verifier; a tampered proof and a wrong root must raise
-   VerificationError.  Launch counts are taken over this phase.
+   verifier; every kernel but the flotilla's must have launched; a
+   tampered proof and a wrong root must raise VerificationError; the same
+   prover and rng give the same bytes with the combined IPP route on and
+   off.  Launch counts are taken over the cold prove, the verify and the
+   warm proves.
 5. the depth-253 batch of eight (different leaves, deterministic prover
    randomness) through ``prove_provers`` as a user calls it (the default
    host pool: each prover's rng is private, so the pool cannot change
@@ -42,7 +53,10 @@ non-zero and prints no result):
 
 The third line from the end is the card's nvidia-smi name and power
 limit, the line before the last holds the per-kernel JSON record
-(``launches`` summed over phases 4 and 5), and the last line is
+(``launches`` summed over phases 4 and 5; ``bound_ms`` the larger of the
+work's 32-bit multiplies over the card's multiply rate and its bytes over
+3.35 TB/s, counted from this run's inputs; ``library_ms`` null: no
+PyTorch call computes these functions), and the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -57,10 +71,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "bulletproofs_r1cs_gadgets_tpu_torch"
 _W4 = f"{PKG}/csrc/msm_fold.cu"
-_W5 = f"{PKG}/csrc/win5.cu"
+_WIN = f"{PKG}/csrc/win.cu"
+_W3H = f"{PKG}/csrc/fold_w3h.cu"
 SOURCES = {
     "msm_w4": _W4, "msm_w4_pair": _W4, "fold_bits": _W4, "msm_lane": _W4,
-    "table_w5": _W5, "msm_win5": _W5,
+    "table_w5": _WIN, "msm_win5": _WIN, "table_w4": _WIN,
+    "msm_win_pair": _WIN, "fold_w3h": _W3H, "fold_w3h_comb": _W3H,
 }
 _PC = "bulletproofs_r1cs_gadgets_tpu/ops/pallas_curve.py"
 REPLACES = {
@@ -70,8 +86,13 @@ REPLACES = {
     "table_w5": f"{_PC}:1233",
     "msm_win5": f"{_PC}:1345",
     "msm_lane": f"{_PC}:1515",
+    "fold_w3h": f"{_PC}:646",
+    "fold_w3h_comb": f"{_PC}:685",
+    "table_w4": f"{_PC}:1012",
+    "msm_win_pair": f"{_PC}:1462",
 }
 KERNELS = tuple(REPLACES)
+GOLDEN = os.path.join(ROOT, PKG, "golden", "vsmt2_depth4.json")
 SEED = 20261016
 DEPTH = 253
 SMALL_DEPTH = 4
@@ -82,8 +103,98 @@ MSM_N = 1 << 14  # phase-2 shapes: msm_w4 points,
 PAIR_S = 1024  # frozen side (the pair walks 4 * PAIR_S points),
 FOLD_M = 2048  # fold_bits lanes,
 LANE_V, LANE_SEG = 16, 2048  # msm_lane segments x points
+COMB_N = (1 << 16, 2048)  # msm_win_pair: IPP rounds 2 and 7 (side n)
 # digits -16 in windows 0..49 and 1 in window 50
 ALL_MINUS_16 = (1 << 250) - 16 * ((1 << 250) - 1) // 31
+
+# ---- the least time the card could take (bound_ms): the larger of the
+# 32-bit integer multiplies over the card's multiply rate and the bytes
+# over its memory rate.  A field multiply (csrc/fe25519.cuh fe_mul) is 73
+# products of 32 x 32 -> 64 bits (64 schoolbook, 8 for the x38 fold, 1 in
+# fe_fold), each two 32-bit multiplies (low and high word); point
+# operations count their field multiplies: double 8, add 9 (with the 2d
+# product), niels add 8.  The multiply rate is 64 per clock per SM (CUDA
+# C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0: 32-bit integer multiply and multiply-add) times the SM
+# count times the card's maximum SM clock (nvidia-smi clocks.max.sm), set
+# in phase 0.  Memory: 3.35 TB/s (NVIDIA H100 SXM data sheet).
+INT_MULS_PER_FE_MUL = 2 * 73
+FE_MULS = {"dbl": 8, "add": 9, "nadd": 8, "fe": 1}
+HBM_BYTES_PER_S = 3.35e12
+CARD = {"int_muls_per_s": None}
+
+
+def bound(ops: dict, nbytes: int) -> dict:
+    """bound_ms / bound_by of work holding `ops` point operations (keys of
+    FE_MULS) and moving `nbytes` bytes."""
+    muls = INT_MULS_PER_FE_MUL * sum(FE_MULS[k] * int(v) for k, v in ops.items())
+    t_ops = muls / CARD["int_muls_per_s"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        int_muls=muls, bytes=int(nbytes),
+    )
+
+
+def _codes(words, field: int, count: int):
+    """(n, k) int32 digit words -> (n, count) uint8 digit codes, `field`
+    bits per digit (4: w4 / w3h nibbles, 8: w5 bytes)."""
+    import numpy as np
+
+    w = np.ascontiguousarray(words).view(np.uint32)
+    per = 32 // field
+    shifts = (field * np.arange(per)).astype(np.uint32)
+    c = (w[:, :, None] >> shifts) & np.uint32((1 << field) - 1)
+    return c.reshape(w.shape[0], -1)[:, :count].astype(np.uint8)
+
+
+def ladder_ops(codes, step_dbl: int) -> dict:
+    """Point operations of per-row ladders over digit codes (most
+    significant last): from each row's top nonzero digit, `step_dbl`
+    doublings per later digit and one add per nonzero digit after the
+    first (the kernels skip zero digits and start at the top one)."""
+    import numpy as np
+
+    nz = codes != 0
+    live = nz.any(axis=1)
+    top = codes.shape[1] - 1 - np.argmax(nz[:, ::-1], axis=1)
+    return dict(
+        dbl=int(step_dbl * top[live].sum()),
+        add=int((nz.sum(axis=1)[live] - 1).sum()),
+    ), int(live.sum())
+
+
+def msm_w4_ops(words, blocks: int, finals: int = 1) -> dict:
+    """msm_w4 / _pair / msm_lane: 7-operation tables and the ladder per
+    live row, each block's 127-add tree, the second pass's sums."""
+    ops, live = ladder_ops(_codes(words, 4, 64), 4)
+    ops["dbl"] += 4 * live
+    ops["add"] += 3 * live + 127 * blocks + blocks + 128 * finals
+    return ops
+
+
+def walk_ops(codes, rows, blocks: int, windows: int, bits: int,
+             walks: int = 1) -> tuple[dict, int]:
+    """Window walks: one niels add per nonzero digit, the block and
+    window trees and Horner; returns the ops and the table entries the
+    digits select (distinct (row, entry) pairs)."""
+    import numpy as np
+
+    tbl = 1 << (bits - 1)
+    mag = np.where(codes >= tbl, 2 * tbl - codes.astype(np.int64), codes)
+    used = np.zeros(len(rows), np.int64)
+    for k in range(1, tbl + 1):
+        used |= (mag == k).any(axis=1).astype(np.int64) << (k - 1)
+    acc = np.zeros(int(rows.max()) + 1, np.int64)
+    np.bitwise_or.at(acc, rows, used)
+    n_entries = int(np.unpackbits(acc.view(np.uint8)).sum())
+    ops = dict(
+        nadd=int((codes != 0).sum()),
+        add=walks * windows * (128 * blocks + blocks + 1),
+        dbl=walks * bits * (windows - 1),
+    )
+    return ops, n_entries
 
 
 def log(msg: str) -> None:
@@ -120,6 +231,24 @@ def max_abs_err(got, want, P) -> int:
         (ax, ay), (bx, by) = affine(a, P), affine(b, P)
         err = max(err, abs(ax - bx), abs(ay - by))
     return err
+
+
+def point_err(F, got, want, P) -> int:
+    """max_abs_err of two (n, 4, 8) point tensors on the card: 0 when
+    every pair is the same Edwards point (X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1,
+    checked in torch on the device), else the largest affine difference
+    over the first 64 pairs that differ."""
+    g, w = F.words_to_limbs(got), F.words_to_limbs(want)
+    same = None
+    for c in (0, 1):
+        lhs = F.canonical(F.mul(g[:, c], w[:, 2]))
+        rhs = F.canonical(F.mul(w[:, c], g[:, 2]))
+        eq = (lhs == rhs).all(dim=-1)
+        same = eq if same is None else same & eq
+    bad = (~same).nonzero().flatten()[:64]
+    if bad.numel() == 0:
+        return 0
+    return max_abs_err(F.to_points(got[bad]), F.to_points(want[bad]), P)
 
 
 def decode_w4(row) -> int:
@@ -244,6 +373,16 @@ def phase_device(torch):
         raise SystemExit("no CUDA device: chip_smoke runs only on a GPU")
     log(f"device {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()}); nvidia-smi: {card}")
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.split()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(clk[0])
+    CARD["int_muls_per_s"] = 64 * sms * mhz * 1e6
+    log(f"  int32 multiply rate {CARD['int_muls_per_s']:.4e}/s "
+        f"(64 / clock / SM x {sms} SMs x {mhz} MHz max SM clock)")
     return card
 
 
@@ -290,6 +429,7 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
         max_abs_err=err,
         ms=time_ms(torch, lambda: cc.msm_w4(G, w, acc), 5),
         plain_ms=time_ms(torch, lambda: cc.msm_w4_plain(G, w, acc), 1),
+        **bound(msm_w4_ops(words, -(-n // 128)), n * 160 + 2 * 128),
     )
 
     # ---- msm_w4_pair: a frozen pack [G(S) | H(S)] x 2, S = 1024
@@ -321,6 +461,8 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
             torch,
             lambda: cc.msm_w4_pair_plain(pts, pw, acc2, half, half, half), 1,
         ),
+        **bound(msm_w4_ops(pw.cpu().numpy(), 2 * -(-half // 128), 2),
+                2 * half * 160 + 4 * 128),
     )
 
     # ---- fold_bits: 2048 lanes, ones on the left as the IPP folds use
@@ -347,18 +489,26 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
         )
         assert gp[i] == want, f"fold_bits lane {i} != host"
     assert gp[0].is_identity(), "fold of two zero scalars is not identity"
+    bits = (_codes(wl.cpu().numpy(), 1, 253)
+            | _codes(wr.cpu().numpy(), 1, 253))
+    fops, flive = ladder_ops(bits, 1)
+    fops["add"] += flive  # L + R
     records["fold_bits"] = dict(
         max_abs_err=err,
         ms=time_ms(torch, lambda: cc.fold_bits(left, right, wl, wr), 5),
         plain_ms=time_ms(
             torch, lambda: cc.fold_bits_plain(left, right, wl, wr), 1
         ),
+        **bound(fops, m * (2 * 128 + 2 * 32 + 128)),
     )
     records.update(phase_kernels_w5(bp, torch, cc, F, gens, dev, rng))
     records["msm_lane"] = phase_kernel_lane(bp, torch, cc, F, gens, dev, rng)
+    records.update(phase_kernels_comb(bp, torch, cc, F, gens, dev, rng))
     for name, r in records.items():
+        r["library_ms"] = None  # no PyTorch call computes these functions
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
-            f"ms, max_abs_err {r['max_abs_err']}")
+            f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+            f"max_abs_err {r['max_abs_err']}")
     return records
 
 
@@ -397,6 +547,7 @@ def phase_kernels_w5(bp, torch, cc, F, gens, dev, rng):
     records["table_w5"] = dict(
         max_abs_err=err, ms=time_ms(torch, lambda: cc.table_w5(pts), 5),
         plain_ms=plain_ms,
+        **bound(dict(dbl=8 * N, add=7 * N, fe=16 * N), N * 128 * 17),
     )
 
     # msm_win5: random scalars with 0, 1, L-1 and fifty -16 digits at the
@@ -440,10 +591,17 @@ def phase_kernels_w5(bp, torch, cc, F, gens, dev, rng):
         F.to_points(pts[idx]) + [bp.PedersenGens.default().B],
     )
     assert got[0] == host, "msm_win5 != host MSM"
+    import numpy as np
+
+    wops, entries = walk_ops(
+        _codes(words[:N1].cpu().numpy(), 8, 51), np.arange(N1),
+        -(-N1 // 2048), 51, 5,
+    )
     records["msm_win5"] = dict(
         max_abs_err=err,
         ms=time_ms(torch, lambda: cc.msm_win5(tbl, words, ident, N1), 5),
         plain_ms=plain_ms,
+        **bound(wops, entries * 128 + N1 * 64 + 2 * 128),
     )
     return records
 
@@ -482,7 +640,224 @@ def phase_kernel_lane(bp, torch, cc, F, gens, dev, rng):
         plain_ms=time_ms(
             torch, lambda: cc.msm_lane_plain(pts, words, LANE_V), 1
         ),
+        **bound(msm_w4_ops(words.cpu().numpy(), LANE_V * -(-LANE_SEG // 128),
+                           LANE_V), n * 160 + LANE_V * 128),
     )
+
+
+def fold_w3h_ops(ck, pairs, brk: int, v: int) -> dict:
+    """fold_w3h point operations for v outputs, pair 0 below brk: two
+    4-entry tables (2 doublings, 1 add each) and the shared ladder."""
+    ops = dict(dbl=0, add=0)
+    for (alpha, beta), count in zip(pairs, (brk, v - brk)):
+        cb = _codes(ck.w3h_digit_words(beta)[None], 4, 44) & 7
+        ca = _codes(ck.w3h_digit_words(alpha)[None], 4, 44) & 7
+        lad, _ = ladder_ops(cb | ca, 3)
+        digits = int((cb != 0).sum() + (ca != 0).sum())
+        ops["dbl"] += count * (lad["dbl"] + 4)
+        ops["add"] += count * (max(digits - 1, 0) + 2)
+    return ops
+
+
+def phase_kernels_comb(bp, torch, cc, F, gens, dev, rng):
+    """The combined-layout kernels at the main path's shapes: fold_w3h
+    over the 2^18 generators into 2^17 (the round-1 transition), with
+    pairs from half_gcd_split of random constants and with the edge pairs
+    (0, 1) and (1, -1); fold_w3h_comb over a 2^18-point combined tensor;
+    table_w4 over 2^18 points; msm_win_pair at IPP rounds 2 (n = 2^16)
+    and 7 (n = 2048).  Each exact against its plain version on the same
+    CUDA tensors, subsets against the host."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
+
+    P, L = bp.P, bp.L
+    N = GENS_N
+    records = {}
+    G = F.from_raw(gens.G_raw(N), dev)
+    H = F.from_raw(gens.H_raw(N), dev)
+
+    def rand_pair():
+        return ck.half_gcd_split(
+            int.from_bytes(rng.bytes(32), "little") % L, L
+        )
+
+    def host_fold(got, src, pairs, brk, lanes):
+        v = src.shape[0] // 2
+        gp = F.to_points(got[lanes])
+        lp = F.to_points(src[lanes])
+        rp = F.to_points(src[[i + v for i in lanes]])
+        for j, i in enumerate(lanes):
+            alpha, beta = pairs[0] if i < brk else pairs[1]
+            want = bp.multiscalar_mul(
+                [bp.Scalar(beta % L), bp.Scalar(alpha % L)], [lp[j], rp[j]]
+            )
+            assert gp[j] == want, f"fold lane {i} != host"
+
+    # ---- fold_w3h: G(2^18) -> 2^17, split at round 1's breakpoint
+    v = N // 2
+    main = ([rand_pair(), rand_pair()], N1 - v)
+    err = 0
+    for name, (pairs, brk) in (("random", main),
+                               ("edge", ([(0, 1), (1, -1)], v // 3))):
+        words = ck.w3h_fold_words([pairs], dev)
+        got = cc.fold_w3h(G, words, brk)
+        plain, ms = timed_once(torch, lambda: cc.fold_w3h_plain(G, words, brk))
+        e = point_err(F, got, plain, P)
+        log(f"  fold_w3h {name} pairs, bp {brk}: plain {ms:.1f} ms, "
+            f"max_abs_err {e}")
+        err = max(err, e)
+        host_fold(got, G, pairs, brk, [0, 1, brk - 1, brk, v - 1])
+        if name == "random":
+            fw, fms = words, ms
+    assert err == 0, f"fold_w3h != plain (err {err})"
+    records["fold_w3h"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: cc.fold_w3h(G, fw, main[1]), 5),
+        plain_ms=fms,
+        **bound(fold_w3h_ops(ck, *main, v), v * 3 * 128 + fw.numel() * 4),
+    )
+    del plain
+
+    # ---- fold_w3h_comb: [G(2^17) | H(2^17)] -> [G'(2^16) | H'(2^16)]
+    m = N // 4
+    C = torch.cat([G[: 2 * m], H[: 2 * m]])
+    sides = [[rand_pair(), rand_pair()], [rand_pair(), rand_pair()]]
+    brk = m // 5
+    words = ck.w3h_fold_words(sides, dev)
+    got = cc.fold_w3h_comb(C, words, brk)
+    plain, ms = timed_once(torch, lambda: cc.fold_w3h_comb_plain(C, words, brk))
+    err = point_err(F, got, plain, P)
+    log(f"  fold_w3h_comb: plain {ms:.1f} ms, max_abs_err {err}")
+    assert err == 0, f"fold_w3h_comb != plain (err {err})"
+    for s_ in (0, 1):  # each side equals fold_w3h of that side, word for word
+        one = cc.fold_w3h(C[2 * m * s_ : 2 * m * (s_ + 1)],
+                          words[s_ : s_ + 1].contiguous(), brk)
+        assert torch.equal(got[m * s_ : m * (s_ + 1)], one), \
+            f"fold_w3h_comb side {s_} != fold_w3h"
+    host_fold(got[m:], C[2 * m :], sides[1], brk, [0, brk, m - 1])
+    cops = fold_w3h_ops(ck, sides[0], brk, m)
+    for k, val in fold_w3h_ops(ck, sides[1], brk, m).items():
+        cops[k] += val
+    records["fold_w3h_comb"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: cc.fold_w3h_comb(C, words, brk), 5),
+        plain_ms=ms,
+        **bound(cops, 2 * m * 3 * 128 + words.numel() * 4),
+    )
+    del plain, got
+
+    # ---- table_w4 over 2^18 points (rebuilt in place of a bigger table)
+    tbl = cc.table_w4(G)
+    plain_tbl, ms = timed_once(torch, lambda: cc.table_w4_plain(G))
+    err = 0 if torch.equal(tbl, plain_tbl) else 1
+    assert err == 0, "table_w4 != plain"
+    del plain_tbl
+    assert torch.equal(tbl, cc.table_w5(G)[:, : cc.TBL4]), \
+        "table_w4 != the first 8 entries of table_w5"
+    spare = torch.empty_like(tbl)
+    again = cc.table_w4(G[N // 2 :], out=spare)
+    assert again.data_ptr() == spare.data_ptr()
+    assert torch.equal(again, tbl[N // 2 :]), "table_w4 into `out` differs"
+    del spare, again
+    checked = [0, N // 3, N - 1]
+    for i, p in zip(checked, F.to_points(G[checked])):
+        ints = F.words_to_ints(tbl[i].cpu().numpy())
+        for k in range(cc.TBL4):
+            want = affine(p.scalar_mul(bp.Scalar(k + 1)), P)
+            got = niels_affine(ints[4 * k : 4 * k + 4], P, bp.D2)
+            assert got == want, f"table_w4 entry {k + 1}P of point {i}"
+    records["table_w4"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: cc.table_w4(G), 5),
+        plain_ms=ms,
+        **bound(dict(dbl=4 * N, add=3 * N, fe=8 * N), N * 128 * 9),
+    )
+
+    # ---- msm_win_pair: rounds 2 and 7 over the table of [G'|H'] (4n
+    # points), random scalars with edge rows at both walks' ends
+    chain2 = F.from_points([bp.PedersenGens.default().B,
+                            bp.PedersenGens.default().B.double()], dev)
+    err = 0
+    for n in COMB_N:
+        rows = random_scalar_rows(bp, 4 * n, rng)
+        edge = bp.scvec.from_ints([0, 1, L - 1, L - 1])
+        for at in (0, n - 2, 2 * n - 2, 3 * n, 4 * n - 4):
+            rows[at : at + len(edge)] = edge[: min(len(edge), 4 * n - at)]
+        wn = ck.signed_digit_words(rows)
+        wn[3] = np.int32(-0x77777778)  # 0x88888888: every digit -8
+        words = torch.from_numpy(wn).to(dev)
+        t = tbl[: 4 * n]
+        walks = ck.comb_walks(n)
+        got = cc.msm_win_pair(t, words, chain2, walks)
+        plain, ms = timed_once(
+            torch, lambda: cc.msm_win_pair_plain(t, words, chain2, walks)
+        )
+        e = max_abs_err(F.to_points(got), F.to_points(plain), P)
+        log(f"  msm_win_pair n {n}: plain {ms:.1f} ms, max_abs_err {e}")
+        err = max(err, e)
+        if n == COMB_N[0]:
+            main_words, main_plain_ms, main_n, main_wn = words, ms, n, wn
+    assert err == 0, f"msm_win_pair != plain (err {err})"
+    sub = 16  # both walks over a 4 * 16-point table against the host
+    rows = random_scalar_rows(bp, 4 * sub, rng)
+    rows[:2] = bp.scvec.from_ints([0, L - 1])
+    words = torch.from_numpy(ck.signed_digit_words(rows)).to(dev)
+    got = F.to_points(cc.msm_win_pair(tbl[: 4 * sub].contiguous(), words,
+                                      chain2, ck.comb_walks(sub)))
+    sc, pts = bp.scvec.to_scalars(rows), F.to_points(G[: 4 * sub])
+    B = bp.PedersenGens.default().B
+    want_L = bp.multiscalar_mul(sc[: 2 * sub], pts[sub : 3 * sub]) + B
+    want_R = (bp.multiscalar_mul(sc[2 * sub : 3 * sub], pts[:sub])
+              + bp.multiscalar_mul(sc[3 * sub :], pts[3 * sub :]) + B.double())
+    assert got[0] == want_L and got[1] == want_R, "msm_win_pair != host MSM"
+    n = main_n
+    walks = ck.comb_walks(n)
+    t = tbl[: 4 * n]
+    pops, entries = dict(nadd=0, add=0, dbl=0), 0
+    for k, (wv, poff, woff, split, poff2) in enumerate(walks):
+        j = np.arange(wv)
+        prow = np.where(j < split, poff + j, poff2 + j - split)
+        o, e_ = walk_ops(_codes(main_wn[woff : woff + wv], 4, 64), prow,
+                         -(-wv // 2048), 64, 4)
+        for key in pops:
+            pops[key] += o[key]
+        entries += e_
+    records["msm_win_pair"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: cc.msm_win_pair(t, main_words, chain2, walks), 5),
+        plain_ms=main_plain_ms,
+        **bound(pops, entries * 128 + 4 * n * 32 + 4 * 128),
+    )
+    return records
+
+
+def proof_digest(comms, proof) -> dict:
+    """SHA-256 of the commitments (compressed, concatenated) and of the
+    proof bytes: the golden file's keys."""
+    import hashlib
+
+    raw = proof.to_bytes()
+    return {
+        "commitments_sha256": hashlib.sha256(b"".join(comms)).hexdigest(),
+        "proof_sha256": hashlib.sha256(raw).hexdigest(),
+        "proof_len": len(raw),
+    }
+
+
+class combined_off:
+    """Within the block, TorchBackend's IPP skips the combined layout (its
+    threshold, the module constant COMB_MIN_N, above the padded size):
+    rounds 2+ take the chunk-list route (``msm_w4`` + ``fold_bits``)."""
+
+    def __enter__(self):
+        from bulletproofs_r1cs_gadgets_tpu_torch.ops import torch_backend
+
+        self.mod, self.old = torch_backend, torch_backend.COMB_MIN_N
+        torch_backend.COMB_MIN_N = 2 * GENS_N
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.COMB_MIN_N = self.old
+        return False
 
 
 def phase_bytes(bp, torch, cc, gens_small):
@@ -504,6 +879,14 @@ def phase_bytes(bp, torch, cc, gens_small):
     assert proof_dev.to_bytes() == proof_host.to_bytes(), \
         "port proof bytes differ from the host path"
     log(f"  proof bytes identical ({len(proof_dev.to_bytes())} B)")
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    got = proof_digest(comms, proof_dev)
+    for key in ("commitments_sha256", "proof_sha256", "proof_len"):
+        assert got[key] == golden[key], \
+            f"{key} {got[key]} != the JAX package's {golden[key]}"
+    log(f"  digest equals the JAX package's golden digest "
+        f"({golden['proof_sha256'][:16]}...)")
     verify(bp, comp, tape, comms, proof_dev, gens_small, backend)
     verify(bp, comp, tape, comms, proof_dev, gens_small, None)
     log("  verified by the port's and the host verifier")
@@ -574,6 +957,24 @@ def phase_full(bp, torch, cc, gens, params, tree):
         assert count > 0 or name == "msm_lane", \
             f"kernel {name} was not launched on the single-proof path"
 
+    # the same prover and rng with the combined route on and off: the L/R
+    # points are the same group elements, so the bytes are too
+    import numpy as np
+
+    same = []
+    for off in (False, True):
+        prover.restore(snap)
+        prover.rng = np.random.RandomState(SEED)
+        if off:
+            with combined_off():
+                same.append(prover.prove(gens, backend=backend))
+        else:
+            same.append(prover.prove(gens, backend=backend))
+    assert same[0].to_bytes() == same[1].to_bytes(), \
+        "combined route on and off give different proof bytes"
+    verify(bp, comp, tape, comms, same[0], gens, backend)
+    log("  combined route on / off: byte-identical proofs, verified")
+
     # negative cases: a flipped proof byte (the IPP's `a` scalar) and a
     # wrong root must each be rejected
     try:
@@ -636,7 +1037,8 @@ def phase_batch(bp, torch, cc, gens, params, tree):
     log(f"  one batch_verify of {BATCH}: {out['batch_verify_s']:.2f} s")
     out["launches"] = dict(cc.LAUNCHES)
     log(f"  launches {out['launches']}")
-    for name in ("msm_lane", "msm_win5", "table_w5"):
+    for name in ("msm_lane", "msm_win5", "table_w5", "fold_w3h",
+                 "fold_w3h_comb", "table_w4", "msm_win_pair"):
         assert out["launches"][name] > 0, \
             f"kernel {name} was not launched on the batched path"
 
@@ -675,10 +1077,12 @@ def main() -> int:
     from bulletproofs_r1cs_gadgets_tpu_torch.ops import cuda_curve as cc
     from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
 
-    log(f"native C++ host library loaded: {bp.NATIVE_LOADED}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     with Phase("1 build"):
+        log(f"  native C++ host library loaded: {bp.NATIVE_LOADED}")
+        if not bp.NATIVE_LOADED:
+            raise RuntimeError("the port's C++ host library did not load")
         t0 = time.time()
         build.load()
         log(f"  kernels built and loaded in {time.time() - t0:.2f} s")

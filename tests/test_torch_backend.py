@@ -11,35 +11,42 @@ sends the phase-1 commitments through the device path too, and a lowered
 ``walker_min_n`` sends the shared-generator walks (phase 1, IPP round 1,
 the verifier's G/H) through the w5 walker (``table_w5``, ``msm_win5``).  The
 ``PallasBackend`` runs with the JAX package's exact kernel mirrors patched
-in.  Every device-path proof verifies through the port's verifier path,
-and a tampered proof must raise ``VerificationError``.
-Tolerance: exact (bytes equal).
+in.  The combined-route case lowers the combined layout's threshold
+(``torch_backend.COMB_MIN_N``) as well, so that IPP rounds 2+ run the
+half-width folds, the w4 tables and the paired walks (``fold_w3h``,
+``table_w4``, ``msm_win_pair``, ``fold_w3h_comb``) before the tail.
+Every device-path proof verifies through the port's verifier path, and a
+tampered proof must raise ``VerificationError``.  The port's proofs are
+made from the port's own objects (prover, transcript, generators); the
+references from the JAX package's.  Tolerance: exact (bytes equal).
 """
+
+import types
 
 import numpy as np
 import pytest
 import torch
 
-from bulletproofs_r1cs_gadgets_tpu import (
-    BulletproofGens,
-    PedersenGens,
-    Prover,
-    Scalar,
-    Transcript,
-    Verifier,
-)
-from bulletproofs_r1cs_gadgets_tpu.core import scvec
-from bulletproofs_r1cs_gadgets_tpu.core.errors import VerificationError
-from bulletproofs_r1cs_gadgets_tpu.core.proof import R1CSProof
-from bulletproofs_r1cs_gadgets_tpu.core.ristretto import multiscalar_mul
-from bulletproofs_r1cs_gadgets_tpu.gadgets.bound_check import (
-    bound_check_gadget,
-)
-from bulletproofs_r1cs_gadgets_tpu.gadgets.r1cs_utils import AllocatedQuantity
+import bulletproofs_r1cs_gadgets_tpu as jaxpkg
+import bulletproofs_r1cs_gadgets_tpu_torch as port
+from bulletproofs_r1cs_gadgets_tpu.gadgets import bound_check as jbound
+from bulletproofs_r1cs_gadgets_tpu.gadgets import r1cs_utils as jutils
 from bulletproofs_r1cs_gadgets_tpu.ops import pallas_curve as pc
 from bulletproofs_r1cs_gadgets_tpu.ops.pallas_backend import PallasBackend
-from bulletproofs_r1cs_gadgets_tpu_torch import TorchBackend
+from bulletproofs_r1cs_gadgets_tpu_torch import (
+    BulletproofGens,
+    PedersenGens,
+    R1CSProof,
+    Scalar,
+    TorchBackend,
+    VerificationError,
+    multiscalar_mul,
+    scvec,
+)
+from bulletproofs_r1cs_gadgets_tpu_torch.gadgets import bound_check as tbound
+from bulletproofs_r1cs_gadgets_tpu_torch.gadgets import r1cs_utils as tutils
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import cuda_curve as cc
+from bulletproofs_r1cs_gadgets_tpu_torch.ops import torch_backend as tb
 from bulletproofs_r1cs_gadgets_tpu_torch.ops.torch_backend import WALKER_MIN_N
 from test_ipp_factor_fold import (
     _DetRng,
@@ -54,10 +61,27 @@ torch.set_num_threads(1)
 
 
 # ------------------------------------------------------------ circuits
-def _factor_chain(cs, v, v2, links=32):
+def _pkg(mod, bound, utils):
+    return types.SimpleNamespace(
+        Prover=mod.Prover, Verifier=mod.Verifier, Transcript=mod.Transcript,
+        Scalar=mod.Scalar, PedersenGens=mod.PedersenGens,
+        BulletproofGens=mod.BulletproofGens,
+        bound_check_gadget=bound.bound_check_gadget,
+        AllocatedQuantity=utils.AllocatedQuantity,
+    )
+
+
+# the JAX package builds the references, the port its own proofs
+PKGS = {
+    "jax": _pkg(jaxpkg, jbound, jutils),
+    "port": _pkg(port, tbound, tutils),
+}
+
+
+def _factor_chain(pkg, cs, v, v2, links=32):
     _, _, o = cs.multiply(v + v2, v - v2)
     for _ in range(links):
-        _, _, o = cs.multiply(o + Scalar(1), o + Scalar(2))
+        _, _, o = cs.multiply(o + pkg.Scalar(1), o + pkg.Scalar(2))
 
 
 class ChainCircuit:
@@ -70,34 +94,37 @@ class ChainCircuit:
         self.links = links
         self.capacity = capacity
 
-    def build(self, seed: int = 0):
+    def build(self, seed: int = 0, pkg: str = "port"):
         """(commitments, synthesized prover) with deterministic rng."""
-        prover = Prover(
-            PedersenGens.default(), Transcript(self.label),
+        m = PKGS[pkg]
+        prover = m.Prover(
+            m.PedersenGens.default(), m.Transcript(self.label),
             rng=_DetRng(b"torch-rng%d" % seed if seed else b"torch-rng"),
         )
-        com, v = prover.commit(Scalar(41 + seed), Scalar(97))
-        com2, v2 = prover.commit(Scalar(5), Scalar(13))
-        _factor_chain(prover, v, v2, self.links)
+        com, v = prover.commit(m.Scalar(41 + seed), m.Scalar(97))
+        com2, v2 = prover.commit(m.Scalar(5), m.Scalar(13))
+        _factor_chain(m, prover, v, v2, self.links)
         assert prover.num_multipliers() == self.links + 1
         return (com, com2), prover
 
-    def prove(self, backend):
-        comms, prover = self.build()
+    def prove(self, backend, pkg: str = "port"):
+        comms, prover = self.build(pkg=pkg)
         return comms, prover.prove(
-            BulletproofGens(self.capacity), backend=backend
+            PKGS[pkg].BulletproofGens(self.capacity), backend=backend
         )
 
-    def verifier(self, comms):
+    def verifier(self, comms, pkg: str = "port"):
         """A verifier with the commitments bound and the circuit built."""
-        verifier = Verifier(Transcript(self.label))
+        m = PKGS[pkg]
+        verifier = m.Verifier(m.Transcript(self.label))
         v, v2 = (verifier.commit(c) for c in comms)
-        _factor_chain(verifier, v, v2, self.links)
+        _factor_chain(m, verifier, v, v2, self.links)
         return verifier
 
-    def verify(self, comms, proof, backend):
-        self.verifier(comms).verify(
-            proof, PedersenGens.default(), BulletproofGens(self.capacity),
+    def verify(self, comms, proof, backend, pkg: str = "port"):
+        m = PKGS[pkg]
+        self.verifier(comms, pkg).verify(
+            proof, m.PedersenGens.default(), m.BulletproofGens(self.capacity),
             backend=backend,
         )
 
@@ -108,35 +135,38 @@ class BoundCircuit:
     label = b"TorchBounds"
     capacity = 256
 
-    def build(self, seed: int = 0):
+    def build(self, seed: int = 0, pkg: str = "port"):
+        m = PKGS[pkg]
         rng = np.random.RandomState(1234 + seed)
-        prover = Prover(PedersenGens.default(), Transcript(self.label),
-                        rng=rng)
+        prover = m.Prover(m.PedersenGens.default(), m.Transcript(self.label),
+                          rng=rng)
         val, lower, upper = 42, 10, 100
         a, b = val - lower, upper - val
         qs, comms = [], []
         for x in (val, a, b):
-            com, var = prover.commit(Scalar(x), Scalar.random(rng))
+            com, var = prover.commit(m.Scalar(x), m.Scalar.random(rng))
             comms.append(com)
-            qs.append(AllocatedQuantity(var, x))
-        bound_check_gadget(prover, *qs, upper, lower, 32)
+            qs.append(m.AllocatedQuantity(var, x))
+        m.bound_check_gadget(prover, *qs, upper, lower, 32)
         return tuple(comms), prover
 
-    def prove(self, backend):
-        comms, prover = self.build()
+    def prove(self, backend, pkg: str = "port"):
+        comms, prover = self.build(pkg=pkg)
         return comms, prover.prove(
-            BulletproofGens(self.capacity), backend=backend
+            PKGS[pkg].BulletproofGens(self.capacity), backend=backend
         )
 
-    def verifier(self, comms):
-        verifier = Verifier(Transcript(self.label))
-        qs = [AllocatedQuantity(verifier.commit(c)) for c in comms]
-        bound_check_gadget(verifier, *qs, 100, 10, 32)
+    def verifier(self, comms, pkg: str = "port"):
+        m = PKGS[pkg]
+        verifier = m.Verifier(m.Transcript(self.label))
+        qs = [m.AllocatedQuantity(verifier.commit(c)) for c in comms]
+        m.bound_check_gadget(verifier, *qs, 100, 10, 32)
         return verifier
 
-    def verify(self, comms, proof, backend):
-        self.verifier(comms).verify(
-            proof, PedersenGens.default(), BulletproofGens(self.capacity),
+    def verify(self, comms, proof, backend, pkg: str = "port"):
+        m = PKGS[pkg]
+        self.verifier(comms, pkg).verify(
+            proof, m.PedersenGens.default(), m.BulletproofGens(self.capacity),
             backend=backend,
         )
 
@@ -150,9 +180,10 @@ _REF: dict = {}
 
 
 def _host_proof(name):
-    """Host-engine reference (backend=None), once per circuit."""
+    """The JAX package's host-engine reference (backend=None), once per
+    circuit."""
     if name not in _REF:
-        _REF[name] = CIRCUITS[name].prove(None)
+        _REF[name] = CIRCUITS[name].prove(None, pkg="jax")
     return _REF[name]
 
 
@@ -193,7 +224,7 @@ def test_torch_backend_matches_pallas_mirrors(name, monkeypatch):
     monkeypatch.setattr(pc, "msm_chunk_acc_w4", sim_msm_chunk_acc_w4)
     monkeypatch.setattr(pc, "fold_chunk", sim_fold_chunk)
     monkeypatch.setattr(pc, "msm_grid_pair", sim_msm_grid_pair)
-    _, pallas = circ.prove(PallasBackend())
+    _, pallas = circ.prove(PallasBackend(), pkg="jax")
     _, torch_proof = circ.prove(TorchBackend("cpu", frozen_max_side=16))
     assert pallas.to_bytes() == ref.to_bytes() == torch_proof.to_bytes()
 
@@ -212,7 +243,7 @@ def test_torch_backend_rejects_tampered_proof(name):
     wrong = (PedersenGens.default().commit(Scalar(43), Scalar(97))
              .compress(),) + tuple(comms[1:])
     with pytest.raises(VerificationError):
-        circ.verify(wrong, ref, backend)
+        circ.verify(wrong, R1CSProof.from_bytes(ref.to_bytes()), backend)
 
 
 def test_torch_backend_msm_matches_host():
@@ -225,3 +256,55 @@ def test_torch_backend_msm_matches_host():
     want = multiscalar_mul(scvec.to_scalars(rows), pts)
     assert backend.msm(rows, pts) == want
     assert backend.msm(scvec.to_scalars(rows), pts) == want
+
+
+# The combined route at small sizes: COMB_MIN_N = 8 puts round 1's 32-128
+# points per side past 2 * COMB_MIN_N, so 64 and 256 multipliers take the
+# round-1 transition, the combined rounds while n >= 8, the chunk-list
+# tail (fold_bits while n > 2) and the frozen rounds (side cap 4).
+COMB_CHUNK = 8
+COMB_KERNELS = ("fold_w3h", "table_w4", "msm_win_pair", "fold_w3h_comb")
+
+
+def count_calls(monkeypatch, names) -> dict:
+    """Count each named wrapper's calls (the plain route counts no
+    launches)."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(cc, name)
+
+        def wrap(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(cc, name, wrap)
+    return calls
+
+
+@pytest.mark.parametrize("name, combined_rounds", [
+    ("bound", 2),     # 64 -> rounds at n = 16, 8
+    ("chain129", 4),  # 256 -> rounds at n = 64, 32, 16, 8
+])
+def test_torch_backend_combined_route_matches_host(name, combined_rounds,
+                                                   monkeypatch):
+    circ = CIRCUITS[name]
+    comms, ref = _host_proof(name)
+    monkeypatch.setattr(tb, "COMB_MIN_N", COMB_CHUNK)
+    calls = count_calls(
+        monkeypatch, COMB_KERNELS + ("fold_bits", "msm_w4_pair", "msm_win5")
+    )
+    backend = TorchBackend("cpu", min_device_n=1, frozen_max_side=4,
+                           walker_min_n=1)
+    comms_t, got = circ.prove(backend)
+    assert comms_t == comms
+    assert got.to_bytes() == ref.to_bytes()
+    assert calls == {
+        "fold_w3h": 2, "table_w4": combined_rounds,
+        "msm_win_pair": combined_rounds, "fold_w3h_comb": combined_rounds,
+        "fold_bits": 2, "msm_w4_pair": 1, "msm_win5": 9,
+    }
+    circ.verify(comms, got, backend)
+    raw = bytearray(got.to_bytes())
+    raw[len(raw) - 64] ^= 1
+    with pytest.raises(VerificationError):
+        circ.verify(comms, R1CSProof.from_bytes(bytes(raw)), backend)

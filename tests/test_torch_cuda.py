@@ -5,9 +5,10 @@ This file imports no JAX, so it also runs where the port runs:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 Each kernel is held against its plain torch version on the same CUDA
-tensors, and a proof and a batch of three proofs (``prove_provers``)
-through ``TorchBackend("cuda")`` against the host engine's bytes.
-Tolerance: exact (equal points, equal table words, equal bytes).
+tensors, and a proof, a proof on the combined IPP route (its threshold
+lowered) and a batch of three proofs (``prove_provers``) through
+``TorchBackend("cuda")`` against the host engine's bytes.  Tolerance:
+exact (equal points, equal table words, equal bytes).
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from bulletproofs_r1cs_gadgets_tpu_torch import (
     BulletproofGens,
+    L,
     PedersenGens,
     Prover,
     R1CSProof,
@@ -31,7 +33,7 @@ from bulletproofs_r1cs_gadgets_tpu_torch import (
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import cuda_curve as cc
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
-from bulletproofs_r1cs_gadgets_tpu.utils.constants import L
+from bulletproofs_r1cs_gadgets_tpu_torch.ops import torch_backend as tb
 
 pytestmark = pytest.mark.cuda
 
@@ -79,6 +81,7 @@ def test_kernels_match_plain_on_card(cuda_device):
     assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
         "msm_w4": 1, "msm_w4_pair": 3, "fold_bits": 1,
         "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
+        "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
     }
 
 
@@ -109,6 +112,36 @@ def test_w5_and_lane_kernels_match_plain_on_card(cuda_device):
     assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
         "msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0,
         "table_w5": 1, "msm_win5": 3, "msm_lane": 1,
+        "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
+    }
+
+
+def test_combined_layout_kernels_match_plain_on_card(cuda_device):
+    dev = cuda_device
+    pts = F.from_points(_points(256, 90), dev)
+    before = dict(cc.LAUNCHES)
+    pairs = [ck.half_gcd_split(c, L) for c in (12345, L - 7)]
+    for pr, bp_ in ((pairs, 50), ([(0, 1), (1, -1)], 100)):
+        words = ck.w3h_fold_words([pr], dev)
+        assert F.to_points(cc.fold_w3h(pts, words, bp_)) == \
+            F.to_points(cc.fold_w3h_plain(pts, words, bp_))
+    words = ck.w3h_fold_words([pairs, pairs[::-1]], dev)
+    got = cc.fold_w3h_comb(pts, words, 30)
+    assert F.to_points(got) == F.to_points(cc.fold_w3h_comb_plain(pts, words, 30))
+    assert torch.equal(got[:64], cc.fold_w3h(pts[:128], words[:1], 30))
+    tbl = cc.table_w4(pts)
+    assert torch.equal(tbl, cc.table_w4_plain(pts))
+    assert torch.equal(cc.table_w4(pts[:100], out=tbl.clone()), tbl[:100])
+    w4 = ck.w4_words(_scalar_rows(256, 91), dev)
+    w4[3] = -0x77777778
+    chain2 = F.from_points(_points(2, 92), dev)
+    for walks in (ck.comb_walks(64), ((100, 20, 5, 60, 150), (3, 0, 0, 3, 0))):
+        assert F.to_points(cc.msm_win_pair(tbl, w4, chain2, walks)) == \
+            F.to_points(cc.msm_win_pair_plain(tbl, w4, chain2, walks))
+    assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
+        "msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0,
+        "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
+        "fold_w3h": 3, "fold_w3h_comb": 1, "table_w4": 2, "msm_win_pair": 2,
     }
 
 
@@ -186,3 +219,22 @@ def test_batch_on_card_matches_host(cuda_device):
     verifiers = [_verifier(c, s[1]) for (c, _), s in zip(built, specs)]
     with pytest.raises(VerificationError):
         batch_verify(verifiers, bad, pc, gens, backend=backend)
+
+
+def test_combined_route_on_card_matches_host(cuda_device, monkeypatch):
+    """129 multipliers (padded to 256) with the combined layout's
+    threshold at 8: the round-1 transition, four combined rounds, the
+    tail and the frozen rounds on the card, byte-identical to the host."""
+    monkeypatch.setattr(tb, "COMB_MIN_N", 8)
+    gens = BulletproofGens(256)
+    comms, ref = _prover(9, 128)[0], _prover(9, 128)[1].prove(gens)
+    backend = TorchBackend(cuda_device, min_device_n=1, frozen_max_side=4,
+                           walker_min_n=1)
+    before = dict(cc.LAUNCHES)
+    got = _prover(9, 128)[1].prove(gens, backend=backend)
+    assert got.to_bytes() == ref.to_bytes()
+    ran = {k: cc.LAUNCHES[k] - before[k] for k in before}
+    assert (ran["fold_w3h"], ran["table_w4"], ran["msm_win_pair"],
+            ran["fold_w3h_comb"]) == (2, 4, 4, 4)
+    _verifier(comms, 128).verify(got, PedersenGens.default(), gens,
+                                 backend=backend)

@@ -22,6 +22,12 @@ from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
 # nothing there and contend with the other test workers' processes.
 torch.set_num_threads(1)
 
+
+def to_points(t: torch.Tensor) -> list[RistrettoPoint]:
+    """The port's points of a (n, 4, 8) tensor as the JAX package's
+    RistrettoPoints (the reference type the results are held against)."""
+    return [RistrettoPoint(p.X, p.Y, p.Z, p.T) for p in F.to_points(t)]
+
 EDGES = [0, 1, 2, 19, P - 1, P, P + 1, 2**255 - 1, 2**256 - 1, 2**256 - 38]
 
 
@@ -85,10 +91,10 @@ def test_point_add_double_negate_match_ristretto():
     p, q = _rand_points(6, 4), list(reversed(_rand_points(6, 5)))
     tp = F.words_to_limbs(F.from_points(p))
     tq = F.words_to_limbs(F.from_points(q))
-    add = F.to_points(F.limbs_to_words(C.point_add(tp, tq)))
-    dbl = F.to_points(F.limbs_to_words(C.point_double(tp)))
+    add = to_points(F.limbs_to_words(C.point_add(tp, tq)))
+    dbl = to_points(F.limbs_to_words(C.point_double(tp)))
     mask = torch.tensor([i % 2 == 0 for i in range(len(p))])
-    neg = F.to_points(F.limbs_to_words(C.point_negate(tp, mask)))
+    neg = to_points(F.limbs_to_words(C.point_negate(tp, mask)))
     for i in range(len(p)):
         assert add[i] == p[i] + q[i]
         assert dbl[i] == p[i].double()
@@ -102,14 +108,14 @@ def test_point_add_double_negate_match_ristretto():
 def test_select_and_block_reduce():
     p = _rand_points(5, 6)
     t = F.words_to_limbs(F.from_points(p))
-    total = F.to_points(F.limbs_to_words(C.block_reduce(t)))[0]
+    total = to_points(F.limbs_to_words(C.block_reduce(t)))[0]
     want = RistrettoPoint.identity()
     for pt in p:
         want = want + pt
     assert total == want
     ident = C.identity(len(p), t.device)
     mask = torch.tensor([True, False, True, False, True, False])
-    sel = F.to_points(F.limbs_to_words(C.point_select(mask, t, ident)))
+    sel = to_points(F.limbs_to_words(C.point_select(mask, t, ident)))
     for i, pt in enumerate(sel):
         assert pt == (p[i] if mask[i] else RistrettoPoint.identity())
 
@@ -134,7 +140,7 @@ def test_gens_layouts_agree():
     gens = BulletproofGens(64)
     raw = F.from_raw(gens.G_raw(64))
     via_limbs = F.from_jax_limbs(gens.G_limbs(64))
-    assert F.to_points(raw) == F.to_points(via_limbs)
+    assert to_points(raw) == to_points(via_limbs)
     assert torch.equal(F.from_points(gens.H(64)), F.from_raw(gens.H_raw(64)))
 
 
@@ -143,7 +149,7 @@ def test_from_jax_chunk_round_trip():
     chunk = jck.points_to_chunks(pts)[0]
     got = F.from_jax_chunk(chunk)
     assert got.shape == (jck.CHUNK, 4, 8)
-    back = F.to_points(got)
+    back = to_points(got)
     assert back[: len(pts)] == pts
     assert torch.equal(got[len(pts):], F.identity_points(jck.CHUNK - len(pts)))
     assert torch.equal(got[: len(pts)], F.from_points(pts))

@@ -7,12 +7,15 @@
 * The flotilla's segment layout (``flotilla_pack`` / ``flotilla_words``)
   with frozen packs of different sizes.
 * ``prove_provers`` through ``TorchBackend`` on a batch of three provers
-  of two circuits, against the host engine's sequential proofs, with the
-  flotilla rounds counted; ``batch_verify`` through the port accepts the
-  batch and rejects it with one tampered proof.
+  of two circuits, against the JAX package's host engine's sequential
+  proofs, with the flotilla rounds counted, and on the combined IPP
+  route (its threshold lowered) for a mixed batch; ``batch_verify``
+  through the port accepts the batch and rejects it with one tampered
+  proof.
 
-CPU tensors route to the kernels' plain versions.  Tolerance: exact
-(equal points, equal bytes).
+CPU tensors route to the kernels' plain versions.  The port's provers are
+built from the port's objects, the references from the JAX package's.
+Tolerance: exact (equal points, equal bytes).
 """
 
 import functools
@@ -21,24 +24,33 @@ import numpy as np
 import pytest
 import torch
 
-from bulletproofs_r1cs_gadgets_tpu import BulletproofGens, PedersenGens, Scalar
-from bulletproofs_r1cs_gadgets_tpu.core import scvec
-from bulletproofs_r1cs_gadgets_tpu.core.errors import VerificationError
-from bulletproofs_r1cs_gadgets_tpu.core.proof import R1CSProof
-from bulletproofs_r1cs_gadgets_tpu.core.ristretto import multiscalar_mul
+from bulletproofs_r1cs_gadgets_tpu import BulletproofGens as JBulletproofGens
 from bulletproofs_r1cs_gadgets_tpu.ops import chunks as jck
 from bulletproofs_r1cs_gadgets_tpu.ops import pallas_curve as pc
 from bulletproofs_r1cs_gadgets_tpu.utils.constants import L
 from bulletproofs_r1cs_gadgets_tpu_torch import (
+    BulletproofGens,
+    PedersenGens,
+    R1CSProof,
+    Scalar,
     TorchBackend,
+    VerificationError,
     batch_verify,
+    multiscalar_mul,
     prove_provers,
+    scvec,
 )
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import cuda_curve as cc
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
+from bulletproofs_r1cs_gadgets_tpu_torch.ops import torch_backend as tb
 from bulletproofs_r1cs_gadgets_tpu_torch.ops.torch_backend import WALKER_MIN_N
-from test_torch_backend import CIRCUITS
+from test_torch_backend import (
+    CIRCUITS,
+    COMB_CHUNK,
+    COMB_KERNELS,
+    count_calls,
+)
 
 # The plain versions run many small tensor ops: intra-op threads gain
 # nothing there and contend with the other test workers' processes.
@@ -73,7 +85,7 @@ def jax_lane(request):
 
     request.addfinalizer(fin)
     n = 2 * jck.CHUNK
-    share = BulletproofGens(n).share(0)
+    share = JBulletproofGens(n).share(0)
     big = PallasBackend()._gens_big(share, n, "G")
     rows = _rows(n, 7)
     block = jck.msm_lane(big, jck.grid_words(rows, 2), 2)
@@ -89,7 +101,8 @@ def test_msm_lane_plain_matches_tpu_kernel(jax_lane):
     got = cc.msm_lane(
         F.from_raw(d["share"].G_raw(d["n"])), ck.w4_words(d["rows"], "cpu"), 2
     )
-    assert F.to_points(got) == d["totals"]
+    assert ([p.compress() for p in F.to_points(got)]
+            == [p.compress() for p in d["totals"]])
 
 
 def _points(n: int, seed: int):
@@ -144,16 +157,17 @@ def test_flotilla_layout_with_mixed_frozen_sizes():
             )
 
 
-def _batch():
-    built = [CIRCUITS[name].build(seed) for name, seed in BATCH]
+def _batch(pkg: str = "port"):
+    built = [CIRCUITS[name].build(seed, pkg=pkg) for name, seed in BATCH]
     return [c for c, _ in built], [p for _, p in built]
 
 
 @pytest.fixture(scope="module")
 def host_batch():
-    """The host engine's proofs of the batch, one prover at a time."""
-    comms, provers = _batch()
-    return comms, [p.prove(GENS) for p in provers]
+    """The JAX package's host-engine proofs of the batch, one prover at a
+    time."""
+    comms, provers = _batch("jax")
+    return comms, [p.prove(JBulletproofGens(256)) for p in provers]
 
 
 # frozen-from-round-1: every job is frozen from the start (S = 64, 64 and
@@ -184,12 +198,39 @@ def test_prove_provers_matches_host_sequential(
     assert lanes == [2 * len(BATCH)] * lane_rounds
 
 
+def test_prove_provers_combined_route_matches_host(host_batch, monkeypatch):
+    """The mixed batch (64, 64 and 256 padded multipliers) with the
+    combined layout's threshold lowered: every job takes the round-1
+    transition and the combined rounds (2, 2 and 4 of them) in lockstep
+    before the tail; the bytes equal the host engine's."""
+    monkeypatch.setattr(tb, "COMB_MIN_N", COMB_CHUNK)
+    calls = count_calls(monkeypatch, COMB_KERNELS)
+    comms_ref, ref = host_batch
+    comms, provers = _batch()
+    backend = TorchBackend("cpu", min_device_n=1, frozen_max_side=4,
+                           walker_min_n=1)
+    proofs = prove_provers(provers, GENS, backend=backend, host_workers=1)
+    assert comms == comms_ref
+    assert [p.to_bytes() for p in proofs] == [p.to_bytes() for p in ref]
+    rounds = 2 + 2 + 4
+    assert calls == {"fold_w3h": 2 * len(BATCH), "table_w4": rounds,
+                     "msm_win_pair": rounds, "fold_w3h_comb": rounds}
+    pc_gens = PedersenGens.default()
+    batch_verify(_verifiers(comms), proofs, pc_gens, GENS, backend=backend)
+    raw = bytearray(proofs[2].to_bytes())
+    raw[len(raw) - 64] ^= 1  # low byte of the IPP's `a` scalar
+    bad = proofs[:2] + [R1CSProof.from_bytes(bytes(raw))]
+    with pytest.raises(VerificationError, match=r"\[2\]"):
+        batch_verify(_verifiers(comms), bad, pc_gens, GENS, backend=backend)
+
+
 def _verifiers(comms):
     return [CIRCUITS[name].verifier(c) for (name, _), c in zip(BATCH, comms)]
 
 
 def test_batch_verify_through_port(host_batch):
     comms, proofs = host_batch
+    proofs = [R1CSProof.from_bytes(p.to_bytes()) for p in proofs]
     backend = TorchBackend("cpu", min_device_n=1, walker_min_n=1)
     pc_gens = PedersenGens.default()
     batch_verify(_verifiers(comms), proofs, pc_gens, GENS, backend=backend)

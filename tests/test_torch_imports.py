@@ -1,10 +1,14 @@
-"""The PyTorch port stands without JAX.
+"""The PyTorch port stands without JAX and without the JAX package.
 
 The card's machine has no JAX, so the port (``bulletproofs_r1cs_gadgets_tpu_torch``),
 ``chip_smoke.py`` and ``chip_profile.py`` must import with ``jax`` blocked,
-must never import the JAX package's ``ops`` layer, and both scripts must
-refuse to run (non-zero exit, no result line) where there is no GPU, and
-``chip_smoke.py`` also where there is no repository around it.  Tolerance: none (exact exit codes and output).
+must never import any module of the JAX package (the port keeps its own
+copies of the host layers; comments may cite the JAX package by path),
+and both scripts and the default ``TorchBackend()`` must refuse to run
+(non-zero exit, no result line, an error) where there is no GPU, and
+``chip_smoke.py`` also where there is no repository around it.  The
+port's C++ host library builds safely when two processes load it at
+once.  Tolerance: none (exact exit codes and output).
 """
 
 import os
@@ -34,13 +38,19 @@ def test_port_imports_with_jax_blocked():
         "from bulletproofs_r1cs_gadgets_tpu_torch import prove_provers, "
         "batch_verify\n"
         "import bulletproofs_r1cs_gadgets_tpu_torch.ops.build\n"
+        "import bulletproofs_r1cs_gadgets_tpu_torch.carry\n"
         "import chip_smoke\n"
         "import chip_profile\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
-        "assert not any(m.startswith('bulletproofs_r1cs_gadgets_tpu.ops')\n"
-        "               for m in sys.modules)\n"
-        "assert prove_provers.__module__.endswith('parallel.batch')\n"
-        "assert batch_verify.__module__.endswith('core.verifier')\n"
+        "jaxpkg = [m for m in sys.modules\n"
+        "          if m == 'bulletproofs_r1cs_gadgets_tpu'\n"
+        "          or m.startswith('bulletproofs_r1cs_gadgets_tpu.')]\n"
+        "assert jaxpkg == [], jaxpkg\n"
+        "assert prove_provers.__module__ == "
+        "'bulletproofs_r1cs_gadgets_tpu_torch.parallel.batch'\n"
+        "assert batch_verify.__module__ == "
+        "'bulletproofs_r1cs_gadgets_tpu_torch.core.verifier'\n"
+        "assert bp.NATIVE_LOADED\n"
         "print(bp.TorchBackend.__name__)\n"
     )
     out = subprocess.run(
@@ -51,12 +61,24 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "TorchBackend"
 
 
+# Import lines only: the copied host layers' comments cite the JAX
+# package's modules by path.  The ids are the patterns' earlier names.
 @pytest.mark.parametrize(
     "pattern",
     [
         r"^\s*(import|from)\s+jax\b",
-        r"bulletproofs_r1cs_gadgets_tpu\.ops\b",
-        r"from\s+bulletproofs_r1cs_gadgets_tpu\s+import\s+.*\bops\b",
+        pytest.param(
+            r"^\s*(import|from)\s+bulletproofs_r1cs_gadgets_tpu\.ops\b",
+            id="bulletproofs_r1cs_gadgets_tpu\\.ops\\b",
+        ),
+        pytest.param(
+            r"^\s*from\s+bulletproofs_r1cs_gadgets_tpu\s+import\s+.*\bops\b",
+            id="from\\s+bulletproofs_r1cs_gadgets_tpu\\s+import\\s+.*\\bops\\b",
+        ),
+        pytest.param(
+            r"^\s*(from|import)\s+bulletproofs_r1cs_gadgets_tpu(?!_torch)\b",
+            id="any-jax-package-module",
+        ),
     ],
 )
 def test_port_sources_never_import_jax(pattern):
@@ -70,6 +92,22 @@ def test_port_sources_never_import_jax(pattern):
 
 def _no_ok_line(stdout: str) -> bool:
     return '"ok": true' not in stdout
+
+
+def test_torch_backend_defaults_to_the_card():
+    """``TorchBackend()`` runs on the card; without one it refuses rather
+    than fall back to the plain versions on the host.  Only an explicit
+    ``"cpu"`` gets the host."""
+    from bulletproofs_r1cs_gadgets_tpu_torch import TorchBackend
+
+    if torch.cuda.is_available():
+        assert TorchBackend().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TorchBackend()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TorchBackend("cuda:0")
+    assert TorchBackend("cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_refuses_without_gpu():
@@ -105,3 +143,35 @@ def test_chip_smoke_refuses_outside_the_repo(tmp_path):
     )
     assert out.returncode != 0
     assert _no_ok_line(out.stdout)
+
+
+def test_native_loader_builds_once_for_two_processes(tmp_path):
+    """Two processes load the port's C++ host library at once from an
+    empty build directory: one builds it under the lock, the other waits,
+    and both load a whole library."""
+    code = (
+        "import sys\n"
+        "import bulletproofs_r1cs_gadgets_tpu_torch.native.loader as ld\n"
+        "ld.BUILD_DIR = sys.argv[1]\n"
+        "lib = ld.load_native()\n"
+        "assert lib is not None\n"
+        "out = bytearray(200)\n"
+        "lib.keccak_f1600(out)\n"
+        "print(ld.library_path(), out.hex()[:16])\n"
+    )
+    build_dir = tmp_path / "build"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", code, str(build_dir)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for _ in range(2)
+    ]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+    lines = {out.strip() for out, _ in outs}
+    assert len(lines) == 1  # the same library, the same keccak output
+    so = lines.pop().split()[0]
+    assert so.startswith(str(build_dir)) and os.path.exists(so)
+    assert not list(build_dir.glob("*.tmp"))

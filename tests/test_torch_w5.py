@@ -19,7 +19,10 @@ import torch
 
 from bulletproofs_r1cs_gadgets_tpu import BulletproofGens, PedersenGens, Scalar
 from bulletproofs_r1cs_gadgets_tpu.core import scvec
-from bulletproofs_r1cs_gadgets_tpu.core.ristretto import multiscalar_mul
+from bulletproofs_r1cs_gadgets_tpu.core.ristretto import (
+    RistrettoPoint,
+    multiscalar_mul,
+)
 from bulletproofs_r1cs_gadgets_tpu.ops import chunks as jck
 from bulletproofs_r1cs_gadgets_tpu.ops import pallas_curve as pc
 from bulletproofs_r1cs_gadgets_tpu.utils.constants import D2, L, P
@@ -30,6 +33,12 @@ from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
 # The plain versions run many small tensor ops: intra-op threads gain
 # nothing there and contend with the other test workers' processes.
 torch.set_num_threads(1)
+
+
+def to_points(t: torch.Tensor) -> list[RistrettoPoint]:
+    """The port's points of a (n, 4, 8) tensor as the JAX package's
+    RistrettoPoints (the reference type the results are held against)."""
+    return [RistrettoPoint(p.X, p.Y, p.Z, p.T) for p in F.to_points(t)]
 
 # digits -16 in windows 0..49 and 1 in window 50
 ALL_MINUS_16 = (1 << 250) - 16 * ((1 << 250) - 1) // 31
@@ -117,7 +126,7 @@ def test_msm_win5_walk_geometry_matches_host(v, poff, woff, split, poff2):
         [sc[woff + j] for j in range(v)] + [Scalar.one()],
         [pts[i] for i in idx] + [chain_pt],
     )
-    assert F.to_points(got)[0] == want
+    assert to_points(got)[0] == want
 
 
 def test_msm_win5_refuses_walks_off_the_table():
@@ -174,7 +183,7 @@ def test_msm_win5_plain_matches_tpu_kernel(jax_win5):
     got = cc.msm_win5(
         cc.table_w5(G), ck.w5_words(d["rows"], "cpu"), F.identity_points(1), n
     )
-    total = F.to_points(got)[0]
+    total = to_points(got)[0]
     assert total == d["total"]
     assert total == multiscalar_mul(
         scvec.to_scalars(d["rows"]), d["share"].G(n)
