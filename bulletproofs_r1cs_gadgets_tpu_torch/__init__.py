@@ -30,6 +30,12 @@ What sits behind the engine's backend seam is the port's device layer:
   ops/build.py          nvcc build of csrc/*.cu, ctypes binding
   ops/torch_backend.py  TorchBackend (the seam: msm, msm_gens,
                         phase_commitments, ipp_create and their batches)
+                        and Route (its kernels under the reference's
+                        BPTPU_* route flags)
+  ops/native_backend.py NativeBackend: the JAX package's single-core C++
+                        CPU backend, copied (the host leg of the proof
+                        equivalence gate; not exported here, as it runs
+                        nothing on the card)
   csrc/                 the Hopper kernels (sm_90a)
 
 Batched proving and verification are the engine's own
@@ -62,12 +68,12 @@ from .native import _native
 from .parallel.batch import prove_provers
 from .utils.constants import D2, L, P
 
-from .ops.torch_backend import TorchBackend
+from .ops.torch_backend import Route, TorchBackend
 
 NATIVE_LOADED = _native is not None  # C++ host library (gens, Poseidon)
 
 __all__ = [
-    "TorchBackend", "Scalar", "Prover", "Verifier", "PedersenGens",
+    "TorchBackend", "Route", "Scalar", "Prover", "Verifier", "PedersenGens",
     "BulletproofGens", "Transcript", "R1CSProof", "RistrettoPoint",
     "VerificationError", "multiscalar_mul", "scvec", "PoseidonParams",
     "CompiledVSMT2", "VanillaSparseMerkleTree", "leaf_index_bit_scalars",

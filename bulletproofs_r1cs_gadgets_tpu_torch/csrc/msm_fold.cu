@@ -1,7 +1,10 @@
-// Hopper kernels for the VSMT-2 slice: the chained w4 MSM (msm_w4), the
+// Hopper kernels for the VSMT-2 slice: the chained w4 MSM (msm_w4, which
+// the msm_grid wrapper also launches over a view of the generators), the
 // two-segment pair MSM (msm_w4_pair), the per-segment totals of the
-// batched frozen rounds (msm_lane) and the IPP generator fold
-// (fold_bits).  Plain C entry points for ctypes (ops/build.py): each
+// batched frozen rounds (msm_lane), the IPP generator fold (fold_bits) and
+// the constant folds of the grid rounds (fold_c, fold_c_comb: the w4
+// ladder of msm_w4 plus one add).  Plain C entry points for ctypes
+// (ops/build.py): each
 // launches on the caller's stream, never synchronises, allocates nothing,
 // and returns cudaGetLastError().
 //
@@ -179,7 +182,39 @@ fold_bits_kernel(const int32_t* __restrict__ left, const int32_t* __restrict__ r
     ge_store(out + 32 * i, acc);
 }
 
+// The constant fold of the grid rounds (pallas_curve._fold_c_kernel):
+// out[i] = P[i] + c_i * P[i + v], c_i the first constant below bp and the
+// second from bp on, by the w4 ladder of msm_w4 (~330 point operations per
+// output; bound: integer multiplies).  Block (x, side): side s reads
+// in + s * 2v points and its two constants' signed w4 words at
+// words + 16 * s, and writes out + s * v points.  Thread i reads P[i] and
+// P[i + v] and then writes only out[i], so one side may fold in place
+// (out == in): no other thread reads row i.  Two sides must not (output
+// row j of side 1 is an input row of side 0), so in and out carry no
+// __restrict__ and the wrappers never alias the combined fold.
+__global__ void __launch_bounds__(FOLD_THREADS)
+fold_c_kernel(const int32_t* in, int32_t* out, const int32_t* __restrict__ words,
+              int v, int bp) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= v) return;
+    const int side = blockIdx.y;
+    const int32_t* src = in + 64ll * v * side;
+    uint32_t w[8];
+    load_words(words + 16 * side + (i < bp ? 0 : 8), w);
+    ge left = ge_load(src + 32 * i);
+    ge prod = ladder_w4(ge_load(src + 32 * (i + v)), w);
+    ge_store(out + 32ll * v * side + 32 * i, ge_add(prod, left));
+}
+
 static int msm_blocks(int n) { return (n + MSM_THREADS - 1) / MSM_THREADS; }
+
+static int fold_c_launch(const int32_t* in, int32_t* out, const int32_t* words, int v,
+                         int bp, int sides, void* stream) {
+    if (v > 0)
+        fold_c_kernel<<<dim3((v + FOLD_THREADS - 1) / FOLD_THREADS, sides), FOLD_THREADS, 0,
+                        (cudaStream_t)stream>>>(in, out, words, v, bp);
+    return (int)cudaGetLastError();
+}
 
 extern "C" {
 
@@ -231,6 +266,22 @@ int bp_fold_bits(const int32_t* left, const int32_t* right, const int32_t* wl,
         fold_bits_kernel<<<(n + FOLD_THREADS - 1) / FOLD_THREADS, FOLD_THREADS, 0, s>>>(
             left, right, wl, wr, out, n);
     return (int)cudaGetLastError();
+}
+
+// out (v, 4, 8) from points (2v, 4, 8); words (1, 2, 8): the signed w4
+// words of the constant below bp and of the one from bp on.  out may be
+// points' first v rows (in place).
+int bp_fold_c(const int32_t* pts, int32_t* out, const int32_t* words, int v, int bp,
+              void* stream) {
+    return fold_c_launch(pts, out, words, v, bp, 1, stream);
+}
+
+// out (2v, 4, 8) = [G'(v) | H'(v)] from points (4v, 4, 8) = [G(2v) | H(2v)];
+// words (2, 2, 8), side 0 for G and 1 for H, both split at bp.  out must
+// not overlap points.
+int bp_fold_c_comb(const int32_t* pts, int32_t* out, const int32_t* words, int v, int bp,
+                   void* stream) {
+    return fold_c_launch(pts, out, words, v, bp, 2, stream);
 }
 
 }  // extern "C"

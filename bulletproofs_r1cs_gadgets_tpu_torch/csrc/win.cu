@@ -2,8 +2,9 @@
 // (table_w5: 16 entries over the fixed generators; table_w4: 8 entries
 // over the combined [G|H] layout of IPP rounds 2+) and the window-
 // accumulator MSMs that walk them (msm_win5: one walk over a w5 table;
-// msm_win_pair: a combined round's L and R walks over a w4 table in one
-// launch).  One kernel template each, instantiated per digit width.  Plain
+// msm_win: one walk over a w4 table; msm_win_pair: a combined round's L
+// and R walks over a w4 table in one launch).  One kernel template each,
+// instantiated per digit width.  Plain
 // C entry points for ctypes (ops/build.py), with the conventions of
 // msm_fold.cu: launch on the caller's stream, never synchronise, allocate
 // nothing, return cudaGetLastError().
@@ -282,6 +283,19 @@ int bp_msm_win5(const int32_t* table, const int32_t* words, const int32_t* chain
     g.s[0] = walk{v, poff, woff, split, poff2};
     g.s[1] = g.s[0];
     return msm_win_launch<5>(table, words, chain, out, partials, wtot, g, 1,
+                             (cudaStream_t)stream);
+}
+
+// The single w4 walk (pallas_curve.msm_win_dyn): out (1, 4, 8) = chain +
+// sum_{j < v} d_j * P_row(j) over a w4 table with w4 words.  partials:
+// scratch for 64 * ceil(v / WIN_PTS) points; wtot: for 64 points.
+int bp_msm_win(const int32_t* table, const int32_t* words, const int32_t* chain,
+               int32_t* out, int32_t* partials, int32_t* wtot, int v, int poff,
+               int woff, int split, int poff2, void* stream) {
+    walks2 g;
+    g.s[0] = walk{v, poff, woff, split, poff2};
+    g.s[1] = g.s[0];
+    return msm_win_launch<4>(table, words, chain, out, partials, wtot, g, 1,
                              (cudaStream_t)stream);
 }
 

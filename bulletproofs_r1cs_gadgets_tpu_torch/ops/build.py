@@ -47,9 +47,12 @@ SIGNATURES = {
     "bp_table_w5": [_VP, _VP, _I, _VP],
     "bp_table_w4": [_VP, _VP, _I, _VP],
     "bp_msm_win5": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "bp_msm_win": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     "bp_msm_win_pair": [_VP] * 6 + [_I] * 10 + [_VP],
     "bp_fold_w3h": [_VP, _VP, _VP, _I, _I, _VP],
     "bp_fold_w3h_comb": [_VP, _VP, _VP, _I, _I, _VP],
+    "bp_fold_c": [_VP, _VP, _VP, _I, _I, _VP],
+    "bp_fold_c_comb": [_VP, _VP, _VP, _I, _I, _VP],
 }
 
 

@@ -17,6 +17,9 @@ TPU kernel consumes:
   one (beta, alpha) pair below the breakpoint and another beyond it (the
   reference's ``_pw_w3h_rows`` expands them per point; the port's kernels
   take the two pairs and the breakpoint).
+* Constant fold words: a fold's two constants as MSM words, one row each
+  (``c_fold_words``; the reference's ``_c_fold_words`` writes one row per
+  point).
 
 Scalars arrive as ``(n, 4) uint64`` numpy arrays (``core/scvec.py``) and
 are encoded in numpy into int32 rows before ``torch.from_numpy``.
@@ -169,6 +172,18 @@ def w3h_fold_words(sides, device) -> torch.Tensor:
                   for alpha, beta in pairs])
         for pairs in sides
     ])
+    return torch.from_numpy(np.ascontiguousarray(w)).to(device)
+
+
+def c_fold_words(sides, device) -> torch.Tensor:
+    """Fold words for ``fold_c`` (one side) or ``fold_c_comb`` (two):
+    `sides` lists one (c_A, c_B) pair of constants (Scalars) per side, c_A
+    for outputs below the breakpoint and c_B from it on.  Returns
+    (sides, 2, 8) int32, each row the constant's signed w4 digit words:
+    the two distinct rows of the reference's per-point ``_c_fold_words``
+    (``_c_fold_words_comb`` for two sides)."""
+    rows = np.stack([scvec.scalar_to_row(c) for pair in sides for c in pair])
+    w = signed_digit_words(rows).reshape(len(sides), 2, 8)
     return torch.from_numpy(np.ascontiguousarray(w)).to(device)
 
 

@@ -1,4 +1,4 @@
-"""Wrappers for the port's ten Hopper kernels, with their plain versions.
+"""Wrappers for the port's fourteen Hopper kernels, with their plain versions.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and then
@@ -14,8 +14,8 @@ outputs with ``torch.empty`` and then
 Tensors (see :mod:`.field`): points ``(n, 4, 8)`` int32, w4 and bit
 scalar words ``(n, 8)`` int32, w5 words ``(n, 16)`` int32, w5 / w4
 tables ``(n, 16, 4, 8)`` / ``(n, 8, 4, 8)`` int32 (niels entries),
-half-width fold words ``(sides, 2, 2, 8)`` int32, accumulators
-``(k, 4, 8)``.
+half-width fold words ``(sides, 2, 2, 8)`` int32, constant fold words
+``(sides, 2, 8)`` int32, accumulators ``(k, 4, 8)``.
 Outputs are canonical.
 
 Kernel notes (what each replaces, what bounds it on an H100, what its
@@ -96,6 +96,32 @@ chain over 44 signed w3 digits; the kernels take the two pairs' digit
 words and the breakpoint (the TPU passes per-lane word arrays), and
 write a tensor apart from their input (the TPU folds in place, which
 blocks running in any order cannot).
+
+``fold_c`` replaces ``pallas_curve.fold_grid_c`` / ``fold_grid_c_donate``
+(:541 / :548, ``_fold_c_call`` :513, ``_fold_c_kernel`` :490), and
+``fold_c_comb`` replaces ``fold_grid_c_comb`` (:733, ``_fold_c_comb_call``
+:698): out[i] = P[i] + c_i * P[i + v] with two constants split at a
+breakpoint, one side or both sides of the combined layout.  Bound:
+integer multiplies (the ~330 point operations of the w4 ladder per
+output).  Design: ``msm_w4``'s per-thread ladder plus one add, one thread
+per output; the kernels take the two constants' w4 words and the
+breakpoint (the TPU passes per-lane word arrays).  One side may fold in
+place (thread i reads rows i and i + v and writes row i only), the
+counterpart of the TPU's donated variant; the combined fold writes a new
+tensor, as ``fold_w3h_comb`` does.
+
+``msm_win`` replaces ``pallas_curve.msm_win_dyn`` (:1156,
+``_msm_win_call`` :1105, ``_msm_win_kernel`` :1065): one w4 window walk
+over a ``table_w4`` table, [v, poff, woff, split, poff2] in points.  Bound
+and design: ``msm_win_pair``'s, with one walk.
+
+``msm_grid`` replaces ``pallas_curve.msm_grid_acc`` (:438,
+``_msm_grid_kernel`` :415): a chained w4 MSM over a chunk range of the
+generators.  Its body is ``msm_chunk_acc_w4``'s (``_ladder_w4``, block
+reduce, add); the two TPU kernels differ only in the capacity shapes they
+address.  So it launches the ``msm_w4`` kernel over the view
+``points[poff : poff + n]`` of the cached generator tensor (no copy), and
+counts its own launches.
 """
 
 from __future__ import annotations
@@ -113,6 +139,7 @@ LAUNCHES = {
     "msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0,
     "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
     "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
+    "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
 }
 _COUNT_LOCK = threading.Lock()  # batched IPP rounds launch from a pool
 TBL5 = 16
@@ -316,6 +343,14 @@ def msm_win5_plain(table, words, chain, v, poff, woff, split, poff2):
     return _win_plain(table, words, chain, v, poff, woff, split, poff2, 5)
 
 
+def msm_win_plain(table, words, chain, v, poff, woff, split, poff2):
+    return _win_plain(table, words, chain, v, poff, woff, split, poff2, 4)
+
+
+def msm_grid_plain(points, words, acc, poff) -> torch.Tensor:
+    return msm_w4_plain(points[poff : poff + words.shape[0]], words, acc)
+
+
 def msm_win_pair_plain(table, words, chain2, walks) -> torch.Tensor:
     """(2, 4, 8): row s = chain2[s] + walk s (v, poff, woff, split,
     poff2) over a ``table_w4`` table with w4 words."""
@@ -364,10 +399,34 @@ def fold_w3h_comb_plain(points, words, bp) -> torch.Tensor:
     ])
 
 
+def _fold_c_side(points, words, bp) -> torch.Tensor:
+    """One side of the constant fold: points (2v, 4, 8), words (2, 8) ->
+    (v, 4, 8), out[i] = P[i] + c * P[i + v] with words[0] below bp and
+    words[1] from bp on."""
+    v = points.shape[0] // 2
+    pair = (torch.arange(v, device=points.device) >= bp).long()
+    prod = ladder_w4_plain(F.words_to_limbs(points[v:]), words[pair])
+    return F.limbs_to_words(C.point_add(prod, F.words_to_limbs(points[:v])))
+
+
+def fold_c_plain(points, words, bp) -> torch.Tensor:
+    return _fold_c_side(points, words[0], bp)
+
+
+def fold_c_comb_plain(points, words, bp) -> torch.Tensor:
+    """[G(2v) | H(2v)] -> [G'(v) | H'(v)], side s with words[s]."""
+    half = points.shape[0] // 2
+    return torch.cat([
+        _fold_c_side(points[s * half : (s + 1) * half], words[s], bp)
+        for s in range(2)
+    ])
+
+
 # ------------------------------------------------------------- wrappers
-def msm_w4(points: torch.Tensor, words: torch.Tensor,
-           acc: torch.Tensor) -> torch.Tensor:
-    """(1, 4, 8) = acc + sum_i d_i * points_i (signed w4 words)."""
+def _msm_w4_launch(name: str, points: torch.Tensor, words: torch.Tensor,
+                   acc: torch.Tensor) -> torch.Tensor:
+    """The ``msm_w4`` kernel over `points` (a contiguous view is enough),
+    counted under `name`."""
     dev = points.device
     n = points.shape[0]
     _check(points, "points", (n, 4, 8), dev)
@@ -385,10 +444,29 @@ def msm_w4(points: torch.Tensor, words: torch.Tensor,
             _ptr(points), _ptr(words), _ptr(acc), _ptr(out), _ptr(partials),
             n, _stream(dev),
         ),
-        "msm_w4",
+        name,
     )
-    _count("msm_w4")
+    _count(name)
     return out
+
+
+def msm_w4(points: torch.Tensor, words: torch.Tensor,
+           acc: torch.Tensor) -> torch.Tensor:
+    """(1, 4, 8) = acc + sum_i d_i * points_i (signed w4 words)."""
+    return _msm_w4_launch("msm_w4", points, words, acc)
+
+
+def msm_grid(points: torch.Tensor, words: torch.Tensor, acc: torch.Tensor,
+             poff: int = 0) -> torch.Tensor:
+    """(1, 4, 8) = acc + sum_{i < n} d_i * points[poff + i], n = len(words):
+    the ``msm_w4`` kernel over a view of `points` (the cached generators),
+    no copy."""
+    n = words.shape[0]
+    if not 0 <= poff <= poff + n <= points.shape[0]:
+        raise ValueError(
+            f"msm_grid: {n} words at offset {poff} leave {points.shape[0]} points"
+        )
+    return _msm_w4_launch("msm_grid", points[poff : poff + n], words, acc)
 
 
 def msm_w4_pair(points: torch.Tensor, words: torch.Tensor,
@@ -491,6 +569,57 @@ def table_w5(points: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_walk(name: str, walk: tuple, N: int, M: int) -> None:
+    """A walk (v, poff, woff, split, poff2) must stay inside a table of N
+    rows and M word rows."""
+    v, poff, woff, split, poff2 = walk
+    if not (
+        0 <= split <= v and min(poff, poff2, woff) >= 0
+        and poff + split <= N and poff2 + (v - split) <= N and woff + v <= M
+    ):
+        raise ValueError(
+            f"{name}: walk v={v} poff={poff} woff={woff} split={split} "
+            f"poff2={poff2} leaves table ({N}) / words ({M})"
+        )
+
+
+def _win_walk(name: str, bits: int, table, words, chain, v, poff, woff,
+              split, poff2) -> torch.Tensor:
+    """One window walk over a w5 (``msm_win5``) or w4 (``msm_win``)
+    table."""
+    entries, wcols = (TBL5, 16) if bits == 5 else (TBL4, 8)
+    dev = table.device
+    N, M = table.shape[0], words.shape[0]
+    _check(table, "table", (N, entries, 4, 8), dev)
+    _check(words, "words", (M, wcols), dev)
+    _check(chain, "chain", (1, 4, 8), dev)
+    if split is None:
+        split, poff2 = v, poff
+    _check_walk(name, (v, poff, woff, split, poff2), N, M)
+    if _route(dev) == "plain":
+        return _win_plain(table, words, chain, v, poff, woff, split, poff2,
+                          bits)
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: table not 16-byte aligned")
+    lib = build.load()
+    out = torch.empty((1, 4, 8), dtype=torch.int32, device=dev)
+    nb = -(-v // lib.bp_win_points_per_block())
+    windows = lib.bp_win5_windows() if bits == 5 else lib.bp_win4_windows()
+    partials = torch.empty(
+        (max(1, windows * nb), 4, 8), dtype=torch.int32, device=dev
+    )
+    wtot = torch.empty((windows, 4, 8), dtype=torch.int32, device=dev)
+    build.check(
+        getattr(lib, f"bp_{name}")(
+            _ptr(table), _ptr(words), _ptr(chain), _ptr(out), _ptr(partials),
+            _ptr(wtot), v, poff, woff, split, poff2, _stream(dev),
+        ),
+        name,
+    )
+    _count(name)
+    return out
+
+
 def msm_win5(table: torch.Tensor, words: torch.Tensor, chain: torch.Tensor,
              v: int, poff: int = 0, woff: int = 0, split: int | None = None,
              poff2: int = 0) -> torch.Tensor:
@@ -498,42 +627,16 @@ def msm_win5(table: torch.Tensor, words: torch.Tensor, chain: torch.Tensor,
     table, d_j from word row woff + j (w5 bytes).  Step j reads table row
     poff + j for j < split and poff2 + (j - split) beyond (default split:
     v, one segment)."""
-    dev = table.device
-    N, M = table.shape[0], words.shape[0]
-    _check(table, "table", (N, TBL5, 4, 8), dev)
-    _check(words, "words", (M, 16), dev)
-    _check(chain, "chain", (1, 4, 8), dev)
-    if split is None:
-        split, poff2 = v, poff
-    if not (
-        0 <= split <= v and min(poff, poff2, woff) >= 0
-        and poff + split <= N and poff2 + (v - split) <= N and woff + v <= M
-    ):
-        raise ValueError(
-            f"msm_win5: walk v={v} poff={poff} woff={woff} split={split} "
-            f"poff2={poff2} leaves table ({N}) / words ({M})"
-        )
-    if _route(dev) == "plain":
-        return msm_win5_plain(table, words, chain, v, poff, woff, split, poff2)
-    if table.data_ptr() % 16:
-        raise ValueError("msm_win5: table not 16-byte aligned")
-    lib = build.load()
-    out = torch.empty((1, 4, 8), dtype=torch.int32, device=dev)
-    nb = -(-v // lib.bp_win_points_per_block())
-    windows = lib.bp_win5_windows()
-    partials = torch.empty(
-        (max(1, windows * nb), 4, 8), dtype=torch.int32, device=dev
-    )
-    wtot = torch.empty((windows, 4, 8), dtype=torch.int32, device=dev)
-    build.check(
-        lib.bp_msm_win5(
-            _ptr(table), _ptr(words), _ptr(chain), _ptr(out), _ptr(partials),
-            _ptr(wtot), v, poff, woff, split, poff2, _stream(dev),
-        ),
-        "msm_win5",
-    )
-    _count("msm_win5")
-    return out
+    return _win_walk("msm_win5", 5, table, words, chain, v, poff, woff,
+                     split, poff2)
+
+
+def msm_win(table: torch.Tensor, words: torch.Tensor, chain: torch.Tensor,
+            v: int, poff: int = 0, woff: int = 0, split: int | None = None,
+            poff2: int = 0) -> torch.Tensor:
+    """``msm_win5``'s walk over a ``table_w4`` table with w4 words."""
+    return _win_walk("msm_win", 4, table, words, chain, v, poff, woff,
+                     split, poff2)
 
 
 def table_w4(points: torch.Tensor, out: torch.Tensor | None = None
@@ -577,16 +680,8 @@ def msm_win_pair(table: torch.Tensor, words: torch.Tensor,
     walks = tuple(tuple(int(x) for x in w) for w in walks)
     if len(walks) != 2 or any(len(w) != 5 for w in walks):
         raise ValueError(f"msm_win_pair: two walks of 5 ints, got {walks}")
-    for v, poff, woff, split, poff2 in walks:
-        if not (
-            0 <= split <= v and min(poff, poff2, woff) >= 0
-            and poff + split <= N and poff2 + (v - split) <= N
-            and woff + v <= M
-        ):
-            raise ValueError(
-                f"msm_win_pair: walk {(v, poff, woff, split, poff2)} leaves "
-                f"table ({N}) / words ({M})"
-            )
+    for w in walks:
+        _check_walk("msm_win_pair", w, N, M)
     if _route(dev) == "plain":
         return msm_win_pair_plain(table, words, chain2, walks)
     if table.data_ptr() % 16:
@@ -611,17 +706,18 @@ def msm_win_pair(table: torch.Tensor, words: torch.Tensor,
     return out
 
 
-def _fold_w3h_launch(name, points, words, bp, v, sides, out):
+def _fold_launch(name, plain, points, words, word_shape, bp, v, sides, out):
+    """The half-width (``fold_w3h*``) and constant (``fold_c*``) folds:
+    2 * sides * v points in, sides * v out, the words' pair 0 below bp."""
     dev = points.device
     _check(points, "points", (2 * sides * v, 4, 8), dev)
-    _check(words, "words", (sides, 2, 2, 8), dev)
+    _check(words, "words", (sides, *word_shape), dev)
     if out is None:
         out = torch.empty((sides * v, 4, 8), dtype=torch.int32, device=dev)
     else:
         _check(out, "out", (sides * v, 4, 8), dev)
     bp = min(max(int(bp), 0), v)
     if _route(dev) == "plain":
-        plain = fold_w3h_plain if sides == 1 else fold_w3h_comb_plain
         return out.copy_(plain(points, words, bp))
     lib = build.load()
     build.check(
@@ -641,7 +737,8 @@ def fold_w3h(points: torch.Tensor, words: torch.Tensor, bp: int,
     bp on (``ck.w3h_fold_words``).  `out` (v, 4, 8), which must not
     overlap `points`, takes the result instead of a new tensor."""
     v = points.shape[0] // 2
-    return _fold_w3h_launch("fold_w3h", points, words, bp, v, 1, out)
+    return _fold_launch("fold_w3h", fold_w3h_plain, points, words, (2, 2, 8),
+                        bp, v, 1, out)
 
 
 def fold_w3h_comb(points: torch.Tensor, words: torch.Tensor, bp: int
@@ -650,4 +747,26 @@ def fold_w3h_comb(points: torch.Tensor, words: torch.Tensor, bp: int
     H(2v)] in one launch, side s folded with words[s] (both sides split
     at bp).  Always a new tensor: never in place."""
     v = points.shape[0] // 4
-    return _fold_w3h_launch("fold_w3h_comb", points, words, bp, v, 2, None)
+    return _fold_launch("fold_w3h_comb", fold_w3h_comb_plain, points, words,
+                        (2, 2, 8), bp, v, 2, None)
+
+
+def fold_c(points: torch.Tensor, words: torch.Tensor, bp: int,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """(v, 4, 8) from points (2v, 4, 8): out[i] = P[i] + c_i * P[i + v],
+    c_i the constant of words[0, 0] below bp and of words[0, 1] from bp
+    on (``ck.c_fold_words``).  `out` (v, 4, 8) takes the result instead of
+    a new tensor; it may be ``points[:v]`` (in place)."""
+    v = points.shape[0] // 2
+    return _fold_launch("fold_c", fold_c_plain, points, words, (2, 8), bp, v,
+                        1, out)
+
+
+def fold_c_comb(points: torch.Tensor, words: torch.Tensor, bp: int
+                ) -> torch.Tensor:
+    """(2v, 4, 8) = [G'(v) | H'(v)] from points (4v, 4, 8) = [G(2v) |
+    H(2v)] in one launch, side s folded with words[s] (both sides split
+    at bp).  Always a new tensor: never in place."""
+    v = points.shape[0] // 4
+    return _fold_launch("fold_c_comb", fold_c_comb_plain, points, words,
+                        (2, 8), bp, v, 2, None)

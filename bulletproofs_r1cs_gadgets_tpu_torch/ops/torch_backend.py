@@ -3,26 +3,54 @@
 The engine (``core/prover.py``, ``core/verifier.py``) reaches the device
 through a narrow seam: ``phase_commitments`` / ``ipp_create`` for the
 prover and ``msm_gens`` / ``msm`` for the verifier.  :class:`TorchBackend`
-implements that seam on ten kernels, following the JAX package's
-``PallasBackend`` under its default flags:
+implements that seam on fourteen kernels, following the JAX package's
+``PallasBackend`` under each of its route flags (:class:`Route`, the
+``BPTPU_*`` names of pallas_backend.py:61-98).
+
+The grid routes serve sizes in the reference's grid range
+(``walker_min_n`` .. ``WALKER_MAX_N``: more than one 2048-point chunk, at
+most 128 of them), and their rounds run while the side n >= COMB_MIN_N
+(the reference's CHUNK).  Under the default flags:
 
 * every walk over the SHARED generators (the phase-1 commitments, IPP
   round 1 and the verifier's G/H segments) runs the w5 walker
-  ``msm_win5`` over ``table_w5`` tables built once per generator set,
-  when the size is in the reference's grid range (``walker_min_n``);
-* after a walker round 1 with at least 2 * COMB_MIN_N points per side
-  left, the IPP moves to the combined layout: ``fold_w3h`` folds G and H
-  into the two halves of one tensor C = [G' | H'] and ``table_w4`` builds
-  its 8-entry table; each round while n >= COMB_MIN_N is one
+  ``msm_win5`` over ``table_w5`` tables built once per generator set;
+* after round 1, with at least 2 * COMB_MIN_N points per side left, the
+  IPP moves to the combined layout: ``fold_w3h`` folds G and H into the
+  two halves of one tensor C = [G' | H'] and ``table_w4`` builds its
+  8-entry table; each round while n >= COMB_MIN_N is one
   ``msm_win_pair`` launch (L and R) and one ``fold_w3h_comb`` launch,
   with the table rebuilt in its old storage while n >= 2 * COMB_MIN_N
   (pallas_backend.py:841-857, :1027-1068);
-* the rounds below COMB_MIN_N (and every round 2+ off the walker) run the
-  chunk-list route: ``msm_w4`` per side and ``fold_bits`` folds, then
-  ``msm_w4_pair`` once frozen;
+* with fewer points left (padded n = 4096), round 1 folds each side with
+  ``fold_c`` (pallas_backend.py:1069-1076);
+* the rounds below COMB_MIN_N (and every round 2+ off the grid range)
+  run the chunk-list route: ``msm_w4`` per side and ``fold_bits`` folds,
+  then ``msm_w4_pair`` once frozen;
 * in a batch whose active jobs are all frozen, one ``msm_lane`` launch
   computes every job's L and R (the flotilla);
 * every other MSM is one ``msm_w4`` launch.
+
+Under the other flags:
+
+* ``w5`` off: the shared tables are ``table_w4`` tables walked by
+  ``msm_win`` with w4 words (pallas_backend.py:108-115, :176-193);
+* ``winmsm`` off: no tables.  Phase 1 and the verifier's G/H are one
+  ``msm_grid`` launch per segment, chained (:255-256, :329-331); the grid
+  rounds are two ``msm_w4_pair`` launches over [G | H] (:885-902) and a
+  ``fold_c`` per side, in place from round 2 on (:1069-1076);
+* ``w3h`` off: the round-1 transition folds each side with ``fold_c``
+  into its half of C and the combined rounds fold with ``fold_c_comb``
+  (:1036, :1057-1063), with plain factor-vector scales (:989-992);
+* ``pairwalk`` off: a combined round's L is one ``msm_win`` walk and its
+  R one wrap walk, or under ``wrapmsm`` off two chained walks
+  (:858-872);
+* ``flotilla`` off: frozen batch rounds take one ``msm_w4_pair`` per job
+  (:471-475).
+
+The reference's ``BPTPU_TBLTIER`` picks the TPU's half-capacity table
+shape (:1038-1040); the port's tables are sized to the data, with no
+capacity tiers, so it has no counterpart here.
 
 The half-width folds split each fold constant c as alpha / beta
 (``ck.half_gcd_split``) and fold by beta * L + alpha * R; beta^-1 goes
@@ -46,6 +74,7 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -89,6 +118,34 @@ COMB_MIN_N = CHUNK
 FLOTILLA_MAX_SEGMENTS = GRID_CHUNKS
 
 
+@dataclass(frozen=True)
+class Route:
+    """Which kernels the backend's routes launch: the reference's route
+    flags (``BPTPU_<FIELD>``, pallas_backend.py:61-98), all on by
+    default.  The port has no table tiers, so ``BPTPU_TBLTIER`` is not
+    read.  Proof bytes never depend on any field; ``walker_min_n``,
+    ``frozen_max_side`` and ``COMB_MIN_N`` decide at what size a route
+    starts."""
+
+    winmsm: bool = True
+    w3h: bool = True
+    wrapmsm: bool = True
+    pairwalk: bool = True
+    flotilla: bool = True
+    w5: bool = True
+
+    @classmethod
+    def from_env(cls, env=None) -> "Route":
+        """The flags from ``BPTPU_*`` in `env` (default: the process
+        environment), with the reference's rule: any value but "0" is
+        on."""
+        env = os.environ if env is None else env
+        return cls(**{
+            f.name: env.get(f"BPTPU_{f.name.upper()}", "1") != "0"
+            for f in fields(cls)
+        })
+
+
 def _as_array(scalars) -> np.ndarray:
     """list[Scalar] | (n,4) u64 array -> (n,4) u64 array."""
     if isinstance(scalars, np.ndarray):
@@ -106,13 +163,15 @@ class TorchBackend:
     ``frozen_max_side`` is the IPP's frozen-tail side cap; lowering it (to
     0 to disable freezing) lets small CPU tests walk the unfrozen rounds.
     ``walker_min_n`` is the smallest walk over the shared generators that
-    takes the w5 walker (the reference's: more than one 2048-point chunk;
+    takes a grid route (the reference's: more than one 2048-point chunk;
     up to ``WALKER_MAX_N``); lowering it lets small CPU tests reach the
-    walker.  Proof bytes depend on neither."""
+    grid routes.  ``route`` picks the kernels of each route (default:
+    :meth:`Route.from_env`).  Proof bytes depend on none of them."""
 
     def __init__(self, device="cuda", min_device_n: int = MIN_DEVICE_N,
                  frozen_max_side: int = FROZEN_MAX_SIDE,
-                 walker_min_n: int = WALKER_MIN_N):
+                 walker_min_n: int = WALKER_MIN_N,
+                 route: Route | None = None):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -125,11 +184,12 @@ class TorchBackend:
         self.min_device_n = min_device_n
         self.frozen_max_side = frozen_max_side
         self.walker_min_n = walker_min_n
+        self.route = Route.from_env() if route is None else route
         self._gens_cache: dict = {}
         self._point_cache: dict = {}
 
     def evict_gens(self) -> None:
-        """Free every cached generator tensor and w5 table (the cache is
+        """Free every cached generator tensor and shared table (the cache is
         keyed by ``id(gens_share._gens)``, so dead gens objects can never
         be hit again yet still pin device memory: 1 GiB of tables at
         2^18)."""
@@ -148,30 +208,55 @@ class TorchBackend:
             self._gens_cache[key] = got
         return got[:n]
 
-    def _gens_table5(self, gens_share, n: int, which: str) -> torch.Tensor:
-        """``table_w5`` table of the first >= n generators, built once per
-        gens object (``PallasBackend._gens_table``).  It covers n rounded
-        up to a power of two (at most the capacity), so the phase-1 walk
-        over the multipliers and the IPP's round 1 over the padded size
-        share one build."""
-        key = (id(gens_share._gens), which, "tbl5")
+    def _gens_table(self, gens_share, n: int, which: str) -> torch.Tensor:
+        """Shared table of the first >= n generators, built once per gens
+        object (``PallasBackend._gens_table``): ``table_w5``, or
+        ``table_w4`` with ``w5`` off (the key carries the width).  It
+        covers n rounded up to a power of two (at most the capacity), so
+        the phase-1 walk over the multipliers and the IPP's round 1 over
+        the padded size share one build."""
+        w5 = self.route.w5
+        key = (id(gens_share._gens), which, "tbl5" if w5 else "tbl4")
         got = self._gens_cache.get(key)
         if got is None or got.shape[0] < n:
             cap = gens_share._gens.gens_capacity
             m = max(n, min(1 << (n - 1).bit_length(), cap))
-            got = cc.table_w5(self._gens(gens_share, m, which))
+            pts = self._gens(gens_share, m, which)
+            got = cc.table_w5(pts) if w5 else cc.table_w4(pts)
             self._gens_cache[key] = got
         return got
 
     def walks(self, n: int) -> bool:
-        """Whether a walk of n shared generators takes the w5 walker."""
+        """Whether n shared generators take a grid route (the reference's
+        capacity arrays, ``_gens_big``): the walker, or ``msm_grid`` with
+        ``winmsm`` off."""
         return self.walker_min_n <= n <= WALKER_MAX_N
 
-    def _win5(self, table, arr, v, chain=None, **kw):
-        """One ``msm_win5`` walk with w5 words of `arr` (scalar rows)."""
+    def shared_words(self, arr) -> torch.Tensor:
+        """Words of scalar rows for a walk over the shared tables: w5
+        bytes, or w4 nibbles with ``w5`` off."""
+        enc = ck.w5_words if self.route.w5 else ck.w4_words
+        return enc(arr, self.device)
+
+    def shared_walk(self, table, words, v, chain=None, **kw):
+        """One walk over a shared table: ``msm_win5``, or ``msm_win`` with
+        ``w5`` off."""
         if chain is None:
             chain = F.identity_points(1, self.device)
-        return cc.msm_win5(table, ck.w5_words(arr, self.device), chain, v, **kw)
+        walk = cc.msm_win5 if self.route.w5 else cc.msm_win
+        return walk(table, words, chain, v, **kw)
+
+    def _shared_msm(self, gens_share, n, which, arr, chain=None):
+        """acc + <arr, first n generators of `which`>: a walk over the
+        shared table, or with ``winmsm`` off one ``msm_grid`` launch over
+        the cached generators."""
+        if self.route.winmsm:
+            table = self._gens_table(gens_share, n, which)
+            return self.shared_walk(table, self.shared_words(arr), n, chain)
+        if chain is None:
+            chain = F.identity_points(1, self.device)
+        return cc.msm_grid(self._gens(gens_share, n, which),
+                           ck.w4_words(arr, self.device), chain)
 
     def _cached_point(self, tag: str, point: RistrettoPoint) -> torch.Tensor:
         key = (tag, point.compress())
@@ -198,9 +283,10 @@ class TorchBackend:
         self, scalars, head_points, gens_share, padded_n, tail_points
     ) -> RistrettoPoint:
         """Verifier mega-MSM over [head, G(padded_n), H(padded_n), tail]:
-        in the walker's range the chain head ``msm_w4`` -> ``msm_win5``
-        over the G table -> over the H table -> tail ``msm_w4``
-        (pallas_backend.py:235-261); otherwise one ``msm_w4`` launch."""
+        in the grid range the chain head ``msm_w4`` -> G -> H -> tail
+        ``msm_w4``, G and H each a walk over the shared table or, with
+        ``winmsm`` off, one ``msm_grid`` (pallas_backend.py:235-261);
+        otherwise one ``msm_w4`` launch."""
         nh, nt = len(head_points), len(tail_points)
         total = nh + 2 * padded_n + nt
         arr = _as_array(scalars)
@@ -216,10 +302,10 @@ class TorchBackend:
                 ck.w4_words(arr[:nh], self.device),
             )
             g_end, h_end = nh + padded_n, nh + 2 * padded_n
-            tG = self._gens_table5(gens_share, padded_n, "G")
-            tH = self._gens_table5(gens_share, padded_n, "H")
-            acc = self._win5(tG, arr[nh:g_end], padded_n, chain=acc)
-            acc = self._win5(tH, arr[g_end:h_end], padded_n, chain=acc)
+            acc = self._shared_msm(gens_share, padded_n, "G", arr[nh:g_end],
+                                   acc)
+            acc = self._shared_msm(gens_share, padded_n, "H",
+                                   arr[g_end:h_end], acc)
             acc = ck.msm_chain(
                 F.from_points(tail_points, self.device),
                 ck.w4_words(arr[h_end:], self.device), acc,
@@ -261,25 +347,27 @@ class TorchBackend:
         i_blinding, o_blinding, s_blinding, B_blinding, offset,
     ):
         """Launch the three phase-1 MSMs; returns their device
-        accumulators (no sync) and, on the walker route, the blinding
-        heads i/o/s_blinding * B_blinding as host points to add after the
-        fetch (pallas_backend.py:317-356)."""
+        accumulators (no sync) and, on the grid routes, the blinding heads
+        i/o/s_blinding * B_blinding as host points to add after the fetch
+        (pallas_backend.py:317-356)."""
         assert offset == 0, "phase-2 device commitments not yet routed"
         n = len(a_L)
         dev = self.device
         a_L, a_R, a_O = _as_array(a_L), _as_array(a_R), _as_array(a_O)
         s_L, s_R = _as_array(s_L), _as_array(s_R)
         if self.walks(n):
-            tG = self._gens_table5(gens_share, n, "G")
-            tH = self._gens_table5(gens_share, n, "H")
             heads = tuple(
                 B_blinding.scalar_mul(b)
                 for b in (i_blinding, o_blinding, s_blinding)
             )
-            acc_AI = self._win5(tH, a_R, n, chain=self._win5(tG, a_L, n))
-            acc_AO = self._win5(tG, a_O, n)
-            acc_S = self._win5(tH, s_R, n, chain=self._win5(tG, s_L, n))
-            return (acc_AI, acc_AO, acc_S), heads
+
+            def gh(x_G, x_H):
+                acc = self._shared_msm(gens_share, n, "G", x_G)
+                if x_H is None:
+                    return acc
+                return self._shared_msm(gens_share, n, "H", x_H, acc)
+
+            return (gh(a_L, a_R), gh(a_O, None), gh(s_L, s_R)), heads
         bb = self._cached_point("Bb", B_blinding)
         G = self._gens(gens_share, n, "G")
         H = self._gens(gens_share, n, "H")
@@ -338,8 +426,9 @@ class TorchBackend:
         """Inner-product arguments for B proofs in lockstep: per round,
         every job's L/R MSMs launch, then ONE sync fetches them all.  When
         more than one job is active and every active job is frozen, the
-        round is a flotilla round: one ``msm_lane`` launch over every
-        job's frozen pack (pallas_backend.py:429-537).  A thread pool runs
+        round is a flotilla round (unless the route's ``flotilla`` is
+        off): one ``msm_lane`` launch over every job's frozen pack
+        (pallas_backend.py:429-537).  A thread pool runs
         the jobs' host stages; each job's transcript order is unchanged,
         only device work interleaves."""
         out: list = [None] * len(jobs)
@@ -373,7 +462,8 @@ class TorchBackend:
                 active = [s for _, s in states if s.n > 1]
                 if not active:
                     break
-                if (len(active) > 1 and all(s.frozen for s in active)
+                if (self.route.flotilla and len(active) > 1
+                        and all(s.frozen for s in active)
                         and 2 * len(active) <= FLOTILLA_MAX_SEGMENTS):
                     ids = tuple(id(s) for s in active)
                     if ids != flot_ids:
@@ -503,17 +593,19 @@ class _IppJob:
     out = D_L + c * D_R with at most two c values (one breakpoint, see
     :func:`_ratio_pieces`), and F folds by one scalar on host.  The
     factors multiply into the L/R MSM *scalars*, so a fold needs no
-    per-point scalars: a ``fold_bits`` launch with ones on the left, or,
-    on the combined layout, a half-width ``fold_w3h(_comb)`` launch by
-    beta * D_L + alpha * D_R with beta^-1 folded into F.  Round 1 walks
-    the unfolded generators, so in the walker's range it runs
-    ``msm_win5`` over the shared tables and then moves to the combined
-    layout (C = [G' | H'] and its ``table_w4`` table, one
-    ``msm_win_pair`` per round) while n >= COMB_MIN_N.  Once both sides fit the
-    frozen side cap the job switches to the frozen tail (one
-    ``msm_w4_pair`` launch per round, or its share of a batch's
-    ``msm_lane`` launch; no folds).  Q terms are added on host in
-    round_finish."""
+    per-point scalars: a constant fold ``fold_c(_comb)``, a ``fold_bits``
+    launch with ones on the left, or a half-width ``fold_w3h(_comb)``
+    launch by beta * D_L + alpha * D_R with beta^-1 folded into F.  In the
+    grid range round 1 walks the unfolded generators over the shared
+    tables (or, with ``winmsm`` off, every round while n >= COMB_MIN_N is
+    two ``msm_w4_pair`` launches and ``fold_c`` folds); then, with enough
+    points left, the job moves to the combined layout (C = [G' | H'] and
+    its ``table_w4`` table, one ``msm_win_pair`` per round) while
+    n >= COMB_MIN_N.  Once both sides fit the frozen side cap the job
+    switches to the frozen tail (one ``msm_w4_pair`` launch per round, or
+    its share of a batch's ``msm_lane`` launch; no folds).  Q terms are
+    added on host in round_finish.  :class:`TorchBackend`'s module
+    docstring lists the kernels of each route."""
 
     def __init__(
         self, backend: TorchBackend, transcript, Q, G_factors, H_factors,
@@ -521,6 +613,8 @@ class _IppJob:
     ):
         self.dev = backend.device
         self.max_side = backend.frozen_max_side
+        self.route = backend.route
+        self.backend = backend
         self.t = transcript
         self.n = padded_n
         self.a = _as_array(a)
@@ -549,13 +643,20 @@ class _IppJob:
         # n >= COMB_MIN_N, after a walker round 1)
         self.C = self.tC = None
         self._walked = False  # this round walked the shared tables
+        # grid range: grid rounds while n >= COMB_MIN_N (the reference's
+        # capacity arrays); G / H are the shared generator cache until the
+        # first fold, the job's own tensors after it
+        self.grid = False
+        self._owns = False
         if padded_n <= self.max_side:
             # small proof: frozen from round 1, no generator folds at all
             self._freeze(self.G, self.H, padded_n)
         elif backend.walks(padded_n):
-            # round 1 walks the unfolded generators: the shared w5 tables
-            self.tG = backend._gens_table5(gens_share, padded_n, "G")
-            self.tH = backend._gens_table5(gens_share, padded_n, "H")
+            self.grid = True
+            if self.route.winmsm:
+                # round 1 walks the unfolded generators: the shared tables
+                self.tG = backend._gens_table(gens_share, padded_n, "G")
+                self.tH = backend._gens_table(gens_share, padded_n, "H")
 
     def _freeze(self, G, H, S: int) -> None:
         """Enter frozen-tail mode with side size S (factor vectors start
@@ -612,32 +713,58 @@ class _IppJob:
             return pair[0:1], pair[1:2]
         scG_L, scH_L, scG_R, scH_R = self._round_scalars()
         n = self.n
+        # R's G part stops at a_R's zero tail (round 1)
+        vR = max(1, self._nzR) if self._nzR < n else n
         if self.C is not None and n >= COMB_MIN_N:
-            # combined round (pallas_backend.py:841-857): both walks in ONE
-            # launch, words [scG_L | scH_L | scG_R | scH_R]
+            # combined round (pallas_backend.py:841-872): words
+            # [scG_L | scH_L | scG_R | scH_R]; both walks in ONE launch, or
+            # with pairwalk off L in one walk and R in a wrap walk (two
+            # chained walks with wrapmsm off)
             words = ck.w4_words(
                 np.concatenate([scG_L, scH_L, scG_R, scH_R]), self.dev
             )
-            pair = cc.msm_win_pair(
-                self.tC, words, F.identity_points(2, self.dev),
-                ck.comb_walks(n),
-            )
-            return pair[0:1], pair[1:2]
+            walk_L, walk_R = ck.comb_walks(n)
+            if self.route.pairwalk:
+                pair = cc.msm_win_pair(
+                    self.tC, words, F.identity_points(2, self.dev),
+                    (walk_L, walk_R),
+                )
+                return pair[0:1], pair[1:2]
+            ident = F.identity_points(1, self.dev)
+            accL = cc.msm_win(self.tC, words, ident, *walk_L)
+            if self.route.wrapmsm:
+                return accL, cc.msm_win(self.tC, words, ident, *walk_R)
+            accR = cc.msm_win(self.tC, words, ident, n, 0, 2 * n)
+            accR = cc.msm_win(self.tC, words, accR, n, 3 * n, 3 * n)
+            return accL, accR
         if self.tG is not None:
             # round 1 over the shared tables (pallas_backend.py:873-884):
-            # G words [scG_R | scG_L], H words [scH_L | scH_R]; R's G walk
-            # stops at a_R's zero tail
-            wG = ck.w5_words(np.concatenate([scG_R, scG_L]), self.dev)
-            wH = ck.w5_words(np.concatenate([scH_L, scH_R]), self.dev)
-            ident = F.identity_points(1, self.dev)
-            vR = max(1, self._nzR) if self._nzR < n else n
-            accL = cc.msm_win5(self.tG, wG, ident, n, poff=n, woff=n)
-            accL = cc.msm_win5(self.tH, wH, accL, n)
-            accR = cc.msm_win5(self.tG, wG, ident, vR)
-            accR = cc.msm_win5(self.tH, wH, accR, n, poff=n, woff=n)
+            # G words [scG_R | scG_L], H words [scH_L | scH_R]
+            be = self.backend
+            wG = be.shared_words(np.concatenate([scG_R, scG_L]))
+            wH = be.shared_words(np.concatenate([scH_L, scH_R]))
+            accL = be.shared_walk(self.tG, wG, n, poff=n, woff=n)
+            accL = be.shared_walk(self.tH, wH, n, chain=accL)
+            accR = be.shared_walk(self.tG, wG, vR)
+            accR = be.shared_walk(self.tH, wH, n, chain=accR, poff=n, woff=n)
             self.tG = self.tH = None
             self._walked = True
             return accL, accR
+        if self.grid and n >= COMB_MIN_N:
+            # grid round with winmsm off (pallas_backend.py:885-902): the G
+            # pair walks [scG_R | scG_L] (R's part to the zero tail), the H
+            # pair [scH_L | scH_R] chained from it, crossed
+            pG = cc.msm_w4_pair(
+                self.G[: 2 * n],
+                ck.w4_words(np.concatenate([scG_R, scG_L]), self.dev),
+                F.identity_points(2, self.dev), n, lo_limit=vR,
+            )
+            pH = cc.msm_w4_pair(
+                self.H[: 2 * n],
+                ck.w4_words(np.concatenate([scH_L, scH_R]), self.dev),
+                pG.flip(0), n,
+            )
+            return pH[0:1], pH[1:2]
         ptsL, ptsR = ck.pack_pair(self.G, self.H, n)
         accL = ck.msm_chain(ptsL, ck.segment_words([scG_L, scH_L], self.dev))
         accR = ck.msm_chain(ptsR, ck.segment_words([scG_R, scH_R], self.dev))
@@ -676,12 +803,14 @@ class _IppJob:
             hfac * (self.rho_H if powB else one),
         )
         walked, self._walked = self._walked, False
+        # round 1 -> combined layout after a walker round 1 with enough
+        # points left (pallas_backend.py:1047-1068)
+        to_comb = walked and n >= 2 * COMB_MIN_N
         # half-width splits on the combined rounds and the round-1
         # transition (pallas_backend.py:964-1004): beta^-1 folds into the
         # factor vectors, so the pieces' ratio picks up beta_A / beta_B
-        use_w3h = not self.frozen and n >= COMB_MIN_N and (
-            self.C is not None or (walked and n >= 2 * COMB_MIN_N)
-        )
+        use_w3h = (self.route.w3h and not self.frozen and n >= COMB_MIN_N
+                   and (self.C is not None or to_comb))
         if use_w3h:
             sG = [ck.half_gcd_split(c.v, _L) for c in cG]
             sH = [ck.half_gcd_split(c.v, _L) for c in cH]
@@ -696,6 +825,7 @@ class _IppJob:
             ratio_G = Scalar(sG[0][1] % _L) * bGi[1]
             ratio_H = Scalar(sH[0][1] % _L) * bHi[1]
         else:
+            sG = sH = None
             self.GF = scvec.scale(self.GF[:n], u_inv)
             self.HF = scvec.scale(self.HF[:n], u)
             ratio_G = ratio_H = one
@@ -715,27 +845,52 @@ class _IppJob:
         if self.C is not None:
             # combined fold (pallas_backend.py:1027-1046): both sides into
             # a NEW tensor (blocks run in any order, so never in place),
-            # then the next round's table in the old table's storage, or
-            # the tail once the sides are one chunk
-            self.C = cc.fold_w3h_comb(
-                self.C, ck.w3h_fold_words([sG, sH], self.dev), rbp
-            )
+            # half-width or, with w3h off, by the constants; then the next
+            # round's table in the old table's storage, or the tail once
+            # the sides are one chunk
+            if use_w3h:
+                self.C = cc.fold_w3h_comb(
+                    self.C, ck.w3h_fold_words([sG, sH], self.dev), rbp
+                )
+            else:
+                self.C = cc.fold_c_comb(
+                    self.C, ck.c_fold_words([cG, cH], self.dev), rbp
+                )
             if n >= 2 * COMB_MIN_N:
                 self.tC = cc.table_w4(self.C, out=self.tC)
             else:
                 self.G, self.H = self.C[:n], self.C[n : 2 * n]
                 self.C = self.tC = None
             return
-        if use_w3h:
+        if to_comb:
             # round 1 -> combined layout (pallas_backend.py:1047-1068):
             # each side folds into its half of C, one table over both
             C = torch.empty((2 * n, 4, 8), dtype=torch.int32, device=self.dev)
-            cc.fold_w3h(self.G[: 2 * n], ck.w3h_fold_words([sG], self.dev),
-                        rbp, out=C[:n])
-            cc.fold_w3h(self.H[: 2 * n], ck.w3h_fold_words([sH], self.dev),
-                        rbp, out=C[n:])
+            sides = ((self.G, sG, cG), (self.H, sH, cH))
+            for k, (src, split, consts) in enumerate(sides):
+                out = C[k * n : (k + 1) * n]
+                if use_w3h:
+                    words = ck.w3h_fold_words([split], self.dev)
+                    cc.fold_w3h(src[: 2 * n], words, rbp, out=out)
+                else:
+                    words = ck.c_fold_words([consts], self.dev)
+                    cc.fold_c(src[: 2 * n], words, rbp, out=out)
             self.C, self.G, self.H = C, None, None
+            self.grid = False
             self.tC = cc.table_w4(C)
+            return
+        if self.grid and n >= COMB_MIN_N:
+            # grid fold (pallas_backend.py:1069-1076): padded n = 4096's
+            # round 1, and every grid round with winmsm off; in place once
+            # the job owns the tensors (the reference's donated variant)
+            wG = ck.c_fold_words([cG], self.dev)
+            wH = ck.c_fold_words([cH], self.dev)
+            own = self._owns
+            self.G = cc.fold_c(self.G[: 2 * n], wG, rbp,
+                               out=self.G[:n] if own else None)
+            self.H = cc.fold_c(self.H[: 2 * n], wH, rbp,
+                               out=self.H[:n] if own else None)
+            self._owns = True
             return
         if n <= self.max_side // 2:
             # both sides (size 2n) fit the cap: freeze pre-fold and absorb

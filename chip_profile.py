@@ -6,15 +6,18 @@
 Measures, for a VSMT-2 depth-253 proof (143,704 multipliers padded to
 2^18) through ``TorchBackend("cuda")``:
 
-1. the three routes of the single-proof path in one process: the
-   combined route (the default: shared-generator walks on ``msm_win5``,
-   then IPP rounds 2-7 on the combined layout, ``msm_win_pair`` +
+1. six routes of the single-proof path in one process: the combined
+   route (the default: shared-generator walks on ``msm_win5``, then IPP
+   rounds 2-7 on the combined layout, ``msm_win_pair`` +
    ``fold_w3h_comb`` + ``table_w4``), the w5 route (the combined layout
    off, its threshold COMB_MIN_N raised above 2^18, so rounds 2+ run
-   ``msm_w4`` + ``fold_bits``) and the chunk-list route
-   (``walker_min_n`` above 2^18, every walk on ``msm_w4``); warm prove and
-   verify times in the order w4, w5, comb, comb, w5, w4 twice, each proof
-   checked by the port's verifier and all three routes' bytes equal;
+   ``msm_w4`` + ``fold_bits``), the chunk-list route (``walker_min_n``
+   above 2^18, every walk on ``msm_w4``) and three of the reference's
+   route flags (``Route``): winmsm off (``msm_grid``, ``msm_w4_pair`` and
+   ``fold_c`` grid rounds), w3h off (``fold_c`` / ``fold_c_comb``) and w5
+   off (``table_w4`` + ``msm_win`` shared walks); warm prove and verify
+   times in the routes' order and back, twice, each proof checked by the
+   port's verifier and all routes' bytes equal;
 2. one ``torch.profiler`` trace per route of a warm prove and a verify:
    wall time, device time (the union of the device intervals), the
    device's idle share (1 - device / wall) and device time per kernel;
@@ -42,7 +45,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ROUTE_ORDER = ["w4", "w5", "comb", "comb", "w5", "w4"] * 2
+ROUTES = ["w4", "w5", "comb", "winmsm_off", "w3h_off", "w5_off"]
+ROUTE_ORDER = (ROUTES + ROUTES[::-1]) * 2
 BATCH = 8
 
 
@@ -129,12 +133,20 @@ def main() -> int:
         prover.rng = np.random.RandomState(cs.SEED)
 
     # 1-2. the three routes of one proof
-    shared = bp.TorchBackend("cuda")
+    shared = bp.TorchBackend("cuda", route=bp.Route())
+    def flags(**over):
+        return (bp.TorchBackend("cuda", route=bp.Route(**over)),
+                contextlib.nullcontext)
+
     routes = {  # name: (backend, context of its proves)
-        "w4": (bp.TorchBackend("cuda", walker_min_n=2 * cs.GENS_N),
+        "w4": (bp.TorchBackend("cuda", walker_min_n=2 * cs.GENS_N,
+                               route=bp.Route()),
                contextlib.nullcontext),
         "w5": (shared, cs.combined_off),
         "comb": (shared, contextlib.nullcontext),
+        "winmsm_off": flags(winmsm=False),
+        "w3h_off": flags(w3h=False),
+        "w5_off": flags(w5=False),
     }
 
     def prove(name):
@@ -147,8 +159,7 @@ def main() -> int:
         fresh()
         proofs[name] = prove(name)
         cs.verify(bp, comp, tape, comms, proofs[name], gens, be)
-    assert (proofs["w4"].to_bytes() == proofs["w5"].to_bytes()
-            == proofs["comb"].to_bytes())
+    assert len({p.to_bytes() for p in proofs.values()}) == 1
     prove_s = {name: [] for name in routes}
     verify_s = {name: [] for name in routes}
     for name in ROUTE_ORDER:
@@ -178,7 +189,7 @@ def main() -> int:
     # 3. the walker against the w4 ladder over the same generators
     dev = torch.device("cuda", 0)
     be, share = shared, gens.share(0)
-    tG = be._gens_table5(share, cs.GENS_N, "G")
+    tG = be._gens_table(share, cs.GENS_N, "G")
     G = be._gens(share, cs.GENS_N, "G")
     rng = np.random.RandomState(cs.SEED)
     kern = {}
@@ -217,7 +228,7 @@ def main() -> int:
         for i in range(BATCH)
     ]
     snaps = [p.snapshot() for p in jobs]
-    bb = bp.TorchBackend("cuda")
+    bb = bp.TorchBackend("cuda", route=bp.Route())
     batch_ctx = {"w5": cs.combined_off, "comb": contextlib.nullcontext}
 
     def batch(workers, route):

@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths, a VSMT-2 depth-253 membership proof
-(143,704 multipliers padded to 2^18) proved alone and a batch of eight
-proved through ``prove_provers`` and verified by one ``batch_verify``,
-through ``TorchBackend("cuda")``, and checks every kernel on the way.
+Drives the port's main paths, a VSMT-2 depth-253 membership proof
+(143,704 multipliers padded to 2^18) proved alone (on the default route
+and on the reference's route flags) and a batch of eight proved through
+``prove_provers`` and verified by one ``batch_verify``, through
+``TorchBackend("cuda")``, and the reference's equivalence gate (one
+depth-8 proof down every route), and checks every kernel on the way.
 Phases, each printing one line with its wall time (any failure exits
 non-zero and prints no result):
 
@@ -27,21 +29,34 @@ non-zero and prints no result):
    2^17 (random half-gcd pairs split at round 1's breakpoint, and the
    edge pairs (0, 1) / (1, -1)), fold_w3h_comb over a 2^18-point
    combined tensor, table_w4 over 2^18 points, msm_win_pair at IPP
-   rounds 2 (n = 2^16) and 7 (n = 2048)), and on a subset against the
+   rounds 2 (n = 2^16) and 7 (n = 2048); the route flags' kernels:
+   fold_c over the 2^18 generators into 2^17 (random constants split at
+   round 1's breakpoint, the edge constants 0, 1, L - 1, in place) and
+   over 4096 into 2048, fold_c_comb over a 2^18-point combined tensor,
+   msm_win at round 2's L walk and R wrap walk and over the table_w4 of
+   the shared generators at phase 1's 143,704 points, msm_grid over
+   143,704 generators at offset 0 and 2048), and on a subset against the
    host MSM or scalar multiplication.  Tolerance: exact (equal points,
    equal table words).
-3. a VSMT-2 depth-4 proof through the port, byte-identical to the host
+3. a VSMT-2 depth-4 proof through the port (padded to 4096: round 1
+   folds with fold_c), byte-identical to the host
    path with the same prover randomness, its digest equal to the JAX
    package's (``golden/vsmt2_depth4.json``), and verified by the port's
    and the host verifier; then a batch of three depth-4 provers through
    ``prove_provers``, each proof byte-identical to the same prover proved
    alone through the port (flotilla rounds run).
 4. the depth-253 proof: one cold prove, two warm proves, the port's
-   verifier; every kernel but the flotilla's must have launched; a
-   tampered proof and a wrong root must raise VerificationError; the same
-   prover and rng give the same bytes with the combined IPP route on and
-   off.  Launch counts are taken over the cold prove, the verify and the
-   warm proves.
+   verifier; every kernel of the default route but the flotilla's must
+   have launched (launch counts over the cold prove, the verify and the
+   warm proves); then the same prover and rng, each on a fresh backend,
+   on the default route, with w3h, winmsm, w5, and pairwalk with wrapmsm
+   off (``Route``), and on the chunk-list route (``combined_off``:
+   msm_w4 segments and fold_bits from round 2), each cold and warm (wall
+   time, device-synchronised): every proof byte-identical, verified on
+   the winmsm-off and w5-off routes, each route's launches the kernels
+   of its route and none of another's (``route_kernels``), and each
+   route-flag kernel launched; a tampered proof and a wrong root must
+   raise VerificationError.
 5. the depth-253 batch of eight (different leaves, deterministic prover
    randomness) through ``prove_provers`` as a user calls it (the default
    host pool: each prover's rng is private, so the pool cannot change
@@ -50,13 +65,24 @@ non-zero and prints no result):
    same prover re-proved alone; a batch holding one tampered proof must
    raise VerificationError.  Launch counts are taken over the batch's
    prove and verify.
+6. the equivalence gate of ``bench.py`` stage 5 (:482-627): its depth-8
+   VSMT-2 circuit (4,544 multipliers padded to 8192, prover rng 42,
+   commitments rng 7) proved under the reference's seven route combos,
+   through ``prove_provers`` (three provers) with the flotilla off and
+   on, through the port's ``NativeBackend`` and through the host path (a
+   low-priority process, ``chip_smoke.py --gate-host``, started before
+   phase 2): one byte string, which verifies, and a tampered copy is
+   rejected; each combo must launch the kernels of its route and none
+   of another's (``route_kernels``), and every route-flag kernel must
+   have launched (counts over the gate).
 
 The third line from the end is the card's nvidia-smi name and power
 limit, the line before the last holds the per-kernel JSON record
-(``launches`` summed over phases 4 and 5; ``bound_ms`` the larger of the
-work's 32-bit multiplies over the card's multiply rate and its bytes over
-3.35 TB/s, counted from this run's inputs; ``library_ms`` null: no
-PyTorch call computes these functions), and the last line is
+(``launches`` summed over phases 4 (both parts), 5 and 6; ``bound_ms``
+the larger of the work's 32-bit multiplies over the card's multiply rate
+and its bytes over 3.35 TB/s, counted from this run's inputs;
+``library_ms`` null: no PyTorch call computes these functions), and the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -77,6 +103,8 @@ SOURCES = {
     "msm_w4": _W4, "msm_w4_pair": _W4, "fold_bits": _W4, "msm_lane": _W4,
     "table_w5": _WIN, "msm_win5": _WIN, "table_w4": _WIN,
     "msm_win_pair": _WIN, "fold_w3h": _W3H, "fold_w3h_comb": _W3H,
+    "fold_c": _W4, "fold_c_comb": _W4, "msm_win": _WIN,
+    "msm_grid": _W4,  # launches msm_w4's kernel over a view
 }
 _PC = "bulletproofs_r1cs_gadgets_tpu/ops/pallas_curve.py"
 REPLACES = {
@@ -90,7 +118,14 @@ REPLACES = {
     "fold_w3h_comb": f"{_PC}:685",
     "table_w4": f"{_PC}:1012",
     "msm_win_pair": f"{_PC}:1462",
+    "fold_c": f"{_PC}:541",
+    "fold_c_comb": f"{_PC}:733",
+    "msm_win": f"{_PC}:1156",
+    "msm_grid": f"{_PC}:438",
 }
+# the kernels the route flags add (ported in the same slice): every one
+# must launch in phase 6 and on the full-width routes
+FLAG_KERNELS = ("fold_c", "fold_c_comb", "msm_win", "msm_grid")
 KERNELS = tuple(REPLACES)
 GOLDEN = os.path.join(ROOT, PKG, "golden", "vsmt2_depth4.json")
 SEED = 20261016
@@ -106,6 +141,55 @@ LANE_V, LANE_SEG = 16, 2048  # msm_lane segments x points
 COMB_N = (1 << 16, 2048)  # msm_win_pair: IPP rounds 2 and 7 (side n)
 # digits -16 in windows 0..49 and 1 in window 50
 ALL_MINUS_16 = (1 << 250) - 16 * ((1 << 250) - 1) // 31
+# The reference's seven route combos of its equivalence gate
+# (bench.py:550-563, the environment's defaults all on), as overrides of
+# the port's Route() fields (TBLTIER has no counterpart: the port has no
+# table tiers).
+_OFF3 = dict(wrapmsm=False, pairwalk=False)
+GATE_COMBOS = {
+    "default": {},
+    "W3H=0": dict(w3h=False, **_OFF3),
+    "WINMSM=0": dict(winmsm=False, **_OFF3),
+    "WINMSM=0,W3H=0": dict(winmsm=False, w3h=False, **_OFF3),
+    "WRAPMSM=1,TBLTIER=1": dict(pairwalk=False),
+    "PAIRWALK=1": {},
+    "W5=0": dict(w5=False),
+}
+
+
+def route_kernels(route, combined: bool = True):
+    """(launched, not launched): the kernels a proof and a verify on
+    `route` must launch and must not, for a padded size whose IPP reaches
+    the combined layout (at least 4 * COMB_MIN_N).  `combined` False is
+    the chunk-list route (``combined_off``, default flags): round 1 over
+    the shared tables, then ``msm_w4`` segments and ``fold_bits``."""
+    if not combined:
+        return ({"table_w5", "msm_win5", "msm_w4", "fold_bits"},
+                {"fold_w3h", "fold_w3h_comb", "table_w4", "msm_win_pair",
+                 "msm_win", "fold_c", "fold_c_comb", "msm_grid"})
+    if not route.winmsm:  # no tables: msm_grid, msm_w4_pair grid rounds
+        return ({"msm_grid", "fold_c", "msm_w4_pair"},
+                {"table_w5", "msm_win5", "table_w4", "msm_win", "msm_win_pair",
+                 "fold_w3h", "fold_w3h_comb", "fold_c_comb"})
+    on, off = {"table_w4"}, {"msm_grid"}
+    shared = ({"table_w5", "msm_win5"}, {"msm_win"})
+    fold = ({"fold_w3h", "fold_w3h_comb"}, {"fold_c", "fold_c_comb"})
+    pair = ({"msm_win_pair"}, {"msm_win"})
+    for flag, (yes, no) in ((route.w5, shared), (route.w3h, fold),
+                            (route.pairwalk, pair)):
+        on |= yes if flag else no
+        off |= no if flag else yes
+    return on, off - on
+
+
+def check_route(tag: str, ran: dict, route, combined: bool = True) -> None:
+    """Fail unless the launch counts `ran` of one route's run (a proof,
+    or a proof and a verify) hold route_kernels(route, combined)."""
+    on, off = route_kernels(route, combined)
+    missing = sorted(k for k in on if not ran.get(k, 0))
+    stray = sorted(k for k in off if ran.get(k, 0))
+    assert not missing and not stray, \
+        f"route {tag}: not launched {missing}, launched off-route {stray}"
 
 # ---- the least time the card could take (bound_ms): the larger of the
 # 32-bit integer multiplies over the card's multiply rate and the bytes
@@ -504,6 +588,7 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
     records.update(phase_kernels_w5(bp, torch, cc, F, gens, dev, rng))
     records["msm_lane"] = phase_kernel_lane(bp, torch, cc, F, gens, dev, rng)
     records.update(phase_kernels_comb(bp, torch, cc, F, gens, dev, rng))
+    records.update(phase_kernels_flags(bp, torch, cc, F, gens, dev, rng))
     for name, r in records.items():
         r["library_ms"] = None  # no PyTorch call computes these functions
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
@@ -830,6 +915,204 @@ def phase_kernels_comb(bp, torch, cc, F, gens, dev, rng):
     return records
 
 
+def fold_c_ops(codes_pairs, brk: int, v: int) -> dict:
+    """fold_c point operations for v outputs, constant 0 below brk: the
+    w4 ladder's 7-operation table (built for every output), its ladder
+    over the constant's digits, and the final add of P[i]."""
+    ops = dict(dbl=0, add=0)
+    for codes, count in zip(codes_pairs, (brk, v - brk)):
+        lad, _ = ladder_ops(codes[None], 4)
+        ops["dbl"] += count * (lad["dbl"] + 4)
+        ops["add"] += count * (lad["add"] + 3 + 1)
+    return ops
+
+
+def phase_kernels_flags(bp, torch, cc, F, gens, dev, rng):
+    """The route flags' kernels at their routes' shapes: fold_c over the
+    2^18 generators into 2^17 (random constants split at round 1's
+    breakpoint; the edge constants 0, 1, L - 1; the in-place form) and
+    over 4096 into 2048 (padded n = 4096's round 1); fold_c_comb over a
+    2^18-point combined tensor; msm_win over a 2^18-point combined table
+    at round 2's L walk and R wrap walk and over the table_w4 of the 2^18
+    shared generators at phase 1's 143,704 points; msm_grid over 143,704
+    generators at offset 0 and at a chunk offset.  Each exact against its
+    plain version on the same CUDA tensors, subsets against the host."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
+
+    P, L = bp.P, bp.L
+    N = GENS_N
+    records = {}
+    G = F.from_raw(gens.G_raw(N), dev)
+    H = F.from_raw(gens.H_raw(N), dev)
+    B = bp.PedersenGens.default().B
+
+    def rand_const():
+        return bp.Scalar(int.from_bytes(rng.bytes(32), "little") % L)
+
+    def host_fold(got, src, consts, brk, lanes):
+        v = src.shape[0] // 2
+        gp = F.to_points(got[lanes])
+        lp = F.to_points(src[lanes])
+        rp = F.to_points(src[[i + v for i in lanes]])
+        for j, i in enumerate(lanes):
+            c = consts[0] if i < brk else consts[1]
+            assert gp[j] == lp[j] + rp[j].scalar_mul(c), f"fold_c lane {i} != host"
+
+    def words_codes(words):
+        return _codes(words.reshape(-1, 8).cpu().numpy(), 4, 64)
+
+    # ---- fold_c: G(2^18) -> 2^17 at round 1's breakpoint; edges; 4096
+    v = N // 2
+    main = ((rand_const(), rand_const()), N1 - v)
+    cases = [
+        ("random", G, main),
+        ("edge 0 / 1", G, ((bp.Scalar(0), bp.Scalar(1)), v // 3)),
+        ("edge L-1 / 1", G, ((bp.Scalar(L - 1), bp.Scalar(1)), 2 * v // 3)),
+        ("padded 4096", G[:4096], ((rand_const(), rand_const()), 1500)),
+    ]
+    err = 0
+    for name, src, (consts, brk) in cases:
+        words = ck.c_fold_words([consts], dev)
+        got = cc.fold_c(src, words, brk)
+        plain, ms = timed_once(torch, lambda: cc.fold_c_plain(src, words, brk))
+        e = point_err(F, got, plain, P)
+        kms = time_ms(torch, lambda: cc.fold_c(src, words, brk), 5)
+        log(f"  fold_c {name} ({src.shape[0]} -> {src.shape[0] // 2}), "
+            f"bp {brk}: kernel {kms:.3f} ms, plain {ms:.1f} ms, "
+            f"max_abs_err {e}")
+        err = max(err, e)
+        half = src.shape[0] // 2
+        host_fold(got, src, consts, brk, [0, 1, brk - 1, brk, half - 1])
+        if name == "random":
+            fw, fms, fkms = words, ms, kms
+            own = src.clone()  # in place: out = the input's first half
+            cc.fold_c(own, words, brk, out=own[:v])
+            assert torch.equal(own[:v], got), "fold_c in place differs"
+    assert err == 0, f"fold_c != plain (err {err})"
+    del plain, own
+    records["fold_c"] = dict(
+        max_abs_err=err, ms=fkms, plain_ms=fms,
+        **bound(fold_c_ops(words_codes(fw), main[1], v),
+                v * 3 * 128 + fw.numel() * 4),
+    )
+
+    # ---- fold_c_comb: [G(2^17) | H(2^17)] -> [G'(2^16) | H'(2^16)]
+    m = N // 4
+    C = torch.cat([G[: 2 * m], H[: 2 * m]])
+    sides = [(rand_const(), rand_const()), (rand_const(), rand_const())]
+    brk = m // 5
+    words = ck.c_fold_words(sides, dev)
+    got = cc.fold_c_comb(C, words, brk)
+    plain, ms = timed_once(torch, lambda: cc.fold_c_comb_plain(C, words, brk))
+    err = point_err(F, got, plain, P)
+    log(f"  fold_c_comb: plain {ms:.1f} ms, max_abs_err {err}")
+    assert err == 0, f"fold_c_comb != plain (err {err})"
+    for s_ in (0, 1):  # each side equals fold_c of that side, word for word
+        one = cc.fold_c(C[2 * m * s_ : 2 * m * (s_ + 1)],
+                        words[s_ : s_ + 1].contiguous(), brk)
+        assert torch.equal(got[m * s_ : m * (s_ + 1)], one), \
+            f"fold_c_comb side {s_} != fold_c"
+    host_fold(got[m:], C[2 * m :], sides[1], brk, [0, brk, m - 1])
+    codes = words_codes(words)
+    cops = fold_c_ops(codes[:2], brk, m)
+    for k, val in fold_c_ops(codes[2:], brk, m).items():
+        cops[k] += val
+    records["fold_c_comb"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: cc.fold_c_comb(C, words, brk), 5),
+        plain_ms=ms,
+        **bound(cops, 2 * m * 3 * 128 + words.numel() * 4),
+    )
+    del plain, got, C
+
+    # ---- msm_win: round 2's walks over the combined table, phase 1's
+    # walk over the w4 table of the shared generators
+    n = N // 4
+    t_comb = cc.table_w4(torch.cat([G[: 2 * n], H[: 2 * n]]))
+    rows = random_scalar_rows(bp, 4 * n, rng)
+    edge = bp.scvec.from_ints([0, 1, L - 1, L - 1])
+    for at in (0, 2 * n - 2, 2 * n, 4 * n - 4):
+        rows[at : at + len(edge)] = edge
+    wn = ck.signed_digit_words(rows)
+    wn[3] = np.int32(-0x77777778)  # 0x88888888: every digit -8
+    cw = torch.from_numpy(wn).to(dev)
+    walk_L, walk_R = ck.comb_walks(n)
+    t_shared = cc.table_w4(G)
+    srows = random_scalar_rows(bp, N1, rng)
+    srows[:3] = edge[:3]
+    sw = torch.from_numpy(ck.signed_digit_words(srows)).to(dev)
+    ident = F.identity_points(1, dev)
+    chain = F.from_points([B], dev)
+    walks = [  # (name, table, words, chain, walk)
+        ("round 2 L", t_comb, cw, ident, walk_L),
+        ("round 2 R wrap", t_comb, cw, chain, walk_R),
+        ("phase 1", t_shared, sw, ident, (N1, 0, 0, N1, 0)),
+    ]
+    err = 0
+    for name, tbl, words, acc, walk in walks:
+        got = cc.msm_win(tbl, words, acc, *walk)
+        plain, ms = timed_once(
+            torch, lambda: cc.msm_win_plain(tbl, words, acc, *walk)
+        )
+        e = max_abs_err(F.to_points(got), F.to_points(plain), P)
+        kms = time_ms(torch, lambda: cc.msm_win(tbl, words, acc, *walk), 5)
+        log(f"  msm_win {name} {walk}: kernel {kms:.3f} ms, plain {ms:.1f} "
+            f"ms, max_abs_err {e}")
+        err = max(err, e)
+        if name == "phase 1":
+            main_ms, main_plain_ms = kms, ms
+    assert err == 0, f"msm_win != plain (err {err})"
+    sub, cut = 48, 20  # a wrap walk over both ends of the shared table
+    got = F.to_points(cc.msm_win(t_shared, sw, chain, sub, N - cut, 0, cut,
+                                 N // 2 + 3))
+    idx = [N - cut + j if j < cut else N // 2 + 3 + j - cut for j in range(sub)]
+    host = bp.multiscalar_mul(
+        bp.scvec.to_scalars(srows[:sub]) + [bp.Scalar(1)],
+        F.to_points(G[idx]) + [B],
+    )
+    assert got[0] == host, "msm_win != host MSM"
+    wops, entries = walk_ops(_codes(sw.cpu().numpy(), 4, 64), np.arange(N1),
+                             -(-N1 // 2048), 64, 4)
+    records["msm_win"] = dict(
+        max_abs_err=err, ms=main_ms, plain_ms=main_plain_ms,
+        **bound(wops, entries * 128 + N1 * 32 + 2 * 128),
+    )
+    del t_comb, t_shared
+
+    # ---- msm_grid: phase 1's 143,704 generators, at offset 0 and at a
+    # chunk offset, chained
+    gw = sw  # phase 1's words
+    err = 0
+    for poff in (0, 2048):
+        got = cc.msm_grid(G, gw, chain, poff)
+        plain, ms = timed_once(
+            torch, lambda: cc.msm_grid_plain(G, gw, chain, poff)
+        )
+        e = max_abs_err(F.to_points(got), F.to_points(plain), P)
+        log(f"  msm_grid {N1} points at offset {poff}: plain {ms:.1f} ms, "
+            f"max_abs_err {e}")
+        err = max(err, e)
+        if poff == 0:
+            grid_plain_ms = ms
+    assert err == 0, f"msm_grid != plain (err {err})"
+    sub = 64
+    got = F.to_points(cc.msm_grid(G, gw[:sub].contiguous(), chain, 2048 + 7))
+    host = bp.multiscalar_mul(
+        bp.scvec.to_scalars(srows[:sub]) + [bp.Scalar(1)],
+        F.to_points(G[2048 + 7 : 2048 + 7 + sub]) + [B],
+    )
+    assert got[0] == host, "msm_grid != host MSM"
+    records["msm_grid"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: cc.msm_grid(G, gw, chain, 0), 5),
+        plain_ms=grid_plain_ms,
+        **bound(msm_w4_ops(gw.cpu().numpy(), -(-N1 // 128)), N1 * 160 + 2 * 128),
+    )
+    return records
+
+
 def proof_digest(comms, proof) -> dict:
     """SHA-256 of the commitments (compressed, concatenated) and of the
     proof bytes: the golden file's keys."""
@@ -862,13 +1145,17 @@ class combined_off:
 
 def phase_bytes(bp, torch, cc, gens_small):
     params, tree = build_tree(bp, SMALL_DEPTH)
-    backend = bp.TorchBackend("cuda")
+    backend = bp.TorchBackend("cuda", route=bp.Route())
     comp, tape, comms, prover = synthesize(bp, params, tree, SMALL_DEPTH, 11)
     log(f"  depth {SMALL_DEPTH}: {prover.num_multipliers()} multipliers")
+    folds = cc.LAUNCHES["fold_c"]
     t0 = time.time()
     proof_dev = prover.prove(gens_small, backend=backend)
     torch.cuda.synchronize()
     log(f"  port prove {time.time() - t0:.2f} s")
+    # padded n = 4096: round 1 folds each side with fold_c
+    # (pallas_backend.py:1069-1076)
+    assert cc.LAUNCHES["fold_c"] - folds == 2, "round 1 did not run fold_c"
     comp, tape, comms_h, prover_h = synthesize(
         bp, params, tree, SMALL_DEPTH, 11
     )
@@ -928,7 +1215,7 @@ def phase_full(bp, torch, cc, gens, params, tree):
     log(f"  depth {DEPTH}: {prover.num_multipliers()} multipliers, "
         f"tree + synthesis {out['setup_s']:.2f} s")
     snap = prover.snapshot()
-    backend = bp.TorchBackend("cuda")
+    backend = bp.TorchBackend("cuda", route=bp.Route())
     torch.cuda.reset_peak_memory_stats()
     cc.reset_launches()
     t0 = time.time()
@@ -953,27 +1240,12 @@ def phase_full(bp, torch, cc, gens, params, tree):
         f"{warm[0]:.2f} / {warm[1]:.2f} s, verify {out['verify_s']:.2f} s, "
         f"peak device memory {out['peak_mem_bytes']} B")
     log(f"  launches {out['launches']}")
-    for name, count in out["launches"].items():  # all but the flotilla
-        assert count > 0 or name == "msm_lane", \
+    for name, count in out["launches"].items():  # the default route's
+        assert count > 0 or name == "msm_lane" or name in FLAG_KERNELS, \
             f"kernel {name} was not launched on the single-proof path"
-
-    # the same prover and rng with the combined route on and off: the L/R
-    # points are the same group elements, so the bytes are too
-    import numpy as np
-
-    same = []
-    for off in (False, True):
-        prover.restore(snap)
-        prover.rng = np.random.RandomState(SEED)
-        if off:
-            with combined_off():
-                same.append(prover.prove(gens, backend=backend))
-        else:
-            same.append(prover.prove(gens, backend=backend))
-    assert same[0].to_bytes() == same[1].to_bytes(), \
-        "combined route on and off give different proof bytes"
-    verify(bp, comp, tape, comms, same[0], gens, backend)
-    log("  combined route on / off: byte-identical proofs, verified")
+    out["routes"], out["route_launches"] = phase_full_routes(
+        bp, torch, cc, gens, comp, tape, comms, prover, snap
+    )
 
     # negative cases: a flipped proof byte (the IPP's `a` scalar) and a
     # wrong root must each be rejected
@@ -992,6 +1264,64 @@ def phase_full(bp, torch, cc, gens, params, tree):
         raise AssertionError("proof verified against a wrong root")
     backend.evict_gens()
     return out
+
+
+# phase 4's routes: overrides of Route() (pallas_backend.py:61-98); None
+# is the chunk-list route, default flags under ``combined_off``
+FULL_ROUTES = {
+    "default": {},
+    "w3h off": dict(w3h=False),
+    "winmsm off": dict(winmsm=False),
+    "w5 off": dict(w5=False),
+    "pairwalk, wrapmsm off": dict(pairwalk=False, wrapmsm=False),
+    "combined off": None,
+}
+
+
+def phase_full_routes(bp, torch, cc, gens, comp, tape, comms, prover, snap):
+    """The same prover and rng under each of FULL_ROUTES, each on a fresh
+    backend: every proof byte-identical to the default route's (the L/R
+    points are the same group elements).  Each route proves cold (its
+    generators and tables built) and warm, wall time device-synchronised;
+    the verifier runs on the two routes whose verifier differs (winmsm
+    off: msm_grid; w5 off: msm_win over table_w4).  Each route's launches
+    must hold route_kernels.  Returns the times and the launch counts of
+    these proofs and verifies."""
+    import contextlib
+
+    import numpy as np
+
+    def prove(be):
+        prover.restore(snap)
+        prover.rng = np.random.RandomState(SEED)
+        return timed_once(torch, lambda: prover.prove(gens, backend=be))
+
+    times, want = {}, None
+    cc.reset_launches()
+    for name, over in FULL_ROUTES.items():
+        route = bp.Route(**(over or {}))
+        be = bp.TorchBackend("cuda", route=route)
+        before = dict(cc.LAUNCHES)
+        with combined_off() if over is None else contextlib.nullcontext():
+            got, cold_ms = prove(be)
+            _, warm_ms = prove(be)
+        if want is None:
+            want = got.to_bytes()
+        assert got.to_bytes() == want, f"route {name}: proof bytes differ"
+        times[name] = dict(cold_ms=cold_ms, warm_ms=warm_ms)
+        if name in ("winmsm off", "w5 off"):
+            _, times[name]["verify_ms"] = timed_once(
+                torch, lambda: verify(bp, comp, tape, comms, got, gens, be)
+            )
+        be.evict_gens()
+        ran = {k: cc.LAUNCHES[k] - before[k] for k in cc.LAUNCHES}
+        check_route(name, ran, route, combined=over is not None)
+        log(f"  route {name}: byte-identical, {times[name]}, launches "
+            f"{ {k: v for k, v in ran.items() if v} }")
+    launches = dict(cc.LAUNCHES)
+    for name in FLAG_KERNELS:
+        assert launches[name] > 0, f"kernel {name} not launched on a route"
+    return times, launches
 
 
 def phase_batch(bp, torch, cc, gens, params, tree):
@@ -1013,7 +1343,7 @@ def phase_batch(bp, torch, cc, gens, params, tree):
     snap = provers[0].snapshot()
     out["setup_s"] = time.time() - t0
     log(f"  {BATCH} provers synthesized in {out['setup_s']:.2f} s")
-    backend = bp.TorchBackend("cuda")
+    backend = bp.TorchBackend("cuda", route=bp.Route())
     torch.cuda.reset_peak_memory_stats()
     cc.reset_launches()
     t0 = time.time()
@@ -1066,7 +1396,148 @@ def phase_batch(bp, torch, cc, gens, params, tree):
     return out
 
 
+# ---- phase 6: bench.py stage 5's equivalence gate (bench.py:482-627):
+# one seeded depth-8 VSMT-2 proof (4,544 multipliers padded to 8192)
+GATE_DEPTH = 8
+GATE_N = 8192
+
+
+def gate_circuit(bp):
+    """The gate's circuit: a depth-8 tree over leaves 1..3, key 2."""
+    params = bp.PoseidonParams(6, 4, 4, 140)
+    tree = bp.VanillaSparseMerkleTree(params, depth=GATE_DEPTH)
+    for i in range(1, 4):
+        tree.update(bp.Scalar(i), bp.Scalar(i))
+    k = bp.Scalar(2)
+    merkle_proof = []
+    assert tree.get(k, merkle_proof) == k
+    bits = [b.v for b in bp.leaf_index_bit_scalars(k, GATE_DEPTH)]
+    nodes = list(reversed(merkle_proof))
+    comp = bp.CompiledVSMT2(params, GATE_DEPTH, constrain_index_bits=False)
+    return comp, comp.tape(tree.root), k, bits, nodes
+
+
+def gate_prover(bp, circuit):
+    """(commitments, prover) with the gate's rngs (prover 42, commitments
+    7), the witness loaded."""
+    import numpy as np
+
+    comp, tape, k, bits, nodes = circuit
+    prover = bp.Prover(bp.PedersenGens.default(), bp.Transcript(b"VSMT"),
+                       rng=np.random.RandomState(42))
+    comms = comp.commit_prover(prover, k, bits, nodes,
+                               rng=np.random.RandomState(7))
+    prover.load_compiled(tape, *comp.witness(k, bits, nodes))
+    return comms, prover
+
+
+def gate_host_proof_hex() -> str:
+    """The gate's proof through the port's host path (backend=None), as
+    hex: what ``chip_smoke.py --gate-host`` prints, in a process of its
+    own beside the card's phases."""
+    sys.path.insert(0, ROOT)
+    import bulletproofs_r1cs_gadgets_tpu_torch as bp
+
+    _, prover = gate_prover(bp, gate_circuit(bp))
+    return prover.prove(bp.BulletproofGens(GATE_N), backend=None).to_bytes().hex()
+
+
+def start_gate_host():
+    """Start the host-path gate proof in a low-priority process (it
+    takes about a minute of one core); phase_gate collects it."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gate-host"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def phase_gate(bp, torch, cc, host):
+    """The gate's proof through TorchBackend under each of the seven route
+    combos (GATE_COMBOS, a fresh backend each, its generator cache evicted
+    after), through prove_provers with three provers with the flotilla
+    off and on, through the port's NativeBackend and through the host
+    path (`host`, the process start_gate_host started): one byte string.
+    The common proof verifies and a tampered copy is rejected; each
+    combo's launches hold route_kernels, and every kernel of FLAG_KERNELS
+    launches in the gate.  Returns the launch counts and the times."""
+    circuit = gate_circuit(bp)
+    gens = bp.BulletproofGens(GATE_N)
+    results, times = {}, {}
+    cc.reset_launches()
+    for tag, over in GATE_COMBOS.items():
+        before = dict(cc.LAUNCHES)
+        route = bp.Route(**over)
+        backend = bp.TorchBackend("cuda", route=route)
+        comms, prover = gate_prover(bp, circuit)
+        proof, times[tag] = timed_once(
+            torch, lambda: prover.prove(gens, backend=backend)
+        )
+        backend.evict_gens()
+        results[tag] = proof.to_bytes()
+        ran = {k: cc.LAUNCHES[k] - before[k] for k in cc.LAUNCHES}
+        check_route(tag, ran, route)
+        log(f"  {tag}: {times[tag]:.1f} ms, launches "
+            f"{ {k: v for k, v in ran.items() if v} }")
+    for flot in (False, True):
+        tag = f"batch(FLOTILLA={int(flot)})"
+        backend = bp.TorchBackend("cuda", route=bp.Route(flotilla=flot))
+        provers = [gate_prover(bp, circuit)[1] for _ in range(3)]
+        lanes = cc.LAUNCHES["msm_lane"]
+        proofs, times[tag] = timed_once(
+            torch, lambda: bp.prove_provers(provers, gens, backend=backend)
+        )
+        backend.evict_gens()
+        assert len({p.to_bytes() for p in proofs}) == 1, f"{tag} differs"
+        assert (cc.LAUNCHES["msm_lane"] > lanes) == flot, \
+            f"{tag}: flotilla rounds {cc.LAUNCHES['msm_lane'] - lanes}"
+        results[tag] = proofs[0].to_bytes()
+        log(f"  {tag}: 3 proofs in {times[tag]:.1f} ms, "
+            f"{cc.LAUNCHES['msm_lane'] - lanes} flotilla rounds")
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import (
+        NativeBackend,
+    )
+
+    _, prover = gate_prover(bp, circuit)
+    proof, times["native-cpu"] = timed_once(
+        torch, lambda: prover.prove(gens, backend=NativeBackend())
+    )
+    results["native-cpu"] = proof.to_bytes()
+    t0 = time.time()
+    out, err = host.communicate(timeout=900)
+    assert host.returncode == 0, f"host-path gate proof failed: {err[-2000:]}"
+    results["host"] = bytes.fromhex(out.split()[-1])
+    log(f"  native-cpu {times['native-cpu']:.1f} ms; host path waited "
+        f"{time.time() - t0:.1f} s")
+    blobs = set(results.values())
+    assert len(blobs) == 1, (
+        f"{len(blobs)} distinct proofs across {list(results)}: "
+        + str({k: v[:8].hex() for k, v in results.items()})
+    )
+    comp, tape = circuit[:2]
+    backend = bp.TorchBackend("cuda", route=bp.Route())
+    common = bp.R1CSProof.from_bytes(blobs.pop())
+    verify(bp, comp, tape, comms, common, gens, backend)
+    try:
+        verify(bp, comp, tape, comms, tampered(bp, common), gens, backend)
+    except bp.VerificationError:
+        pass
+    else:
+        raise AssertionError("gate: tampered proof was accepted")
+    backend.evict_gens()
+    log(f"  {len(results)} paths byte-identical "
+        f"({len(common.to_bytes())} B), verified, tampered copy rejected")
+    launches = dict(cc.LAUNCHES)
+    log(f"  launches {launches}")
+    for name in FLAG_KERNELS:
+        assert launches[name] > 0, f"kernel {name} not launched in the gate"
+    return launches, times
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--gate-host"]:
+        os.nice(19)  # beside the card's phases: yield the host's cores
+        print(gate_host_proof_hex(), flush=True)
+        return 0
     sys.path.insert(0, ROOT)
     import torch
 
@@ -1089,28 +1560,40 @@ def main() -> int:
     with Phase("gens"):
         gens = bp.BulletproofGens(1 << 18)
         gens_small = bp.BulletproofGens(1 << 12)
-    with Phase("2 kernels vs plain"):
-        records = phase_kernels(bp, torch, cc, F, gens, dev)
-    with Phase("3 byte identity"):
-        phase_bytes(bp, torch, cc, gens_small)
-    with Phase("tree"):
-        params, tree = build_tree(bp, DEPTH)
-    with Phase("4 full proof"):
-        full = phase_full(bp, torch, cc, gens, params, tree)
-    with Phase("5 batch"):
-        batch = phase_batch(bp, torch, cc, gens, params, tree)
+    host = start_gate_host()  # phase 6's host-path proof, beside the card
+    try:
+        with Phase("2 kernels vs plain"):
+            records = phase_kernels(bp, torch, cc, F, gens, dev)
+        with Phase("3 byte identity"):
+            phase_bytes(bp, torch, cc, gens_small)
+        with Phase("tree"):
+            params, tree = build_tree(bp, DEPTH)
+        with Phase("4 full proof"):
+            full = phase_full(bp, torch, cc, gens, params, tree)
+        with Phase("5 batch"):
+            batch = phase_batch(bp, torch, cc, gens, params, tree)
+        with Phase("6 equivalence gate"):
+            gate_launches, gate_times = phase_gate(bp, torch, cc, host)
+    finally:
+        if host.poll() is None:
+            host.kill()
+        host.communicate()
+    runs = (full["launches"], full["route_launches"], batch["launches"],
+            gate_launches)
     kernels = [
         dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
-            launches=full["launches"][name] + batch["launches"][name],
+            launches=sum(run[name] for run in runs),
             **records[name],
         )
         for name in KERNELS
     ]
     summary = {
-        "single": {k: v for k, v in full.items() if k != "launches"},
+        "single": {k: v for k, v in full.items()
+                   if k not in ("launches", "route_launches")},
         "batch": {k: v for k, v in batch.items() if k != "launches"},
+        "gate_ms": gate_times,
     }
     log("summary " + json.dumps(summary))
     print(card)

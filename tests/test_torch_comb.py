@@ -10,7 +10,8 @@
 * ``msm_win_pair``'s plain version equals the TPU walker (``table_big`` +
   ``msm_win`` under ``pallas_call(interpret=True)``, two 2048-point
   chunks: one straight walk and one split walk, run once) and the host
-  MSM at a combined round's geometry.
+  MSM at a combined round's geometry; ``msm_win``'s (one walk per call,
+  the route flags' walker) equals the same two TPU walks.
 
 CPU tensors route to the plain versions.  Tolerance: exact (equal points,
 equal words and bits).
@@ -221,6 +222,17 @@ def test_msm_win_pair_plain_matches_tpu_walker(jax_pair):
         cc.table_w4(G), ck.w4_words(_pair_rows(), "cpu"),
         F.identity_points(2), PAIR_WALKS,
     )
+    assert [p.compress() for p in F.to_points(got)] == jax_pair
+
+
+@pytest.mark.kernelmath
+def test_msm_win_plain_matches_tpu_walker(jax_pair):
+    """``msm_win``, the counterpart of ``msm_win_dyn`` itself: the same
+    straight and wrap walks, one walk per call."""
+    G, _ = _gens(2 * _C)
+    tbl, words = cc.table_w4(G), ck.w4_words(_pair_rows(), "cpu")
+    ident = F.identity_points(1)
+    got = torch.cat([cc.msm_win(tbl, words, ident, *w) for w in PAIR_WALKS])
     assert [p.compress() for p in F.to_points(got)] == jax_pair
 
 

@@ -7,7 +7,8 @@ This file imports no JAX, so it also runs where the port runs:
 Each kernel is held against its plain torch version on the same CUDA
 tensors, and a proof, a proof on the combined IPP route (its threshold
 lowered) and a batch of three proofs (``prove_provers``) through
-``TorchBackend("cuda")`` against the host engine's bytes.  Tolerance:
+``TorchBackend("cuda")`` against the host engine's bytes; the equivalence
+gate's depth-8 proof on the default route and with ``winmsm`` off.  Tolerance:
 exact (equal points, equal table words, equal bytes).
 """
 
@@ -82,6 +83,7 @@ def test_kernels_match_plain_on_card(cuda_device):
         "msm_w4": 1, "msm_w4_pair": 3, "fold_bits": 1,
         "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
         "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
+        "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
     }
 
 
@@ -113,6 +115,7 @@ def test_w5_and_lane_kernels_match_plain_on_card(cuda_device):
         "msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0,
         "table_w5": 1, "msm_win5": 3, "msm_lane": 1,
         "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
+        "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
     }
 
 
@@ -142,7 +145,64 @@ def test_combined_layout_kernels_match_plain_on_card(cuda_device):
         "msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0,
         "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
         "fold_w3h": 3, "fold_w3h_comb": 1, "table_w4": 2, "msm_win_pair": 2,
+        "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
     }
+
+
+def test_route_flag_kernels_match_plain_on_card(cuda_device):
+    """fold_c (random and edge constants, in place), fold_c_comb, msm_win
+    (straight and wrap walks) and msm_grid (at an offset, chained)."""
+    dev = cuda_device
+    pts = F.from_points(_points(256, 100), dev)
+    before = dict(cc.LAUNCHES)
+    consts = [(Scalar(12345), Scalar(L - 7)), (Scalar(0), Scalar(1)),
+              (Scalar(L - 1), Scalar(3))]
+    for pair, bp_ in zip(consts, (50, 100, 0)):
+        words = ck.c_fold_words([pair], dev)
+        assert F.to_points(cc.fold_c(pts, words, bp_)) == \
+            F.to_points(cc.fold_c_plain(pts, words, bp_))
+    own = pts.clone()
+    words = ck.c_fold_words([consts[0]], dev)
+    want = cc.fold_c(pts, words, 50)
+    assert torch.equal(cc.fold_c(own, words, 50, out=own[:128]), want)
+    words = ck.c_fold_words(consts[:2], dev)
+    got = cc.fold_c_comb(pts, words, 30)
+    assert F.to_points(got) == F.to_points(cc.fold_c_comb_plain(pts, words, 30))
+    assert torch.equal(got[:64], cc.fold_c(pts[:128], words[:1], 30))
+    tbl = cc.table_w4(pts)
+    w4 = ck.w4_words(_scalar_rows(256, 101), dev)
+    w4[3] = -0x77777778  # 0x88888888: eight digits of -8
+    chain = F.from_points(_points(1, 102), dev)
+    for walk in ((256, 0, 0, 256, 0), (100, 20, 5, 60, 150)):
+        assert F.to_points(cc.msm_win(tbl, w4, chain, *walk)) == \
+            F.to_points(cc.msm_win_plain(tbl, w4, chain, *walk))
+    w = w4[:200].contiguous()
+    assert F.to_points(cc.msm_grid(pts, w, chain, 40)) == \
+        F.to_points(cc.msm_grid_plain(pts, w, chain, 40))
+    assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
+        "msm_w4": 0, "msm_w4_pair": 0, "fold_bits": 0,
+        "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
+        "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 1, "msm_win_pair": 0,
+        "fold_c": 6, "fold_c_comb": 1, "msm_win": 2, "msm_grid": 1,
+    }
+
+
+def test_gate_routes_on_card_match(cuda_device):
+    """bench.py's gate circuit (VSMT-2 depth 8, padded 8192) on the card:
+    the default route and winmsm off give one proof, which verifies."""
+    import chip_smoke as cs
+    import bulletproofs_r1cs_gadgets_tpu_torch as bp
+
+    circuit = cs.gate_circuit(bp)
+    gens = BulletproofGens(cs.GATE_N)
+    proofs = []
+    for route in (bp.Route(), bp.Route(winmsm=False)):
+        backend = TorchBackend(cuda_device, route=route)
+        comms, prover = cs.gate_prover(bp, circuit)
+        proofs.append(prover.prove(gens, backend=backend))
+    assert proofs[0].to_bytes() == proofs[1].to_bytes()
+    comp, tape = circuit[:2]
+    cs.verify(bp, comp, tape, comms, proofs[1], gens, backend)
 
 
 def _chain(cs, v, v2, links=32):

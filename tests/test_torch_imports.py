@@ -3,7 +3,9 @@
 The card's machine has no JAX, so the port (``bulletproofs_r1cs_gadgets_tpu_torch``),
 ``chip_smoke.py`` and ``chip_profile.py`` must import with ``jax`` blocked,
 must never import any module of the JAX package (the port keeps its own
-copies of the host layers; comments may cite the JAX package by path),
+copies of the host layers, ``ops/native_backend.py`` among them; every
+``*.py`` of the port is scanned; comments may cite the JAX package by
+path),
 and both scripts and the default ``TorchBackend()`` must refuse to run
 (non-zero exit, no result line, an error) where there is no GPU, and
 ``chip_smoke.py`` also where there is no repository around it.  The
@@ -36,7 +38,12 @@ def test_port_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None\n"
         "import bulletproofs_r1cs_gadgets_tpu_torch as bp\n"
         "from bulletproofs_r1cs_gadgets_tpu_torch import prove_provers, "
-        "batch_verify\n"
+        "batch_verify, Route\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import "
+        "NativeBackend\n"
+        "assert Route.from_env({'BPTPU_W5': '0'}).w5 is False\n"
+        "assert NativeBackend().threads == 1\n"
+        "assert not hasattr(bp, 'NativeBackend')\n"
         "import bulletproofs_r1cs_gadgets_tpu_torch.ops.build\n"
         "import bulletproofs_r1cs_gadgets_tpu_torch.carry\n"
         "import chip_smoke\n"
