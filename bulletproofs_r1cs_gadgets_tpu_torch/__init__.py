@@ -15,6 +15,9 @@ by file):
                         utilities, bound check
   models/               the VSMT-2 / VSMT-4 trees and compiled circuits
   parallel/batch.py     the batch scheduler (``prove_provers``)
+  parallel/stream.py    the proof stream (``prove_stream``): lazily
+                        built provers in wave groups, bounded in-flight
+                        state (the reference's, with a torch memory probe)
   native/               the C++ host library, built by ``g++`` into
                         ``build/`` at first use (pure-Python fallback)
   carry.py              the JAX package's parameters (generator and
@@ -37,6 +40,20 @@ What sits behind the engine's backend seam is the port's device layer:
                         equivalence gate; not exported here, as it runs
                         nothing on the card)
   csrc/                 the Hopper kernels (sm_90a)
+
+and the multi-device layer:
+
+  parallel/mesh.py      (batch, points) meshes of devices
+  parallel/device_batch.py  whole proofs placed round-robin on devices,
+                        one backend each (``prove_provers_devices``)
+  parallel/sharded_fast.py  one MSM's chunks sharded over devices, each
+                        walked by the ``msm_grid_local`` kernel, then
+                        gathered and folded (``ShardedWalkMsm``,
+                        ``ShardedWalkVerifyBackend``)
+
+Their entry points default to every visible CUDA device and raise
+without one; a device list may repeat a card, or name ``"cpu"`` (the
+plain versions).
 
 Batched proving and verification are the engine's own
 ``prove_provers(provers, gens, backend=TorchBackend("cuda"))`` and
@@ -66,6 +83,8 @@ from .models.vsmt2 import (
 )
 from .native import _native
 from .parallel.batch import prove_provers
+from .parallel.device_batch import prove_provers_devices
+from .parallel.stream import prove_stream
 from .utils.constants import D2, L, P
 
 from .ops.torch_backend import Route, TorchBackend
@@ -78,4 +97,5 @@ __all__ = [
     "VerificationError", "multiscalar_mul", "scvec", "PoseidonParams",
     "CompiledVSMT2", "VanillaSparseMerkleTree", "leaf_index_bit_scalars",
     "D2", "L", "P", "NATIVE_LOADED", "prove_provers", "batch_verify",
+    "prove_provers_devices", "prove_stream",
 ]

@@ -10,16 +10,59 @@ feed both packages the same state:
   party, or a list of them);
 * :func:`poseidon_params_from_arrays` takes a Poseidon width, its round
   counts, and the round keys and MDS matrix as ``(m, 4)`` uint64 scalar
-  rows (``core/scvec`` layout).
+  rows (``core/scvec`` layout);
+* :func:`capacity_points` and :func:`capacity_words` take the TPU
+  kernels' capacity layouts (``ops/chunks.py`` there: chunks of 2048
+  points, chunk c at lanes [256c, 256(c + 1)) of a ``(rows, 8, lanes)``
+  array, its point f at sublane f // 256, lane f % 256) and give the
+  port's flat tensors in the order of the points the chunks were made
+  from; points and words go through the same permutation, so each point
+  keeps its word.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core import scvec
 from .core.pedersen import BulletproofGens
 from .gadgets.poseidon_params import PoseidonParams
+from .ops import field as F
+
+_SUB, _LANES = 8, 256  # a chunk's sublanes and lanes
+
+
+def _unchunk(arr: np.ndarray) -> np.ndarray:
+    """(rows, 8, k * 256) capacity array -> (k * 2048, rows), row c * 2048
+    + s * 256 + l from chunk c, sublane s, lane l."""
+    rows, sub, lanes = arr.shape
+    if sub != _SUB or lanes % _LANES:
+        raise ValueError(f"not a capacity array: shape {arr.shape}")
+    k = lanes // _LANES
+    cols = arr.reshape(rows, _SUB, k, _LANES).transpose(2, 1, 3, 0)
+    return cols.reshape(k * _SUB * _LANES, rows)
+
+
+def capacity_points(big, device="cpu") -> torch.Tensor:
+    """The JAX package's stacked-limb point array ``(92, 8, lanes)`` int32
+    (4 coordinates x 23 balanced 12-bit limbs; ``chunks.points_to_chunks``
+    concatenated on the lane axis) -> ``(n, 4, 8)`` canonical words."""
+    a = np.asarray(big)
+    if a.shape[0] != 4 * F.JAX_STORE:
+        raise ValueError(f"expected {4 * F.JAX_STORE} limb rows, got {a.shape}")
+    flat = _unchunk(a)
+    return F.from_jax_limbs(flat.reshape(-1, 4, F.JAX_STORE), device)
+
+
+def capacity_words(words, device="cpu") -> torch.Tensor:
+    """The JAX package's packed w4 word array ``(8, 8, lanes)`` int32
+    (``chunks.words_chunks(..., encode="w4")`` concatenated on the lane
+    axis) -> ``(n, 8)`` int32 word rows (the port's w4 words)."""
+    a = np.asarray(words, dtype=np.int32)
+    if a.shape[0] != 8:
+        raise ValueError(f"expected 8 word rows, got {a.shape}")
+    return torch.from_numpy(np.ascontiguousarray(_unchunk(a))).to(device)
 
 
 def _party_arrays(arrs) -> list[np.ndarray]:

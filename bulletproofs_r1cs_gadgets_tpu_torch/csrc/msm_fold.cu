@@ -218,6 +218,12 @@ static int fold_c_launch(const int32_t* in, int32_t* out, const int32_t* words, 
 
 extern "C" {
 
+// Makes `device` current for this library's CUDA runtime, which is linked
+// in statically and so keeps a current device apart from the caller's;
+// every entry point launches on it.  The wrappers call this before each
+// launch (the caller may be a pool thread, or drive a second card).
+int bp_set_device(int device) { return (int)cudaSetDevice(device); }
+
 int bp_msm_threads(void) { return MSM_THREADS; }
 
 // Chained MSM: out (1, 4, 8) = acc + sum_i d_i * P_i over n points.

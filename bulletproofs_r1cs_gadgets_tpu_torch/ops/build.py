@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -36,6 +37,7 @@ NVCC_FLAGS = [
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (every one returns an int)
 SIGNATURES = {
+    "bp_set_device": [_I],
     "bp_msm_threads": [],
     "bp_msm_w4": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
     "bp_msm_w4_pair": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
@@ -121,10 +123,20 @@ def build(verbose: bool = False) -> str:
     return so
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call (raises without nvcc or a
-    CUDA device)."""
+    CUDA device).  Threads that call it at once (one per device in
+    ``prove_provers_devices``) wait for one build: two builds in one
+    process would share their temporary file names."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the kernels cannot run")
     lib = ctypes.CDLL(build())

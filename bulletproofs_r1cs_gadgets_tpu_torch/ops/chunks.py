@@ -49,6 +49,18 @@ from . import cuda_curve as cc
 from . import field as F
 
 W5_WINDOWS = cc.W5_WINDOWS
+# The reference's chunk: the unit of the points-axis sharded walk
+# (``parallel/sharded_fast.py``), which reads it at call time, so tests
+# lower it.
+CHUNK = 2048
+
+
+def shard_valid(valid: int, d: int, local_chunks: int) -> int:
+    """Live chunks of shard d in a walk over `valid` live chunks, each
+    shard `local_chunks` wide: shard d spans chunks [d * lc, (d + 1) * lc)
+    and sees clip(valid - d * lc, 0, lc) of them
+    (sharded_fast.py:149-155)."""
+    return min(max(valid - d * local_chunks, 0), local_chunks)
 
 
 def _limbs(c: int) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Wrappers for the port's fourteen Hopper kernels, with their plain versions.
+"""Wrappers for the port's fifteen Hopper kernels, with their plain versions.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and then
@@ -6,9 +6,9 @@ outputs with ``torch.empty`` and then
 * for CPU tensors, runs the plain torch version beside it (this is what
   the CPU tests exercise);
 * for CUDA tensors, launches its kernel from ``csrc/msm_fold.cu``,
-  ``csrc/win.cu`` or ``csrc/fold_w3h.cu`` on the current stream, raises
-  if the launch failed,
-  and adds one to ``LAUNCHES[name]``.  There is no fallback to the plain
+  ``csrc/win.cu`` or ``csrc/fold_w3h.cu`` on the current stream of the
+  tensors' device (from any thread), raises if the launch failed, and
+  adds one to ``LAUNCHES[name]``.  There is no fallback to the plain
   version.
 
 Tensors (see :mod:`.field`): points ``(n, 4, 8)`` int32, w4 and bit
@@ -122,6 +122,19 @@ reduce, add); the two TPU kernels differ only in the capacity shapes they
 address.  So it launches the ``msm_w4`` kernel over the view
 ``points[poff : poff + n]`` of the cached generator tensor (no copy), and
 counts its own launches.
+
+``msm_grid_local`` replaces ``pallas_curve.msm_grid_local`` (:487, the
+same ``_msm_grid_kernel`` over the whole width of one device's shard,
+clamped to its valid chunks): one shard's walk in
+``parallel/sharded_fast.py``.  Again the ``msm_w4`` kernel, over the
+shard's live prefix, with its own wrapper and count.  The reference walks
+a shard with no valid chunk over one zero-word chunk; here it launches
+over no points (the second pass alone returns the accumulator), so the
+result does not rest on the words past the valid span being zero.
+
+Every launch makes its tensors' device current first (``_launch``): the
+library launches on the calling thread's current device, and a pool
+thread or a backend on a second card need not have it current.
 """
 
 from __future__ import annotations
@@ -140,6 +153,7 @@ LAUNCHES = {
     "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
     "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
     "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
+    "msm_grid_local": 0,
 }
 _COUNT_LOCK = threading.Lock()  # batched IPP rounds launch from a pool
 TBL5 = 16
@@ -188,6 +202,21 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch(name: str, dev: torch.device, entry: str, *args) -> None:
+    """Call the library's entry point `entry` with `args` and the current
+    stream of `dev`, raise if the launch failed, and count it under
+    `name`.  The library launches on the calling thread's current device,
+    which need not be `dev` (a pool thread, a backend on a second card),
+    so `dev` is made current for the call: in torch, which restores the
+    thread's device after it, and in the library's own CUDA runtime
+    (linked statically, so it keeps a current device of its own)."""
+    lib = build.load()
+    with torch.cuda.device(dev):
+        build.check(lib.bp_set_device(dev.index), f"{name} (set device)")
+        build.check(getattr(lib, entry)(*args, _stream(dev)), name)
+    _count(name)
 
 
 def _msm_partials(lib, n: int) -> int:
@@ -351,6 +380,11 @@ def msm_grid_plain(points, words, acc, poff) -> torch.Tensor:
     return msm_w4_plain(points[poff : poff + words.shape[0]], words, acc)
 
 
+def msm_grid_local_plain(points, words, acc, valid, chunk) -> torch.Tensor:
+    m = valid * chunk
+    return msm_w4_plain(points[:m], words[:m], acc)
+
+
 def msm_win_pair_plain(table, words, chain2, walks) -> torch.Tensor:
     """(2, 4, 8): row s = chain2[s] + walk s (v, poff, woff, split,
     poff2) over a ``table_w4`` table with w4 words."""
@@ -439,14 +473,8 @@ def _msm_w4_launch(name: str, points: torch.Tensor, words: torch.Tensor,
     partials = torch.empty(
         (max(1, _msm_partials(lib, n)), 4, 8), dtype=torch.int32, device=dev
     )
-    build.check(
-        lib.bp_msm_w4(
-            _ptr(points), _ptr(words), _ptr(acc), _ptr(out), _ptr(partials),
-            n, _stream(dev),
-        ),
-        name,
-    )
-    _count(name)
+    _launch(name, dev, "bp_msm_w4", _ptr(points), _ptr(words), _ptr(acc),
+            _ptr(out), _ptr(partials), n)
     return out
 
 
@@ -469,6 +497,24 @@ def msm_grid(points: torch.Tensor, words: torch.Tensor, acc: torch.Tensor,
     return _msm_w4_launch("msm_grid", points[poff : poff + n], words, acc)
 
 
+def msm_grid_local(points: torch.Tensor, words: torch.Tensor,
+                   acc: torch.Tensor, valid: int, chunk: int) -> torch.Tensor:
+    """(1, 4, 8) = acc + sum_{i < valid * chunk} d_i * points_i: one
+    shard's walk of the points-axis sharded MSM.  The shard holds whole
+    chunks of `chunk` points; the first `valid` are live and the rest add
+    nothing (the reference's [valid, 0] clamp), their words never read.
+    The ``msm_w4`` kernel over the live prefix (no copy): a shard with no
+    live chunk launches over no points and returns acc."""
+    n = points.shape[0]
+    if chunk < 1 or n % chunk or not 0 <= valid <= n // chunk:
+        raise ValueError(
+            f"msm_grid_local: {valid} valid chunks of {chunk} in {n} points"
+        )
+    _check(words, "words", (n, 8), points.device)
+    m = valid * chunk
+    return _msm_w4_launch("msm_grid_local", points[:m], words[:m], acc)
+
+
 def msm_w4_pair(points: torch.Tensor, words: torch.Tensor,
                 acc2: torch.Tensor, half: int, lo_limit: int | None = None,
                 hi_limit: int | None = None) -> torch.Tensor:
@@ -489,14 +535,8 @@ def msm_w4_pair(points: torch.Tensor, words: torch.Tensor,
     partials = torch.empty(
         (max(1, nparts), 4, 8), dtype=torch.int32, device=dev
     )
-    build.check(
-        lib.bp_msm_w4_pair(
-            _ptr(points), _ptr(words), _ptr(acc2), _ptr(out), _ptr(partials),
-            half, lo, hi, _stream(dev),
-        ),
-        "msm_w4_pair",
-    )
-    _count("msm_w4_pair")
+    _launch("msm_w4_pair", dev, "bp_msm_w4_pair", _ptr(points), _ptr(words),
+            _ptr(acc2), _ptr(out), _ptr(partials), half, lo, hi)
     return out
 
 
@@ -511,16 +551,9 @@ def fold_bits(left: torch.Tensor, right: torch.Tensor, wl: torch.Tensor,
     _check(wr, "wr", (n, 8), dev)
     if _route(dev) == "plain":
         return fold_bits_plain(left, right, wl, wr)
-    lib = build.load()
     out = torch.empty((n, 4, 8), dtype=torch.int32, device=dev)
-    build.check(
-        lib.bp_fold_bits(
-            _ptr(left), _ptr(right), _ptr(wl), _ptr(wr), _ptr(out), n,
-            _stream(dev),
-        ),
-        "fold_bits",
-    )
-    _count("fold_bits")
+    _launch("fold_bits", dev, "bp_fold_bits", _ptr(left), _ptr(right),
+            _ptr(wl), _ptr(wr), _ptr(out), n)
     return out
 
 
@@ -542,14 +575,8 @@ def msm_lane(points: torch.Tensor, words: torch.Tensor, v: int
     partials = torch.empty(
         (v * _msm_partials(lib, seg), 4, 8), dtype=torch.int32, device=dev
     )
-    build.check(
-        lib.bp_msm_lane(
-            _ptr(points), _ptr(words), _ptr(out), _ptr(partials), v, seg,
-            _stream(dev),
-        ),
-        "msm_lane",
-    )
-    _count("msm_lane")
+    _launch("msm_lane", dev, "bp_msm_lane", _ptr(points), _ptr(words),
+            _ptr(out), _ptr(partials), v, seg)
     return out
 
 
@@ -560,12 +587,8 @@ def table_w5(points: torch.Tensor) -> torch.Tensor:
     _check(points, "points", (n, 4, 8), dev)
     if _route(dev) == "plain":
         return table_w5_plain(points)
-    lib = build.load()
     out = torch.empty((n, TBL5, 4, 8), dtype=torch.int32, device=dev)
-    build.check(
-        lib.bp_table_w5(_ptr(points), _ptr(out), n, _stream(dev)), "table_w5"
-    )
-    _count("table_w5")
+    _launch("table_w5", dev, "bp_table_w5", _ptr(points), _ptr(out), n)
     return out
 
 
@@ -609,14 +632,9 @@ def _win_walk(name: str, bits: int, table, words, chain, v, poff, woff,
         (max(1, windows * nb), 4, 8), dtype=torch.int32, device=dev
     )
     wtot = torch.empty((windows, 4, 8), dtype=torch.int32, device=dev)
-    build.check(
-        getattr(lib, f"bp_{name}")(
-            _ptr(table), _ptr(words), _ptr(chain), _ptr(out), _ptr(partials),
-            _ptr(wtot), v, poff, woff, split, poff2, _stream(dev),
-        ),
-        name,
-    )
-    _count(name)
+    _launch(name, dev, f"bp_{name}", _ptr(table), _ptr(words), _ptr(chain),
+            _ptr(out), _ptr(partials), _ptr(wtot), v, poff, woff, split,
+            poff2)
     return out
 
 
@@ -655,13 +673,9 @@ def table_w4(points: torch.Tensor, out: torch.Tensor | None = None
     if _route(dev) == "plain":
         got = table_w4_plain(points)
         return got if out is None else out.copy_(got)
-    lib = build.load()
     if out is None:
         out = torch.empty((n, TBL4, 4, 8), dtype=torch.int32, device=dev)
-    build.check(
-        lib.bp_table_w4(_ptr(points), _ptr(out), n, _stream(dev)), "table_w4"
-    )
-    _count("table_w4")
+    _launch("table_w4", dev, "bp_table_w4", _ptr(points), _ptr(out), n)
     return out
 
 
@@ -695,14 +709,9 @@ def msm_win_pair(table: torch.Tensor, words: torch.Tensor,
         (max(1, 2 * windows * nb), 4, 8), dtype=torch.int32, device=dev
     )
     wtot = torch.empty((2 * windows, 4, 8), dtype=torch.int32, device=dev)
-    build.check(
-        lib.bp_msm_win_pair(
-            _ptr(table), _ptr(words), _ptr(chain2), _ptr(out), _ptr(partials),
-            _ptr(wtot), *walks[0], *walks[1], _stream(dev),
-        ),
-        "msm_win_pair",
-    )
-    _count("msm_win_pair")
+    _launch("msm_win_pair", dev, "bp_msm_win_pair", _ptr(table), _ptr(words),
+            _ptr(chain2), _ptr(out), _ptr(partials), _ptr(wtot), *walks[0],
+            *walks[1])
     return out
 
 
@@ -719,14 +728,8 @@ def _fold_launch(name, plain, points, words, word_shape, bp, v, sides, out):
     bp = min(max(int(bp), 0), v)
     if _route(dev) == "plain":
         return out.copy_(plain(points, words, bp))
-    lib = build.load()
-    build.check(
-        getattr(lib, f"bp_{name}")(
-            _ptr(points), _ptr(out), _ptr(words), v, bp, _stream(dev)
-        ),
-        name,
-    )
-    _count(name)
+    _launch(name, dev, f"bp_{name}", _ptr(points), _ptr(out), _ptr(words), v,
+            bp)
     return out
 
 

@@ -7,8 +7,10 @@ Drives the port's main paths, a VSMT-2 depth-253 membership proof
 (143,704 multipliers padded to 2^18) proved alone (on the default route
 and on the reference's route flags) and a batch of eight proved through
 ``prove_provers`` and verified by one ``batch_verify``, through
-``TorchBackend("cuda")``, and the reference's equivalence gate (one
-depth-8 proof down every route), and checks every kernel on the way.
+``TorchBackend("cuda")``, the reference's equivalence gate (one depth-8
+proof down every route), and the multi-device layer and the stream
+(depth-253 proofs placed over the cards, the sharded walk at 2^18, a
+stream of twelve), and checks every kernel on the way.
 Phases, each printing one line with its wall time (any failure exits
 non-zero and prints no result):
 
@@ -35,9 +37,10 @@ non-zero and prints no result):
    over 4096 into 2048, fold_c_comb over a 2^18-point combined tensor,
    msm_win at round 2's L walk and R wrap walk and over the table_w4 of
    the shared generators at phase 1's 143,704 points, msm_grid over
-   143,704 generators at offset 0 and 2048), and on a subset against the
-   host MSM or scalar multiplication.  Tolerance: exact (equal points,
-   equal table words).
+   143,704 generators at offset 0 and 2048; msm_grid_local over one
+   phase-8 shard, 32 chunks = 65,536 generators, at 32, 7 and 0 valid
+   chunks), and on a subset against the host MSM or scalar
+   multiplication.  Tolerance: exact (equal points, equal table words).
 3. a VSMT-2 depth-4 proof through the port (padded to 4096: round 1
    folds with fold_c), byte-identical to the host
    path with the same prover randomness, its digest equal to the JAX
@@ -75,10 +78,34 @@ non-zero and prints no result):
    rejected; each combo must launch the kernels of its route and none
    of another's (``route_kernels``), and every route-flag kernel must
    have launched (counts over the gate).
+7. placement (the reference's dry run C): phase 5's first four
+   depth-253 provers, restored to their state before proving, through
+   ``prove_provers_devices`` over the visible cards (with one card, two
+   ``TorchBackend`` instances on cuda:0, printed as such): each proof
+   byte-identical to ``prove_provers`` on one backend, one
+   ``batch_verify`` of the four, and on each placed backend one
+   ``msm_w4`` of 2^14 points on its card equal to the host MSM.
+8. the points-axis sharded walk (dry run D) at full width:
+   ``ShardedWalkMsm`` with 4 shards x 32 chunks = 2^18 points over the
+   visible cards (or all four on one, printed as such): the verifier's G
+   segment of the phase-4 proof (128 valid chunks) and the phase-4
+   prover's 143,704 phase-1 G words (71 valid chunks: shard 2 partial,
+   shard 3 dead), each equal to ``msm_grid`` over the same points and
+   words; the depth-253 proof verifies through
+   ``ShardedWalkVerifyBackend`` (eight ``msm_grid_local`` launches) and a
+   tampered copy is rejected; its wall time beside ``TorchBackend``'s.
+9. the stream: ``prove_stream`` of 12 depth-253 provers built lazily
+   from the compiled template (deterministic rngs), wave 4, inflight 8:
+   one ``batch_verify`` of the twelve, proofs 0 and 11 byte-identical to
+   the same provers, restored, through ``prove_provers``, the report (proofs/s, group times, peak device
+   memory), and a short ``keep=False`` run whose ``on_result`` indices
+   and bytes match.
 
-The third line from the end is the card's nvidia-smi name and power
-limit, the line before the last holds the per-kernel JSON record
-(``launches`` summed over phases 4 (both parts), 5 and 6; ``bound_ms``
+Each path's launch counts are set to 0 just before it and read just
+after.  The third line from the end is the card's nvidia-smi name and
+power limit, the line before the last holds the per-kernel JSON record
+(``launches`` summed over phases 4 (both parts), 5, 6, 7, 8 and 9;
+``bound_ms``
 the larger of the work's 32-bit multiplies over the card's multiply rate
 and its bytes over 3.35 TB/s, counted from this run's inputs;
 ``library_ms`` null: no PyTorch call computes these functions), and the
@@ -105,6 +132,7 @@ SOURCES = {
     "msm_win_pair": _WIN, "fold_w3h": _W3H, "fold_w3h_comb": _W3H,
     "fold_c": _W4, "fold_c_comb": _W4, "msm_win": _WIN,
     "msm_grid": _W4,  # launches msm_w4's kernel over a view
+    "msm_grid_local": _W4,  # msm_w4's kernel over one shard's live prefix
 }
 _PC = "bulletproofs_r1cs_gadgets_tpu/ops/pallas_curve.py"
 REPLACES = {
@@ -122,6 +150,7 @@ REPLACES = {
     "fold_c_comb": f"{_PC}:733",
     "msm_win": f"{_PC}:1156",
     "msm_grid": f"{_PC}:438",
+    "msm_grid_local": f"{_PC}:487",
 }
 # the kernels the route flags add (ported in the same slice): every one
 # must launch in phase 6 and on the full-width routes
@@ -139,6 +168,9 @@ PAIR_S = 1024  # frozen side (the pair walks 4 * PAIR_S points),
 FOLD_M = 2048  # fold_bits lanes,
 LANE_V, LANE_SEG = 16, 2048  # msm_lane segments x points
 COMB_N = (1 << 16, 2048)  # msm_win_pair: IPP rounds 2 and 7 (side n)
+SHARDS, SHARD_CHUNKS = 4, 32  # phase 8: 4 shards x 32 chunks = 2^18 points
+PLACED = 4  # depth-253 provers placed over the devices in phase 7
+STREAM = 12  # depth-253 provers streamed in phase 9
 # digits -16 in windows 0..49 and 1 in window 50
 ALL_MINUS_16 = (1 << 250) - 16 * ((1 << 250) - 1) // 31
 # The reference's seven route combos of its equivalence gate
@@ -589,6 +621,8 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
     records["msm_lane"] = phase_kernel_lane(bp, torch, cc, F, gens, dev, rng)
     records.update(phase_kernels_comb(bp, torch, cc, F, gens, dev, rng))
     records.update(phase_kernels_flags(bp, torch, cc, F, gens, dev, rng))
+    records["msm_grid_local"] = phase_kernel_grid_local(bp, torch, cc, F,
+                                                        gens, dev, rng)
     for name, r in records.items():
         r["library_ms"] = None  # no PyTorch call computes these functions
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
@@ -1113,6 +1147,54 @@ def phase_kernels_flags(bp, torch, cc, F, gens, dev, rng):
     return records
 
 
+def phase_kernel_grid_local(bp, torch, cc, F, gens, dev, rng):
+    """msm_grid_local over one phase-8 shard (32 chunks = 65,536 of the
+    2^18 generators, random words with edge rows, nonzero past every
+    valid span) at valid 32, 7 and 0, chained on B; exact against its
+    plain version, and a small shard against the host MSM."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
+
+    P, L = bp.P, bp.L
+    chunk = ck.CHUNK
+    n = SHARD_CHUNKS * chunk
+    B = bp.PedersenGens.default().B
+    pts = F.from_raw(gens.G_raw(n), dev)
+    rows = random_scalar_rows(bp, n, rng)
+    edge = bp.scvec.from_ints([0, 1, L - 1, L - 1])
+    for at in (0, 7 * chunk - 2, n - 4):
+        rows[at : at + len(edge)] = edge
+    words = ck.w4_words(rows, dev)
+    acc = F.from_points([B], dev)
+    err, plain_ms = 0, None
+    for valid in (SHARD_CHUNKS, 7, 0):
+        got = cc.msm_grid_local(pts, words, acc, valid, chunk)
+        plain, ms = timed_once(
+            torch, lambda: cc.msm_grid_local_plain(pts, words, acc, valid,
+                                                   chunk)
+        )
+        e = max_abs_err(F.to_points(got), F.to_points(plain), P)
+        kms = time_ms(torch, lambda: cc.msm_grid_local(pts, words, acc, valid,
+                                                       chunk), 5)
+        log(f"  msm_grid_local {n} points, {valid} valid chunks: kernel "
+            f"{kms:.3f} ms, plain {ms:.1f} ms, max_abs_err {e}")
+        err = max(err, e)
+        if valid == SHARD_CHUNKS:
+            main_ms, plain_ms = kms, ms
+    assert err == 0, f"msm_grid_local != plain (err {err})"
+    assert F.to_points(cc.msm_grid_local(pts, words, acc, 0, chunk))[0] == B
+    sub = 16  # four 16-point chunks, three valid, against the host
+    got = F.to_points(cc.msm_grid_local(pts[: 4 * sub].contiguous(),
+                                        words[: 4 * sub].contiguous(), acc,
+                                        3, sub))
+    host = bp.multiscalar_mul(bp.scvec.to_scalars(rows[: 3 * sub]) + [bp.Scalar(1)],
+                              F.to_points(pts[: 3 * sub]) + [B])
+    assert got[0] == host, "msm_grid_local != host MSM"
+    return dict(
+        max_abs_err=err, ms=main_ms, plain_ms=plain_ms,
+        **bound(msm_w4_ops(words.cpu().numpy(), -(-n // 128)), n * 160 + 2 * 128),
+    )
+
+
 def proof_digest(comms, proof) -> dict:
     """SHA-256 of the commitments (compressed, concatenated) and of the
     proof bytes: the golden file's keys."""
@@ -1241,7 +1323,8 @@ def phase_full(bp, torch, cc, gens, params, tree):
         f"peak device memory {out['peak_mem_bytes']} B")
     log(f"  launches {out['launches']}")
     for name, count in out["launches"].items():  # the default route's
-        assert count > 0 or name == "msm_lane" or name in FLAG_KERNELS, \
+        assert count > 0 or name in ("msm_lane", "msm_grid_local") \
+            or name in FLAG_KERNELS, \
             f"kernel {name} was not launched on the single-proof path"
     out["routes"], out["route_launches"] = phase_full_routes(
         bp, torch, cc, gens, comp, tape, comms, prover, snap
@@ -1263,6 +1346,7 @@ def phase_full(bp, torch, cc, gens, params, tree):
     else:
         raise AssertionError("proof verified against a wrong root")
     backend.evict_gens()
+    out["case"] = (comp, tape, comms, prover, proof)  # for phase 8
     return out
 
 
@@ -1327,7 +1411,9 @@ def phase_full_routes(bp, torch, cc, gens, comp, tape, comms, prover, snap):
 def phase_batch(bp, torch, cc, gens, params, tree):
     """BATCH depth-253 provers (leaves 1..BATCH) through prove_provers,
     one batch_verify, proof 0 against the same prover proved alone, and
-    a batch with one tampered proof."""
+    a batch with one tampered proof.  out["reuse"] keeps the circuit and
+    the first PLACED jobs with their snapshots and seeds for phases 7
+    and 9."""
     import numpy as np
 
     out = {}
@@ -1340,7 +1426,7 @@ def phase_batch(bp, torch, cc, gens, params, tree):
         for i, seed in enumerate(seeds)
     ]
     provers = [j[3] for j in jobs]
-    snap = provers[0].snapshot()
+    snaps = [p.snapshot() for p in provers[:PLACED]]
     out["setup_s"] = time.time() - t0
     log(f"  {BATCH} provers synthesized in {out['setup_s']:.2f} s")
     backend = bp.TorchBackend("cuda", route=bp.Route())
@@ -1373,7 +1459,7 @@ def phase_batch(bp, torch, cc, gens, params, tree):
             f"kernel {name} was not launched on the batched path"
 
     prover = provers[0]
-    prover.restore(snap)
+    prover.restore(snaps[0])
     prover.rng = np.random.RandomState(seeds[0])
     alone = prover.prove(gens, backend=backend)
     assert alone.to_bytes() == proofs[0].to_bytes(), \
@@ -1393,6 +1479,7 @@ def phase_batch(bp, torch, cc, gens, params, tree):
     else:
         raise AssertionError("batch with a tampered proof was accepted")
     backend.evict_gens()
+    out["reuse"] = (circuit, jobs[:PLACED], snaps, seeds[:PLACED])
     return out
 
 
@@ -1533,6 +1620,264 @@ def phase_gate(bp, torch, cc, host):
     return launches, times
 
 
+# ---- phases 7-9: the multi-device layer and the stream
+def card_devices(torch, want: int):
+    """`want` devices over the visible cards, round-robin (one card takes
+    every slot), and a line saying which."""
+    count = torch.cuda.device_count()
+    devices = [torch.device("cuda", d % count) for d in range(want)]
+    if count < want:
+        log(f"  {count} card(s) visible: {want} slots on "
+            f"{', '.join(sorted({str(d) for d in devices}))}")
+    return devices
+
+
+def phase_placement(bp, torch, cc, F, gens, reuse):
+    """Dry run C: phase 5's first PLACED depth-253 provers (leaves
+    1..PLACED, deterministic rngs; `reuse` is phase 5's out["reuse"]),
+    restored, through prove_provers_devices over the visible cards (two
+    TorchBackends on cuda:0 with one card): each proof byte-identical to
+    the same prover through prove_provers on one backend, one batch_verify
+    of all, and on each placed backend one msm_w4 of 2^14 points (words
+    live on 64 rows) on that backend's card, equal to the host MSM of the
+    64."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
+
+    out = {}
+    ndev = max(2, torch.cuda.device_count())
+    devices = card_devices(torch, ndev)
+    circuit, jobs, snaps, seeds = reuse
+    provers = [j[3] for j in jobs]
+
+    def restore():
+        for p, snap, seed in zip(provers, snaps, seeds):
+            p.restore(snap)
+            p.rng = np.random.RandomState(seed)
+
+    restore()
+    placed = []
+
+    def factory(device):
+        be = bp.TorchBackend(device)
+        placed.append(be)
+        return be
+
+    cc.reset_launches()
+    proofs, ms = timed_once(torch, lambda: bp.prove_provers_devices(
+        provers, gens, devices=devices, backend_factory=factory))
+    out["launches"] = dict(cc.LAUNCHES)
+    out["placed_ms"] = ms
+    log(f"  {PLACED} proofs over {[str(d) for d in devices]}: {ms:.1f} ms, "
+        f"launches { {k: v for k, v in out['launches'].items() if v} }")
+    for name in ("table_w5", "msm_win5", "fold_w3h", "msm_win_pair",
+                 "msm_lane"):
+        assert out["launches"][name] > 0, f"{name} not launched when placed"
+    restore()
+    one = bp.TorchBackend("cuda")
+    again, out["one_backend_ms"] = timed_once(
+        torch, lambda: bp.prove_provers(provers, gens, backend=one))
+    for i, (got, want) in enumerate(zip(proofs, again)):
+        assert got.to_bytes() == want.to_bytes(), f"placed proof {i} differs"
+    log(f"  byte-identical to prove_provers on one backend "
+        f"({out['one_backend_ms']:.1f} ms)")
+    _, out["verify_ms"] = timed_once(torch, lambda: bp.batch_verify(
+        [verifier_for(bp, circuit[0], j[1], j[2]) for j in jobs], proofs,
+        bp.PedersenGens.default(), gens, backend=one))
+    log(f"  one batch_verify of {PLACED}: {out['verify_ms']:.1f} ms")
+    share = gens.share(0)
+    rows = np.zeros((MSM_N, 4), np.uint64)
+    rows[:64] = random_scalar_rows(bp, 64, np.random.RandomState(SEED + 7))
+    for be in placed:
+        pts = be._gens(share, MSM_N, "G")
+        got = cc.msm_w4(pts, ck.w4_words(rows, be.device),
+                        F.identity_points(1, be.device))
+        assert got.device == be.device, f"msm_w4 on {got.device}"
+        want = bp.multiscalar_mul(bp.scvec.to_scalars(rows[:64]),
+                                  F.to_points(pts[:64]))
+        assert F.to_points(got)[0] == want, f"msm_w4 on {be.device} != host"
+        be.evict_gens()
+    one.evict_gens()
+    log(f"  msm_w4 of {MSM_N} points on each placed backend's card "
+        f"({', '.join(str(be.device) for be in placed)}) == host MSM")
+    return out
+
+
+class Capture:
+    """A backend that records the verifier's mega-MSM scalars and passes
+    every call to `inner`."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.gens_scalars = None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def msm_gens(self, scalars, head_points, gens_share, padded_n, tail_points):
+        self.gens_scalars = (scalars, len(head_points), padded_n)
+        return self.inner.msm_gens(scalars, head_points, gens_share, padded_n,
+                                   tail_points)
+
+
+def phase_sharded(bp, torch, cc, F, gens, case):
+    """Dry run D at full width: ShardedWalkMsm with SHARDS x SHARD_CHUNKS
+    chunks (2^18 points) over the visible cards (or all on one): (a) the
+    verifier's G segment of the phase-4 proof (128 valid chunks) and (b)
+    the phase-4 prover's a_L, phase 1's 143,704-point G words (71 valid
+    chunks: shard 2 partial, shard 3 dead), each equal to msm_grid over
+    the same points and words; (c) the depth-253 proof verifies through
+    ShardedWalkVerifyBackend and a tampered copy is rejected; the sharded
+    verify's wall time beside TorchBackend's."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
+    from bulletproofs_r1cs_gadgets_tpu_torch.parallel.sharded_fast import (
+        ShardedWalkMsm,
+        ShardedWalkVerifyBackend,
+    )
+
+    comp, tape, comms, prover, proof = case
+    out = {}
+    sharded = ShardedWalkMsm(card_devices(torch, SHARDS),
+                             local_chunks=SHARD_CHUNKS)
+    log(f"  {sharded!r}")
+    span = sharded.total_chunks * ck.CHUNK
+    assert span == GENS_N
+    home = sharded.devices[0]
+    G = F.from_raw(gens.G_raw(span), home)
+    shards = sharded.place(G)
+    cap = Capture(bp.TorchBackend("cuda"))
+    verify(bp, comp, tape, comms, proof, gens, cap)  # captures, builds tables
+    _, out["torch_verify_ms"] = timed_once(
+        torch, lambda: verify(bp, comp, tape, comms, proof, gens, cap))
+    cap.inner.evict_gens()
+    scalars, nh, padded_n = cap.gens_scalars
+    assert padded_n == span
+    if not isinstance(scalars, np.ndarray):
+        scalars = bp.scvec.from_scalars(list(scalars))
+    a_L = prover._witness_arrays()[0]
+    cases = (("verifier G", scalars[nh : nh + padded_n]), ("phase 1 a_L", a_L))
+    cc.reset_launches()
+    walk_ms, wants = {}, {}
+    for name, seg in cases:
+        w = np.zeros((span, 8), np.int32)
+        w[: seg.shape[0]] = ck.signed_digit_words(seg)
+        words = torch.from_numpy(w)
+        valid = -(-seg.shape[0] // ck.CHUNK)
+        got, walk_ms[name] = timed_once(
+            torch, lambda: sharded.msm(shards, words, valid))
+        wants[name] = (G, words[: seg.shape[0]].to(home), valid)
+        log(f"  sharded {name}: {seg.shape[0]} points, {valid} valid chunks, "
+            f"shard counts {[ck.shard_valid(valid, d, SHARD_CHUNKS) for d in range(SHARDS)]}, "
+            f"{walk_ms[name]:.1f} ms wall")
+        out[name] = got
+    sharded_msm = dict(cc.LAUNCHES)
+    for name, (pts, words, _) in wants.items():
+        want = cc.msm_grid(pts, words, F.identity_points(1, home))
+        assert F.to_points(want)[0] == out.pop(name), \
+            f"sharded {name} != msm_grid"
+    log("  both sharded MSMs equal msm_grid over the same points and words")
+    out["walk_ms"] = walk_ms
+    backend = ShardedWalkVerifyBackend(sharded)
+    cc.reset_launches()
+    _, cold = timed_once(torch, lambda: verify(bp, comp, tape, comms, proof,
+                                               gens, backend))
+    verify_launches = dict(cc.LAUNCHES)
+    _, out["sharded_verify_ms"] = timed_once(
+        torch, lambda: verify(bp, comp, tape, comms, proof, gens, backend))
+    assert verify_launches["msm_grid_local"] == 2 * SHARDS, verify_launches
+    try:
+        verify(bp, comp, tape, comms, tampered(bp, proof), gens, backend)
+    except bp.VerificationError:
+        log("  tampered proof rejected by the sharded verifier")
+    else:
+        raise AssertionError("sharded verifier accepted a tampered proof")
+    log(f"  depth-253 proof verified through ShardedWalkVerifyBackend: cold "
+        f"{cold:.1f} ms, warm {out['sharded_verify_ms']:.1f} ms; "
+        f"TorchBackend warm {out['torch_verify_ms']:.1f} ms")
+    # the path's launches: the sharded MSMs (a, b) and the cold verify
+    out["launches"] = {k: sharded_msm[k] + verify_launches[k]
+                       for k in cc.LAUNCHES}
+    assert set(k for k, v in out["launches"].items() if v) == \
+        {"msm_grid_local"}, out["launches"]
+    return out
+
+
+def phase_stream(bp, torch, cc, gens, params, tree, circuit):
+    """prove_stream of STREAM depth-253 provers (leaves 1..10 in turn,
+    deterministic rngs), built lazily from the compiled template, wave 4,
+    inflight 8, on TorchBackend("cuda"): one batch_verify of all; proofs
+    0 and STREAM - 1 byte-identical to the same provers (those the stream
+    built, restored) through prove_provers; the report; then a short
+    keep=False run of restored provers 0 and 1 whose on_result indices and
+    bytes match."""
+    import threading
+
+    import numpy as np
+
+    out = {}
+    seeds = [SEED + 900 + 100 * i for i in range(STREAM)]
+    ends = [0, STREAM - 1]
+    jobs, snaps = {}, {}
+    lock = threading.Lock()
+
+    def make_prover(i):
+        job = synthesize(bp, params, tree, DEPTH, seeds[i], i % 10 + 1,
+                         circuit)
+        snap = job[3].snapshot() if i in (0, 1, STREAM - 1) else None
+        with lock:
+            jobs[i], snaps[i] = job, snap
+        return job[3]
+
+    def restored(i):
+        """The prover make_prover built for `i`, as it was built."""
+        p = jobs[i][3]
+        p.restore(snaps[i])
+        p.rng = np.random.RandomState(seeds[i])
+        return p
+
+    backend = bp.TorchBackend("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cc.reset_launches()
+    (proofs, rep), ms = timed_once(torch, lambda: bp.prove_stream(
+        make_prover, STREAM, gens, backend=backend, wave=4, inflight=8))
+    out["launches"] = dict(cc.LAUNCHES)
+    out["report"] = dict(
+        count=rep.count, wave=rep.wave, inflight=rep.inflight,
+        wall_s=rep.wall_s, proofs_per_s=rep.proofs_per_s, build_s=rep.build_s,
+        prove_s=rep.prove_s, cpu_util=rep.cpu_util,
+        hbm_peak_bytes=rep.hbm_peak_bytes, group_times=rep.group_times,
+    )
+    log(f"  stream of {STREAM}: {ms:.1f} ms, report {out['report']}")
+    assert rep.count == STREAM and len(rep.group_times) == -(-STREAM // 4)
+    assert rep.hbm_peak_bytes == torch.cuda.max_memory_allocated()
+    for name in ("msm_win5", "fold_w3h", "msm_win_pair", "msm_lane"):
+        assert out["launches"][name] > 0, f"{name} not launched in the stream"
+    _, out["verify_ms"] = timed_once(torch, lambda: bp.batch_verify(
+        [verifier_for(bp, circuit[0], jobs[i][1], jobs[i][2])
+         for i in range(STREAM)],
+        proofs, bp.PedersenGens.default(), gens, backend=backend))
+    log(f"  one batch_verify of {STREAM}: {out['verify_ms']:.1f} ms")
+    again = bp.prove_provers([restored(i) for i in ends], gens,
+                             backend=backend)
+    for i, got in zip(ends, again):
+        assert got.to_bytes() == proofs[i].to_bytes(), \
+            f"streamed proof {i} differs from prove_provers"
+    log(f"  proofs {ends} byte-identical to prove_provers")
+    got = {}  # two workers of one prover each: results in any order
+    kept, rep2 = bp.prove_stream(
+        restored, 2, gens, backend=backend, wave=1, inflight=2, keep=False,
+        on_result=lambda i, pf: got.__setitem__(i, pf.to_bytes()))
+    assert kept is None and rep2.count == 2 and sorted(got) == [0, 1]
+    assert all(got[i] == proofs[i].to_bytes() for i in range(2)), \
+        "keep=False results out of order"
+    log("  keep=False run: on_result indices and bytes match the stream")
+    backend.evict_gens()
+    return out
+
+
 def main() -> int:
     if sys.argv[1:] == ["--gate-host"]:
         os.nice(19)  # beside the card's phases: yield the host's cores
@@ -1578,8 +1923,16 @@ def main() -> int:
         if host.poll() is None:
             host.kill()
         host.communicate()
+    reuse = batch.pop("reuse")  # phase 5's circuit and provers
+    with Phase("7 placement"):
+        placed = phase_placement(bp, torch, cc, F, gens, reuse)
+    with Phase("8 sharded walk"):
+        sharded = phase_sharded(bp, torch, cc, F, gens, full["case"])
+    with Phase("9 stream"):
+        stream = phase_stream(bp, torch, cc, gens, params, tree, reuse[0])
     runs = (full["launches"], full["route_launches"], batch["launches"],
-            gate_launches)
+            gate_launches, placed["launches"], sharded["launches"],
+            stream["launches"])
     kernels = [
         dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -1591,9 +1944,12 @@ def main() -> int:
     ]
     summary = {
         "single": {k: v for k, v in full.items()
-                   if k not in ("launches", "route_launches")},
+                   if k not in ("launches", "route_launches", "case")},
         "batch": {k: v for k, v in batch.items() if k != "launches"},
         "gate_ms": gate_times,
+        "placed": {k: v for k, v in placed.items() if k != "launches"},
+        "sharded": {k: v for k, v in sharded.items() if k != "launches"},
+        "stream": {k: v for k, v in stream.items() if k != "launches"},
     }
     log("summary " + json.dumps(summary))
     print(card)

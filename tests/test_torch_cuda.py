@@ -8,8 +8,11 @@ Each kernel is held against its plain torch version on the same CUDA
 tensors, and a proof, a proof on the combined IPP route (its threshold
 lowered) and a batch of three proofs (``prove_provers``) through
 ``TorchBackend("cuda")`` against the host engine's bytes; the equivalence
-gate's depth-8 proof on the default route and with ``winmsm`` off.  Tolerance:
-exact (equal points, equal table words, equal bytes).
+gate's depth-8 proof on the default route and with ``winmsm`` off.  On a
+machine with two cards: a two-shard ``ShardedWalkMsm`` over cuda:0 and
+cuda:1, and a backend on cuda:1 driven from the main thread (cuda:0
+current) and from pool threads, byte-identical to cuda:0 (skipped on one
+card).  Tolerance: exact (equal points, equal table words, equal bytes).
 """
 
 import numpy as np
@@ -29,12 +32,16 @@ from bulletproofs_r1cs_gadgets_tpu_torch import (
     Verifier,
     batch_verify,
     prove_provers,
+    prove_provers_devices,
     scvec,
 )
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import cuda_curve as cc
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import torch_backend as tb
+from bulletproofs_r1cs_gadgets_tpu_torch.parallel.sharded_fast import (
+    ShardedWalkMsm,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +91,7 @@ def test_kernels_match_plain_on_card(cuda_device):
         "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
         "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
         "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
+        "msm_grid_local": 0,
     }
 
 
@@ -116,6 +124,7 @@ def test_w5_and_lane_kernels_match_plain_on_card(cuda_device):
         "table_w5": 1, "msm_win5": 3, "msm_lane": 1,
         "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
         "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
+        "msm_grid_local": 0,
     }
 
 
@@ -146,6 +155,7 @@ def test_combined_layout_kernels_match_plain_on_card(cuda_device):
         "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
         "fold_w3h": 3, "fold_w3h_comb": 1, "table_w4": 2, "msm_win_pair": 2,
         "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
+        "msm_grid_local": 0,
     }
 
 
@@ -184,6 +194,7 @@ def test_route_flag_kernels_match_plain_on_card(cuda_device):
         "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
         "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 1, "msm_win_pair": 0,
         "fold_c": 6, "fold_c_comb": 1, "msm_win": 2, "msm_grid": 1,
+        "msm_grid_local": 0,
     }
 
 
@@ -298,3 +309,86 @@ def test_combined_route_on_card_matches_host(cuda_device, monkeypatch):
             ran["fold_w3h_comb"]) == (2, 4, 4, 4)
     _verifier(comms, 128).verify(got, PedersenGens.default(), gens,
                                  backend=backend)
+
+
+# ------------------------------------------------ the multi-device layer
+@pytest.fixture
+def two_cards():
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < 2:
+        pytest.skip(f"needs two NVIDIA GPUs, this machine has {count}")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_msm_grid_local_matches_plain_on_card(cuda_device):
+    """One two-chunk shard (4,096 points; words in every eighth row, past
+    the valid span too) at valid 0, 1 and 2, one launch each; valid 0
+    returns the accumulator."""
+    dev = cuda_device
+    n = 2 * ck.CHUNK
+    pts = F.from_raw(BulletproofGens(n).G_raw(n), dev)
+    rows = np.zeros((n, 4), np.uint64)
+    rows[::8] = _scalar_rows(n // 8, 110)
+    words = ck.w4_words(rows, dev)
+    acc = F.from_points(_points(1, 111), dev)
+    before = cc.LAUNCHES["msm_grid_local"]
+    for valid in (0, 1, 2):
+        got = cc.msm_grid_local(pts, words, acc, valid, ck.CHUNK)
+        assert got.device == dev
+        assert F.to_points(got) == F.to_points(
+            cc.msm_grid_local_plain(pts, words, acc, valid, ck.CHUNK))
+        if valid == 0:
+            assert F.to_points(got) == F.to_points(acc)
+    assert cc.LAUNCHES["msm_grid_local"] - before == 3
+
+
+def test_sharded_walk_over_two_cards(two_cards):
+    """Two shards, one chunk each, on cuda:0 and cuda:1: each shard's
+    points on its card, the totals equal to one msm_w4 on cuda:0 over the
+    valid span (all of it, then the first chunk)."""
+    dev0, _ = two_cards
+    sharded = ShardedWalkMsm(list(two_cards), local_chunks=1)
+    assert "shards on" not in repr(sharded)  # two distinct cards
+    n = 2 * ck.CHUNK
+    pts = F.from_raw(BulletproofGens(n).G_raw(n))
+    words = ck.w4_words(_scalar_rows(n, 120), "cpu")
+    shards = sharded.place(pts)
+    assert [s.device for s in shards] == list(two_cards)
+    before = cc.LAUNCHES["msm_grid_local"]
+    for valid in (2, 1):
+        m = valid * ck.CHUNK
+        want = cc.msm_w4(pts[:m].to(dev0), words[:m].to(dev0),
+                         F.identity_points(1, dev0))
+        assert sharded.msm(shards, words, valid) == F.to_points(want)[0]
+    assert cc.LAUNCHES["msm_grid_local"] - before == 4
+
+
+def test_backend_on_second_card_from_any_thread(two_cards):
+    """A TorchBackend on cuda:1 with cuda:0 current: a proof from the main
+    thread, a batch through prove_provers (its IPP rounds launch from a
+    thread pool) and a placed batch over both cards, byte-identical to
+    cuda:0's; the main thread's device stays cuda:0."""
+    dev0, dev1 = two_cards
+    torch.cuda.set_device(dev0)
+    gens = BulletproofGens(64)
+
+    def backend(device):
+        return TorchBackend(device, min_device_n=1, frozen_max_side=16)
+
+    seeds = (5, 6, 7)
+    want = [_prover(s)[1].prove(gens, backend=backend(dev0)) for s in seeds]
+    be1 = backend(dev1)
+    before = dict(cc.LAUNCHES)
+    comms, alone = _prover(seeds[0])
+    alone = alone.prove(gens, backend=be1)
+    assert alone.to_bytes() == want[0].to_bytes()
+    assert torch.cuda.current_device() == 0
+    batch = prove_provers([_prover(s)[1] for s in seeds], gens, backend=be1)
+    assert [p.to_bytes() for p in batch] == [p.to_bytes() for p in want]
+    assert sum(cc.LAUNCHES[k] - before[k] for k in before) > 0
+    placed = prove_provers_devices([_prover(s)[1] for s in seeds], gens,
+                                   devices=list(two_cards),
+                                   backend_factory=backend)
+    assert [p.to_bytes() for p in placed] == [p.to_bytes() for p in want]
+    assert torch.cuda.current_device() == 0
+    _verify(comms, alone, be1)
