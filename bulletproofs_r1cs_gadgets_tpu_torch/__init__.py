@@ -41,6 +41,22 @@ What sits behind the engine's backend seam is the port's device layer:
                         nothing on the card)
   csrc/                 the Hopper kernels (sm_90a)
 
+the device-oracle layer (the JAX package's XLA-composed oracle modules,
+on seven more kernels):
+
+  ops/field.py          LimbField, FQ (mod l) and FP (mod p) on (..., 8)
+                        words: mul / square on the mul_fq / mul_fp kernels
+  ops/curve.py          the JAX curve API: point_add / point_double (padd,
+                        pdbl), scalar_mul_bits (smul_lanes),
+                        scalar_mul_shared, tree_reduce, sqrt_ratio,
+                        elligator_map, from_uniform_bytes_batch
+  ops/msm.py            msm_device (msm_chunk_acc, chained) and MsmEngine
+                        (msm_block_totals)
+  ops/backend.py        DeviceBackend: the seam on msm_device and fold_grid
+  ops/poseidon.py       DevicePoseidon: the batched permutation
+  parallel/pipeline.py  proving_step: batched Merkle-path hashing and a
+                        commitment partial
+
 and the multi-device layer:
 
   parallel/mesh.py      (batch, points) meshes of devices
@@ -87,6 +103,7 @@ from .parallel.device_batch import prove_provers_devices
 from .parallel.stream import prove_stream
 from .utils.constants import D2, L, P
 
+from .ops.backend import DeviceBackend
 from .ops.torch_backend import Route, TorchBackend
 
 NATIVE_LOADED = _native is not None  # C++ host library (gens, Poseidon)
@@ -97,5 +114,5 @@ __all__ = [
     "VerificationError", "multiscalar_mul", "scvec", "PoseidonParams",
     "CompiledVSMT2", "VanillaSparseMerkleTree", "leaf_index_bit_scalars",
     "D2", "L", "P", "NATIVE_LOADED", "prove_provers", "batch_verify",
-    "prove_provers_devices", "prove_stream",
+    "prove_provers_devices", "prove_stream", "DeviceBackend",
 ]

@@ -17,7 +17,18 @@ feed both packages the same state:
   array, its point f at sublane f // 256, lane f % 256) and give the
   port's flat tensors in the order of the points the chunks were made
   from; points and words go through the same permutation, so each point
-  keeps its word.
+  keeps its word;
+* :func:`field_words` takes the JAX package's field elements, ``(..., 23)``
+  balanced 12-bit limbs (``FQ`` / ``FP.to_device`` there, or any lazy
+  result), and gives the port's ``(..., 8)`` words mod l or mod p;
+  :func:`stacked_field` takes the Pallas field kernels' limb-major
+  ``(23, 8, lanes)`` stacks (``pallas_field.to_limb_major``);
+* :func:`stacked_points` takes the stacked point blocks ``(92, 8, lanes)``
+  of ``pallas_curve.points_to_rows`` (point j at flat lattice position j,
+  any lane count; one 2048-point chunk at 256 lanes) or the emitters'
+  tuple of four ``(23, 8, lanes)`` coordinate stacks, and
+  :func:`stacked_words` their ``(8, 8, lanes)`` word stacks
+  (``pallas_curve.words_to_rows``).
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from .core import scvec
 from .core.pedersen import BulletproofGens
 from .gadgets.poseidon_params import PoseidonParams
 from .ops import field as F
+from .utils.constants import L, P
 
 _SUB, _LANES = 8, 256  # a chunk's sublanes and lanes
 
@@ -63,6 +75,48 @@ def capacity_words(words, device="cpu") -> torch.Tensor:
     if a.shape[0] != 8:
         raise ValueError(f"expected 8 word rows, got {a.shape}")
     return torch.from_numpy(np.ascontiguousarray(_unchunk(a))).to(device)
+
+
+def field_words(limbs, modulus: int, device="cpu") -> torch.Tensor:
+    """(..., 23) balanced 12-bit limbs (the JAX package's ``LimbField``
+    layout, lazy values allowed) -> (..., 8) int32 words of each value mod
+    `modulus` (``L`` for ``FQ``, ``P`` for ``FP``)."""
+    if modulus not in (L, P):
+        raise ValueError("modulus: L (FQ) or P (FP)")
+    a = np.asarray(limbs)
+    if a.shape[-1] != F.JAX_STORE:
+        raise ValueError(f"expected {F.JAX_STORE} limbs, got {a.shape}")
+    vals = [
+        sum(int(v) << (F.JAX_LIMB_BITS * i) for i, v in enumerate(row))
+        % modulus
+        for row in a.reshape(-1, F.JAX_STORE).tolist()
+    ]
+    w = F.ints_to_words(vals).reshape(a.shape[:-1] + (8,))
+    return torch.from_numpy(w.copy()).to(device)
+
+
+def stacked_field(arr, modulus: int, device="cpu") -> torch.Tensor:
+    """Limb-major (23, 8, lanes) field stack -> (8 * lanes, 8) words."""
+    a = np.asarray(arr)
+    return field_words(a.reshape(a.shape[0], -1).T, modulus, device)
+
+
+def stacked_points(block, device="cpu") -> torch.Tensor:
+    """(92, 8, lanes) stacked points, or a tuple of four (23, 8, lanes)
+    coordinate stacks, -> (8 * lanes, 4, 8) canonical words, point j from
+    flat lattice position j (``F.from_jax_chunk`` for any lane count)."""
+    if isinstance(block, (tuple, list)):
+        block = np.concatenate([np.asarray(c) for c in block], axis=0)
+    a = np.asarray(block)
+    if a.shape[0] != 4 * F.JAX_STORE:
+        raise ValueError(f"expected {4 * F.JAX_STORE} limb rows, got {a.shape}")
+    return F.from_jax_chunk(a, device)
+
+
+def stacked_words(words, device="cpu") -> torch.Tensor:
+    """(8, 8, lanes) word stack -> (8 * lanes, 8) int32 word rows."""
+    a = np.asarray(words, dtype=np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a.reshape(8, -1).T)).to(device)
 
 
 def _party_arrays(arrs) -> list[np.ndarray]:

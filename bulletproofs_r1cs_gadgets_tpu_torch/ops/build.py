@@ -55,6 +55,14 @@ SIGNATURES = {
     "bp_fold_w3h_comb": [_VP, _VP, _VP, _I, _I, _VP],
     "bp_fold_c": [_VP, _VP, _VP, _I, _I, _VP],
     "bp_fold_c_comb": [_VP, _VP, _VP, _I, _I, _VP],
+    "bp_padd": [_VP, _VP, _VP, _I, _VP],
+    "bp_pdbl": [_VP, _VP, _I, _VP],
+    "bp_smul_lanes": [_VP, _VP, _VP, _I, _VP],
+    "bp_msm_block_totals": [_VP, _VP, _VP, _VP, _I, _VP],
+    "bp_msm_chunk_acc": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
+    "bp_fold_grid": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "bp_mul_fp": [_VP, _VP, _VP, _I, _VP],
+    "bp_mul_fq": [_VP, _VP, _VP, _I, _VP],
 }
 
 

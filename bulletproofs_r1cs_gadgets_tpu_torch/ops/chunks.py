@@ -20,6 +20,11 @@ TPU kernel consumes:
 * Constant fold words: a fold's two constants as MSM words, one row each
   (``c_fold_words``; the reference's ``_c_fold_words`` writes one row per
   point).
+* w2 fold words (``fold_grid``): 128 signed base-4 digits d_i in [-2, 1],
+  two bits each (code d & 3), sum d_i 4^i == scalar
+  (``signed_digit2_words``); a constant scalar is one row that every lane
+  reads (``const_grid_words``; the reference writes the row into every
+  lane of a capacity array).
 
 Scalars arrive as ``(n, 4) uint64`` numpy arrays (``core/scvec.py``) and
 are encoded in numpy into int32 rows before ``torch.from_numpy``.
@@ -71,6 +76,7 @@ def _limbs(c: int) -> np.ndarray:
 
 _W4_C = _limbs(sum(8 << (4 * i) for i in range(64)))
 _W5_C = _limbs(sum(16 << (5 * i) for i in range(W5_WINDOWS)))
+_W2_C = _limbs(sum(2 << (2 * i) for i in range(cc.W2_WINDOWS)))  # 0xAA..AA
 
 
 def _signed_recode(arr: np.ndarray, C: np.ndarray) -> np.ndarray:
@@ -97,6 +103,35 @@ def signed_digit_words(arr: np.ndarray) -> np.ndarray:
     A zero scalar encodes as zero words (adds nothing)."""
     t = _signed_recode(arr, _W4_C)
     return t.view("<u4").view(np.int32).reshape(arr.shape[0], 8)
+
+
+def signed_digit2_words(arr: np.ndarray) -> np.ndarray:
+    """(m, 4) u64 scalars -> (m, 8) int32 packed 2-bit signed digits d_i in
+    [-2, 1], sum d_i * 4^i == scalar (code d & 3; the reference's
+    ``signed_digit2_words``, chunks.py:190).  Zero encodes as zero words."""
+    t = _signed_recode(arr, _W2_C)
+    return t.view("<u4").view(np.int32).reshape(arr.shape[0], 8)
+
+
+def w2_words(arr: np.ndarray, device) -> torch.Tensor:
+    """Per-lane ``fold_grid`` words of scalar rows on `device`."""
+    return torch.from_numpy(signed_digit2_words(arr)).to(device)
+
+
+def const_grid_words(s, device) -> torch.Tensor:
+    """The (1, 8) ``fold_grid`` word row of scalar `s`, read by every lane
+    (in place of the reference's capacity array holding it in every lane,
+    ``const_grid_words`` :297)."""
+    return w2_words(scvec.scalar_to_row(s)[None], device)
+
+
+def fold_big(points: torch.Tensor, wl: torch.Tensor, wr: torch.Tensor,
+             valid_out: int) -> torch.Tensor:
+    """Generator fold: out[i] = wl[i] * P[i] + wr[i] * P[i + v] for i < v =
+    `valid_out` points (the reference's ``fold_big`` :328 counts 2048-point
+    chunks of a capacity array); w2 words per lane or one constant row.
+    One ``fold_grid`` launch into a new (v, 4, 8) tensor."""
+    return cc.fold_grid(points, wl, wr, valid_out)
 
 
 _POS5 = 5 * np.arange(W5_WINDOWS)

@@ -1,4 +1,4 @@
-"""Wrappers for the port's fifteen Hopper kernels, with their plain versions.
+"""Wrappers for the port's twenty-three Hopper kernels, with their plain versions.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and then
@@ -6,7 +6,8 @@ outputs with ``torch.empty`` and then
 * for CPU tensors, runs the plain torch version beside it (this is what
   the CPU tests exercise);
 * for CUDA tensors, launches its kernel from ``csrc/msm_fold.cu``,
-  ``csrc/win.cu`` or ``csrc/fold_w3h.cu`` on the current stream of the
+  ``csrc/win.cu``, ``csrc/fold_w3h.cu`` or ``csrc/oracle.cu`` on the
+  current stream of the
   tensors' device (from any thread), raises if the launch failed, and
   adds one to ``LAUNCHES[name]``.  There is no fallback to the plain
   version.
@@ -15,8 +16,9 @@ Tensors (see :mod:`.field`): points ``(n, 4, 8)`` int32, w4 and bit
 scalar words ``(n, 8)`` int32, w5 words ``(n, 16)`` int32, w5 / w4
 tables ``(n, 16, 4, 8)`` / ``(n, 8, 4, 8)`` int32 (niels entries),
 half-width fold words ``(sides, 2, 2, 8)`` int32, constant fold words
-``(sides, 2, 8)`` int32, accumulators ``(k, 4, 8)``.
-Outputs are canonical.
+``(sides, 2, 8)`` int32, w2 fold words ``(v, 8)`` or one ``(1, 8)`` row
+for every lane, field elements ``(n, 8)`` int32, accumulators
+``(k, 4, 8)``.  Outputs are canonical.
 
 Kernel notes (what each replaces, what bounds it on an H100, what its
 design does about that):
@@ -132,6 +134,56 @@ a shard with no valid chunk over one zero-word chunk; here it launches
 over no points (the second pass alone returns the accumulator), so the
 result does not rest on the words past the valid span being zero.
 
+The device-oracle path's kernels (``csrc/oracle.cu``; callers in
+``ops/{field,curve,msm,backend,poseidon}.py`` and ``parallel/pipeline.py``)
+take any n, not only the TPU's multiples of 2048, and run the TPU kernels'
+own operation sequence, the identity doubled and added like any point, so
+the kernel and its plain version agree word for word:
+
+``padd`` / ``pdbl`` replace ``pallas_curve.padd`` / ``pdbl`` (:176 / :190,
+``_padd_kernel`` :163, ``_pdbl_kernel`` :167): pointwise add and doubling.
+Bound: memory (384 / 256 B per point moved for 9 / 8 field multiplies).
+Design: one thread per point, ``ge_add`` / ``ge_double`` and a canonical
+store.
+
+``smul_lanes`` replaces ``pallas_curve.smul_lanes`` (:1519, ``_smul_kernel``
+:243, ``_ladder`` :219): s_i * P_i per lane by the bit-serial ladder over
+bits 252..0.  Bound: integer multiplies (253 doublings and 253 adds per
+point; the bound counts the ones the data needs, from each scalar's top
+bit).  Design: one thread per point runs the ladder (``ladder_bits``, the
+template of the next two) and stores its point.
+
+``msm_block_totals`` replaces ``pallas_curve.msm_block_totals`` (:252,
+``_smul_reduce_kernel`` :239, ``emit_block_reduce`` :203): one total per
+2048 input points, (ceil(n / 2048), 4, 8), which the host sums.  Same
+bound.  Design: the ladder per thread, the shared-memory tree
+(``block_sum``) to one partial per 128 points, and a second launch with
+one 16-thread block per 2048 points, so the blocks are the TPU's whatever
+the CUDA block size.
+
+``msm_chunk_acc`` replaces ``pallas_curve.msm_chunk_acc`` (:279,
+``_smul_acc_kernel`` :269): acc + the ladder MSM over any n.  Same bound.
+Design: the same first pass, then one block adds the partials and the
+accumulator (as ``msm_w4``'s second pass does): one launch pair per call.
+
+``fold_grid`` replaces ``pallas_curve.fold_grid`` (:865, ``_fold_grid_kernel``
+:850, ``_emit_fold_w2`` :823, ``_w2_digit_select`` :811): out[i] = wl_i *
+P[i] + wr_i * P[i + v] with 128 signed 2-bit digits per scalar.  Bound:
+integer multiplies (256 doublings and 256 adds per output).  Design: one
+thread per output with the {P, 2P} tables of both sides, two doublings and
+two selected (negated for d < 0) adds per window; a constant scalar is one
+``(1, 8)`` row read by every lane (word stride 0) instead of the TPU's
+capacity array of copies; the output is a new ``(v, 4, 8)`` tensor.
+
+``mul_fp`` / ``mul_fq`` replace ``pallas_field.mul_fp`` / ``mul_fq``
+(ops/pallas_field.py:200-201, ``_make_mul`` :173, ``emit_mul`` :144):
+elementwise products mod p and mod l of any words below 2^256, canonical
+(the TPU's stay lazy).  Bound: memory (96 B per element for one field
+multiply).  Design: one thread per element; mod p is ``fe_mul`` then
+``fe_canon``, mod l the 8 x 8 word product and Barrett's reduction with
+base 2^32 (``sc_mul_canon``), the plain version the same reduction over
+int64 word limbs (``field.mul_mod_plain``).
+
 Every launch makes its tensors' device current first (``_launch``): the
 library launches on the calling thread's current device, and a pool
 thread or a backend on a second card need not have it current.
@@ -154,6 +206,8 @@ LAUNCHES = {
     "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
     "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
     "msm_grid_local": 0,
+    "padd": 0, "pdbl": 0, "smul_lanes": 0, "msm_block_totals": 0,
+    "msm_chunk_acc": 0, "fold_grid": 0, "mul_fp": 0, "mul_fq": 0,
 }
 _COUNT_LOCK = threading.Lock()  # batched IPP rounds launch from a pool
 TBL5 = 16
@@ -161,6 +215,12 @@ W5_WINDOWS = 51  # ceil(253 / 5)
 TBL4 = 8
 W4_WINDOWS = 64
 W3H_DIGITS = 44
+W2_WINDOWS = 128
+LADDER_BITS = 253
+# csrc/oracle.cu's OR_THREADS / OR_BLOCK_PTS: the plain versions sum in
+# the kernels' order
+ORACLE_THREADS = 128  # points per first-pass partial
+BLOCK_PTS = 2048  # msm_block_totals: input points per total (the TPU's block)
 
 
 def reset_launches() -> None:
@@ -235,23 +295,23 @@ def ladder_w4_plain(pts: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     top digit -8 takes the 8P entry).  (n, 4, 16) limbs in and out."""
     n = pts.shape[0]
     ident = C.identity(n, pts.device)
-    t2 = C.point_double(pts)
-    t3 = C.point_add(t2, pts)
-    t4 = C.point_double(t2)
-    t5 = C.point_add(t4, pts)
-    t6 = C.point_double(t3)
-    t7 = C.point_add(t6, pts)
-    t8 = C.point_double(t4)
+    t2 = C.point_double_limbs(pts)
+    t3 = C.point_add_limbs(t2, pts)
+    t4 = C.point_double_limbs(t2)
+    t5 = C.point_add_limbs(t4, pts)
+    t6 = C.point_double_limbs(t3)
+    t7 = C.point_add_limbs(t6, pts)
+    t8 = C.point_double_limbs(t4)
     table = torch.stack([ident, pts, t2, t3, t4, t5, t6, t7, t8])
     rows = torch.arange(n, device=pts.device)
     acc = ident
     for pos in range(63, -1, -1):
         for _ in range(4):
-            acc = C.point_double(acc)
+            acc = C.point_double_limbs(acc)
         e = _digits(words, pos)
         neg = e >= 8
         mag = torch.where(neg, 16 - e, e)
-        acc = C.point_add(acc, C.point_negate(table[mag, rows], neg))
+        acc = C.point_add_limbs(acc, C.point_negate(table[mag, rows], neg))
     return acc
 
 
@@ -259,7 +319,7 @@ def msm_w4_plain(points, words, acc) -> torch.Tensor:
     live = words.ne(0).any(dim=1)  # all-zero rows add nothing (as in the kernel)
     points, words = points[live], words[live]
     total = C.block_reduce(ladder_w4_plain(F.words_to_limbs(points), words))
-    return F.limbs_to_words(C.point_add(total, F.words_to_limbs(acc)))
+    return F.limbs_to_words(C.point_add_limbs(total, F.words_to_limbs(acc)))
 
 
 def msm_w4_pair_plain(points, words, acc2, half, lo_limit, hi_limit):
@@ -273,20 +333,20 @@ def msm_w4_pair_plain(points, words, acc2, half, lo_limit, hi_limit):
 
 def fold_bits_plain(left, right, wl, wr) -> torch.Tensor:
     L, R = F.words_to_limbs(left), F.words_to_limbs(right)
-    both = C.point_add(L, R)
+    both = C.point_add_limbs(L, R)
     ident = C.identity(L.shape[0], L.device)
     wl64 = wl.to(torch.int64) & 0xFFFFFFFF
     wr64 = wr.to(torch.int64) & 0xFFFFFFFF
     acc = ident
     for pos in range(252, -1, -1):
-        acc = C.point_double(acc)
+        acc = C.point_double_limbs(acc)
         bl = ((wl64[:, pos // 32] >> (pos % 32)) & 1).bool()
         br = ((wr64[:, pos // 32] >> (pos % 32)) & 1).bool()
-        sel = C.point_select(
+        sel = C.point_select_limbs(
             bl & br, both,
-            C.point_select(bl, L, C.point_select(br, R, ident)),
+            C.point_select_limbs(bl, L, C.point_select_limbs(br, R, ident)),
         )
-        acc = C.point_add(acc, sel)
+        acc = C.point_add_limbs(acc, sel)
     return F.limbs_to_words(acc)
 
 
@@ -308,10 +368,10 @@ def _table_plain(points, entries: int) -> torch.Tensor:
     kernel's sequence (odd multiples t(k-1) + P, even ones doubled from
     t(k/2)), so the canonical words equal the kernel's bit for bit."""
     p = F.words_to_limbs(points)
-    t = [p, C.point_double(p)]
+    t = [p, C.point_double_limbs(p)]
     for k in range(3, entries + 1):
         t.append(
-            C.point_add(t[k - 2], p) if k % 2 else C.point_double(t[k // 2 - 1])
+            C.point_add_limbs(t[k - 2], p) if k % 2 else C.point_double_limbs(t[k // 2 - 1])
         )
     return F.limbs_to_words(torch.stack([C.to_niels(q) for q in t], dim=1))
 
@@ -363,9 +423,9 @@ def _win_plain(table, words, chain, v, poff, woff, split, poff2, bits):
     acc = sums[windows - 1 :]
     for win in range(windows - 2, -1, -1):
         for _ in range(bits):
-            acc = C.point_double(acc)
-        acc = C.point_add(acc, sums[win : win + 1])
-    return F.limbs_to_words(C.point_add(acc, F.words_to_limbs(chain)))
+            acc = C.point_double_limbs(acc)
+        acc = C.point_add_limbs(acc, sums[win : win + 1])
+    return F.limbs_to_words(C.point_add_limbs(acc, F.words_to_limbs(chain)))
 
 
 def msm_win5_plain(table, words, chain, v, poff, woff, split, poff2):
@@ -406,17 +466,17 @@ def _fold_w3h_side(points, words, bp) -> torch.Tensor:
     steps = []
     for half, k in ((points[:v], 0), (points[v:], 1)):
         p = F.words_to_limbs(half)
-        t2 = C.point_double(p)
-        table = torch.stack([acc, p, t2, C.point_add(t2, p), C.point_double(t2)])
+        t2 = C.point_double_limbs(p)
+        table = torch.stack([acc, p, t2, C.point_add_limbs(t2, p), C.point_double_limbs(t2)])
         steps.append((words[pair, k], table))
     for pos in range(W3H_DIGITS - 1, -1, -1):
         for _ in range(3):
-            acc = C.point_double(acc)
+            acc = C.point_double_limbs(acc)
         for w, table in steps:
             e = _digits(w, pos) & 7
             neg = e >= 4
             mag = torch.where(neg, 8 - e, e)  # code 4 is the digit -4
-            acc = C.point_add(acc, C.point_negate(table[mag, rows], neg))
+            acc = C.point_add_limbs(acc, C.point_negate(table[mag, rows], neg))
     return F.limbs_to_words(acc)
 
 
@@ -440,7 +500,7 @@ def _fold_c_side(points, words, bp) -> torch.Tensor:
     v = points.shape[0] // 2
     pair = (torch.arange(v, device=points.device) >= bp).long()
     prod = ladder_w4_plain(F.words_to_limbs(points[v:]), words[pair])
-    return F.limbs_to_words(C.point_add(prod, F.words_to_limbs(points[:v])))
+    return F.limbs_to_words(C.point_add_limbs(prod, F.words_to_limbs(points[:v])))
 
 
 def fold_c_plain(points, words, bp) -> torch.Tensor:
@@ -773,3 +833,237 @@ def fold_c_comb(points: torch.Tensor, words: torch.Tensor, bp: int
     v = points.shape[0] // 4
     return _fold_launch("fold_c_comb", fold_c_comb_plain, points, words,
                         (2, 8), bp, v, 2, None)
+
+
+# ------------------------------------------- the device-oracle path's kernels
+def _limbs_op(fn, *pts) -> torch.Tensor:
+    return F.limbs_to_words(fn(*(F.words_to_limbs(p) for p in pts)))
+
+
+def padd_plain(a, b) -> torch.Tensor:
+    return _limbs_op(C.point_add_limbs, a, b)
+
+
+def pdbl_plain(a) -> torch.Tensor:
+    return _limbs_op(C.point_double_limbs, a)
+
+
+def ladder_bits_plain(pts: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """Per point s * P by the bit ladder over bits 252..0: double, then add
+    P where the bit is set and the identity where not (the kernel's and
+    the TPU's sequence).  (n, 4, 16) limbs in and out."""
+    n = pts.shape[0]
+    ident = C.identity(n, pts.device)
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    acc = ident
+    for pos in range(LADDER_BITS - 1, -1, -1):
+        acc = C.point_double_limbs(acc)
+        bit = ((w[:, pos // 32] >> (pos % 32)) & 1).bool()
+        acc = C.point_add_limbs(acc, C.point_select_limbs(bit, pts, ident))
+    return acc
+
+
+def smul_lanes_plain(points, words) -> torch.Tensor:
+    return F.limbs_to_words(ladder_bits_plain(F.words_to_limbs(points), words))
+
+
+def _tree(x: torch.Tensor) -> torch.Tensor:
+    """(k, 2^j, 4, 16) -> (k, 4, 16): the kernels' shared-memory tree,
+    x[s] += x[s + half] at halving strides."""
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = C.point_add_limbs(x[:, :h], x[:, h:])
+    return x[:, 0]
+
+
+def _partials_plain(points, words, nparts: int) -> torch.Tensor:
+    """(nparts, 4, 16): the first pass, one tree sum of the ladders of
+    each ORACLE_THREADS points, the identity past n."""
+    n = points.shape[0]
+    per = C.identity(nparts * ORACLE_THREADS, points.device)
+    if n:
+        per[:n] = ladder_bits_plain(F.words_to_limbs(points), words)
+    return _tree(per.view(nparts, ORACLE_THREADS, 4, F.NLIMBS))
+
+
+def msm_block_totals_plain(points, words) -> torch.Tensor:
+    nb = -(-points.shape[0] // BLOCK_PTS)
+    per_block = BLOCK_PTS // ORACLE_THREADS
+    parts = _partials_plain(points, words, nb * per_block)
+    return F.limbs_to_words(_tree(parts.view(nb, per_block, 4, F.NLIMBS)))
+
+
+def msm_chunk_acc_plain(points, words, acc) -> torch.Tensor:
+    """(1, 4, 8): thread t of the second pass adds partials t, t + T, ...
+    to the identity, the tree sums the threads, then acc is added."""
+    nparts = -(-points.shape[0] // ORACLE_THREADS)
+    parts = _partials_plain(points, words, nparts)
+    T = ORACLE_THREADS
+    v = C.identity(T, points.device)
+    t = torch.arange(T, device=points.device)
+    for r in range(-(-nparts // T)):
+        j = r * T + t
+        live = j < nparts
+        v = C.point_select_limbs(
+            live, C.point_add_limbs(v, parts[j.clamp(max=nparts - 1)]), v
+        )
+    total = _tree(v[None])
+    return F.limbs_to_words(C.point_add_limbs(total, F.words_to_limbs(acc)))
+
+
+def _w2_select(w: torch.Tensor, pos: int, p1, p2, ident) -> torch.Tensor:
+    e = (w[:, pos // 16] >> (2 * (pos % 16))) & 3
+    neg = e >= 2
+    mag = torch.where(neg, 4 - e, e)  # e = 2 is d = -2, e = 3 is d = -1
+    sel = C.point_select_limbs(
+        mag == 1, p1, C.point_select_limbs(mag == 2, p2, ident)
+    )
+    return C.point_negate(sel, neg)
+
+
+def fold_grid_plain(points, wl, wr, v: int) -> torch.Tensor:
+    """(v, 4, 8): the dual w2 ladder, windows 127..0, two doublings and the
+    two selected adds each (the kernel's sequence)."""
+    dev = points.device
+    L1 = F.words_to_limbs(points[:v])
+    R1 = F.words_to_limbs(points[v : 2 * v])
+    L2, R2 = C.point_double_limbs(L1), C.point_double_limbs(R1)
+    ident = C.identity(v, dev)
+    wl = (wl.to(torch.int64) & 0xFFFFFFFF).expand(v, 8)
+    wr = (wr.to(torch.int64) & 0xFFFFFFFF).expand(v, 8)
+    acc = ident
+    for pos in range(W2_WINDOWS - 1, -1, -1):
+        acc = C.point_double_limbs(C.point_double_limbs(acc))
+        acc = C.point_add_limbs(acc, _w2_select(wl, pos, L1, L2, ident))
+        acc = C.point_add_limbs(acc, _w2_select(wr, pos, R1, R2, ident))
+    return F.limbs_to_words(acc)
+
+
+def mul_fp_plain(a, b) -> torch.Tensor:
+    return F.limbs_to_words(F.mul(F.words_to_limbs(a), F.words_to_limbs(b)))
+
+
+def mul_fq_plain(a, b) -> torch.Tensor:
+    return F.mul_mod_plain(a, b, F.L)
+
+
+def padd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(n, 4, 8) = a + b pointwise."""
+    dev = a.device
+    n = a.shape[0]
+    _check(a, "a", (n, 4, 8), dev)
+    _check(b, "b", (n, 4, 8), dev)
+    if _route(dev) == "plain":
+        return padd_plain(a, b)
+    out = torch.empty((n, 4, 8), dtype=torch.int32, device=dev)
+    _launch("padd", dev, "bp_padd", _ptr(a), _ptr(b), _ptr(out), n)
+    return out
+
+
+def pdbl(a: torch.Tensor) -> torch.Tensor:
+    """(n, 4, 8) = 2a pointwise."""
+    dev = a.device
+    n = a.shape[0]
+    _check(a, "a", (n, 4, 8), dev)
+    if _route(dev) == "plain":
+        return pdbl_plain(a)
+    out = torch.empty((n, 4, 8), dtype=torch.int32, device=dev)
+    _launch("pdbl", dev, "bp_pdbl", _ptr(a), _ptr(out), n)
+    return out
+
+
+def smul_lanes(points: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """(n, 4, 8): row i = s_i * points_i, s_i from bit words (n, 8) (bits
+    253..255 are not read)."""
+    dev = points.device
+    n = points.shape[0]
+    _check(points, "points", (n, 4, 8), dev)
+    _check(words, "words", (n, 8), dev)
+    if _route(dev) == "plain":
+        return smul_lanes_plain(points, words)
+    out = torch.empty((n, 4, 8), dtype=torch.int32, device=dev)
+    _launch("smul_lanes", dev, "bp_smul_lanes", _ptr(points), _ptr(words),
+            _ptr(out), n)
+    return out
+
+
+def msm_block_totals(points: torch.Tensor, words: torch.Tensor
+                     ) -> torch.Tensor:
+    """(ceil(n / 2048), 4, 8): row b = sum of s_i * points_i over input
+    points [2048 b, 2048 (b + 1)) (bit words), for the host to add up."""
+    dev = points.device
+    n = points.shape[0]
+    _check(points, "points", (n, 4, 8), dev)
+    _check(words, "words", (n, 8), dev)
+    if _route(dev) == "plain":
+        return msm_block_totals_plain(points, words)
+    nb = -(-n // BLOCK_PTS)
+    out = torch.empty((nb, 4, 8), dtype=torch.int32, device=dev)
+    partials = torch.empty((max(1, nb * (BLOCK_PTS // ORACLE_THREADS)), 4, 8),
+                           dtype=torch.int32, device=dev)
+    _launch("msm_block_totals", dev, "bp_msm_block_totals", _ptr(points),
+            _ptr(words), _ptr(out), _ptr(partials), n)
+    return out
+
+
+def msm_chunk_acc(points: torch.Tensor, words: torch.Tensor,
+                  acc: torch.Tensor) -> torch.Tensor:
+    """(1, 4, 8) = acc + sum_i s_i * points_i (bit words), any n."""
+    dev = points.device
+    n = points.shape[0]
+    _check(points, "points", (n, 4, 8), dev)
+    _check(words, "words", (n, 8), dev)
+    _check(acc, "acc", (1, 4, 8), dev)
+    if _route(dev) == "plain":
+        return msm_chunk_acc_plain(points, words, acc)
+    out = torch.empty((1, 4, 8), dtype=torch.int32, device=dev)
+    partials = torch.empty((max(1, -(-n // ORACLE_THREADS)), 4, 8),
+                           dtype=torch.int32, device=dev)
+    _launch("msm_chunk_acc", dev, "bp_msm_chunk_acc", _ptr(points),
+            _ptr(words), _ptr(acc), _ptr(out), _ptr(partials), n)
+    return out
+
+
+def fold_grid(points: torch.Tensor, wl: torch.Tensor, wr: torch.Tensor,
+              v: int) -> torch.Tensor:
+    """(v, 4, 8) new tensor: out[i] = wl_i * points[i] + wr_i * points[i +
+    v] for i < v, from w2 words (``ck.signed_digit2_words``): per lane
+    ``(v, 8)``, or one ``(1, 8)`` row for every lane
+    (``ck.const_grid_words``)."""
+    dev = points.device
+    N = points.shape[0]
+    if not 0 <= 2 * v <= N:
+        raise ValueError(f"fold_grid: {N} points do not hold 2 x {v}")
+    _check(points, "points", (N, 4, 8), dev)
+    for name, w in (("wl", wl), ("wr", wr)):
+        _check(w, name, (1 if w.shape[0] == 1 else v, 8), dev)
+    if _route(dev) == "plain":
+        return fold_grid_plain(points, wl, wr, v)
+    out = torch.empty((v, 4, 8), dtype=torch.int32, device=dev)
+    strides = [0 if w.shape[0] == 1 else 8 for w in (wl, wr)]
+    _launch("fold_grid", dev, "bp_fold_grid", _ptr(points), _ptr(wl),
+            _ptr(wr), _ptr(out), v, *strides)
+    return out
+
+
+def _mul_launch(name: str, plain, a: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    dev = a.device
+    n = a.shape[0]
+    _check(a, "a", (n, 8), dev)
+    _check(b, "b", (n, 8), dev)
+    if _route(dev) == "plain":
+        return plain(a, b)
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    _launch(name, dev, f"bp_{name}", _ptr(a), _ptr(b), _ptr(out), n)
+    return out
+
+
+def mul_fp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(n, 8) = a * b mod p, canonical, for any words below 2^256."""
+    return _mul_launch("mul_fp", mul_fp_plain, a, b)
+
+
+def mul_fq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(n, 8) = a * b mod l, canonical, for any words below 2^256."""
+    return _mul_launch("mul_fq", mul_fq_plain, a, b)

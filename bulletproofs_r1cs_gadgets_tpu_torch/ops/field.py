@@ -1,4 +1,6 @@
-"""Field layout, codecs and plain torch arithmetic mod p = 2^255 - 19.
+"""Field layout, codecs, plain torch arithmetic mod p and mod l, and
+``LimbField`` (the JAX package's ``ops/field.py`` API: ``FQ`` mod l, ``FP``
+mod p) on the port's words.
 
 Boundary layout.  A batch of points is an ``(n, 4, 8)`` int32 tensor: the
 X, Y, Z, T coordinates as eight little-endian 32-bit words each.  That is
@@ -25,6 +27,14 @@ The overflow argument (2^256 == 38 mod p):
   before a multiply (F = C + G in the doubling: < 2^21), inside the 2^22
   that ``mul`` takes.  ``neg`` carries its result back below 2^17, since
   a negated coordinate is later subtracted.
+
+``LimbField`` (the end of this module) holds elements as ``(..., 8)``
+int32 words, canonical, on one device.  Its ``mul`` / ``square`` are the
+``mul_fq`` / ``mul_fp`` kernels (``ops/cuda_curve.py``); everything else is
+plain torch mod-m arithmetic over 32-bit word limbs in int64, which the
+JAX package leaves to XLA outside any kernel.  The plain version of
+``mul_fq`` is :func:`mul_mod_plain`, the kernel's Barrett reduction;
+that of ``mul_fp`` is :func:`mul` above.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ import numpy as np
 import torch
 
 from ..core.ristretto import RistrettoPoint
-from ..utils.constants import P
+from ..utils.constants import L, P
 
 NLIMBS = 16
 LIMB_BITS = 16
@@ -215,9 +225,252 @@ def from_jax_limbs(limbs: np.ndarray, device="cpu") -> torch.Tensor:
 
 
 def from_jax_chunk(chunk, device="cpu") -> torch.Tensor:
-    """One (92, 8, 256) JAX point chunk (2048 points, point-major within
-    the flattened 8 x 256 lattice) -> (2048, 4, 8) canonical words."""
+    """One (92, 8, lanes) JAX point block (8 * lanes points, point-major
+    within the flattened 8 x lanes lattice; a 2048-point chunk at 256
+    lanes) -> (8 * lanes, 4, 8) canonical words."""
     a = np.asarray(chunk)
     rows, npts = a.shape[0], a.shape[1] * a.shape[2]
     flat = a.reshape(rows, npts).T.reshape(npts, 4, JAX_STORE)
     return from_jax_limbs(flat, device)
+
+
+# ------------------------------------------------ plain mod-m arithmetic
+# Word limbs: 32-bit words held in int64.  Products are taken in radix
+# 2^16 (16-bit limb products stay below 2^32, a column of at most 18 of
+# them below 2^37) and their columns paired back into words (< 2^54)
+# before the sequential carries.
+_WMASK = 0xFFFFFFFF
+_conv_idx: dict = {}
+
+
+def _u(w: torch.Tensor) -> torch.Tensor:
+    """(..., k) int32 words -> int64 values in [0, 2^32)."""
+    return w.to(torch.int64) & _WMASK
+
+
+def _norm32(x: torch.Tensor) -> torch.Tensor:
+    """Sequential carries over the last axis of word limbs: every limb
+    but the last in [0, 2^32), the last keeps the rest (signed)."""
+    x = x.clone()
+    for i in range(x.shape[-1] - 1):
+        x[..., i + 1] += x[..., i] >> 32
+        x[..., i] &= _WMASK
+    return x
+
+
+def _i32(u: torch.Tensor) -> torch.Tensor:
+    """Exact words in [0, 2^32) -> int32 (two's complement)."""
+    return (u - ((u >> 31) << 32)).to(torch.int32)
+
+
+def _halves(u: torch.Tensor) -> torch.Tensor:
+    """(..., k) exact words -> (..., 2k) radix-2^16 limbs."""
+    return torch.stack([u & MASK, u >> LIMB_BITS], dim=-1).flatten(-2)
+
+
+def _mul_words(a: torch.Tensor, b: torch.Tensor, nwords: int) -> torch.Tensor:
+    """Exact words (..., i), (..., j) -> the product's first `nwords` word
+    columns (int64, not carried): one outer product of 16-bit limbs, its
+    diagonals summed, pairs of columns joined."""
+    la, lb = _halves(a), _halves(b)
+    n, m = la.shape[-1], lb.shape[-1]
+    key = (n, m, str(a.device))
+    idx = _conv_idx.get(key)
+    if idx is None:
+        i = torch.arange(n, device=a.device)
+        j = torch.arange(m, device=a.device)
+        idx = (i[:, None] + j[None, :]).reshape(-1)
+        _conv_idx[key] = idx
+    prod = (la.unsqueeze(-1) * lb.unsqueeze(-2)).flatten(-2)
+    cols = torch.zeros(prod.shape[:-1] + (2 * nwords + n + m,),
+                       dtype=torch.int64, device=a.device)
+    cols.index_add_(-1, idx, prod)
+    cols = cols[..., : 2 * nwords]
+    return cols[..., 0::2] + (cols[..., 1::2] << LIMB_BITS)
+
+
+def _int_words(x: int, n: int, device) -> torch.Tensor:
+    return torch.tensor([(x >> (32 * i)) & _WMASK for i in range(n)],
+                        dtype=torch.int64, device=device)
+
+
+def mul_mod_plain(a: torch.Tensor, b: torch.Tensor, modulus: int
+                  ) -> torch.Tensor:
+    """(..., 8) int32 words, any values below 2^256 -> a * b mod `modulus`
+    as canonical words, for a modulus of 225..256 bits: the mul_fq
+    kernel's reduction, Barrett's with base 2^32 and k = 8 words (Handbook
+    of Applied Cryptography 14.42): q3 = floor(floor(x / 2^224) * mu /
+    2^288), r = (x - q3 * m) mod 2^288 < 3m, then at most two subtractions
+    of m."""
+    assert 1 << 224 <= modulus < 1 << 256
+    dev = a.device
+    mu = _int_words((1 << 512) // modulus, 9, dev)
+    m9 = _int_words(modulus, 9, dev)
+    x = _norm32(_mul_words(_u(a), _u(b), 16))
+    q2 = _norm32(_mul_words(x[..., 7:16], mu, 18))
+    r = _norm32(x[..., :9] - _mul_words(q2[..., 9:18], m9, 9))
+    r[..., 8] &= _WMASK  # mod 2^288: r is in [0, 3m)
+    cand = _norm32(torch.stack([r - 2 * m9, r - m9, r]))
+    ok = cand[..., 8] >= 0
+    out = torch.where(ok[0, ..., None], cand[0],
+                      torch.where(ok[1, ..., None], cand[1], cand[2]))
+    return _i32(out[..., :8])
+
+
+def _pad_limbs(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad (or cut) the last axis to n limbs."""
+    k = x.shape[-1]
+    if k >= n:
+        return x[..., :n]
+    return torch.nn.functional.pad(x, (0, n - k))
+
+
+class LimbField:
+    """Arithmetic mod ``modulus`` on ``(..., 8)`` int32 words, the
+    canonical residue of each element, on the elements' device (the JAX
+    package's ``LimbField``, ``ops/field.py:106``, on lazy balanced
+    12-bit limbs).  ``mul`` and ``square`` launch ``kernel`` (``mul_fq``
+    or ``mul_fp``) on a CUDA tensor and run its plain version on a CPU
+    one; the rest is plain torch.  Constructors take an explicit device,
+    the card by default."""
+
+    def __init__(self, modulus: int, kernel: str):
+        self.modulus = modulus
+        self.kernel = kernel
+        bl = modulus.bit_length()
+        # quotient estimates value >> qshift stay within one of the true
+        # quotient: l lies just above 2^252, p just below 2^255
+        if modulus - (1 << (bl - 1)) < 1 << (bl - 64):
+            self._qshift = bl - 1
+        else:
+            assert (1 << bl) - modulus < 1 << (bl - 64)
+            self._qshift = bl
+        assert 224 <= self._qshift <= 256
+        self._mwords = [(modulus >> (32 * i)) & _WMASK for i in range(8)]
+        self._consts: dict = {}
+
+    def _m9(self, device) -> torch.Tensor:
+        key = ("m9", str(device))
+        got = self._consts.get(key)
+        if got is None:
+            got = torch.tensor(self._mwords + [0], dtype=torch.int64,
+                               device=device)
+            self._consts[key] = got
+        return got
+
+    # -- codecs -------------------------------------------------------------
+    def to_device(self, xs, device="cuda") -> torch.Tensor:
+        """Python ints -> (len, 8) words mod the modulus on `device`."""
+        w = ints_to_words([int(x) % self.modulus for x in xs])
+        return torch.from_numpy(w.copy()).to(device)
+
+    def to_ints(self, a: torch.Tensor) -> list[int]:
+        flat = a.detach().reshape(-1, 8).cpu().numpy()
+        return [x % self.modulus for x in words_to_ints(flat)]
+
+    def constant(self, x: int, device="cuda") -> torch.Tensor:
+        return self.to_device([x], device)[0]
+
+    def zeros(self, shape, device="cuda") -> torch.Tensor:
+        return torch.zeros(tuple(shape) + (8,), dtype=torch.int32,
+                           device=device)
+
+    # -- reduction ----------------------------------------------------------
+    def _fix(self, t: torch.Tensor) -> torch.Tensor:
+        """(..., 9) word limbs of a value in [-m, 2m) -> canonical words:
+        the one of t - m, t, t + m that lies in [0, m)."""
+        m9 = self._m9(t.device)
+        cand = _norm32(torch.stack([t - m9, t, t + m9]))
+        ok = cand[..., 8] >= 0
+        out = torch.where(ok[0, ..., None], cand[0],
+                          torch.where(ok[1, ..., None], cand[1], cand[2]))
+        return _i32(out[..., :8])
+
+    def _reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., 9) non-negative word limbs, value below 2^(qshift + 20)
+        -> canonical words: subtract the estimated quotient's multiple
+        (off by at most one), then :meth:`_fix`."""
+        x = _norm32(x)
+        s = self._qshift - 224
+        q = (x[..., 7] >> s) | (x[..., 8] << (32 - s)) if s < 32 else x[..., 8]
+        return self._fix(x - q[..., None] * self._m9(x.device))
+
+    def canonicalize(self, a: torch.Tensor) -> torch.Tensor:
+        """Any words below 2^256 -> the canonical residue (elements are
+        canonical already, so this is the identity on them)."""
+        return self._reduce(_pad_limbs(_u(a), 9))
+
+    # -- ring ops -----------------------------------------------------------
+    def add(self, a, b):
+        return self._fix(_pad_limbs(_u(a) + _u(b), 9))
+
+    def sub(self, a, b):
+        return self._fix(_pad_limbs(_u(a) - _u(b), 9))
+
+    def neg(self, a):
+        return self._fix(_pad_limbs(-_u(a), 9))
+
+    def sum(self, a, dim: int):
+        """Sum mod m of the elements along `dim` (not the word axis)."""
+        return self._reduce(_pad_limbs(_u(a).sum(dim=dim), 9))
+
+    def mul(self, a, b):
+        from . import cuda_curve as cc
+
+        kern = cc.mul_fq if self.kernel == "fq" else cc.mul_fp
+        a, b = torch.broadcast_tensors(a, b)
+        shape = a.shape
+        out = kern(a.reshape(-1, 8).contiguous(), b.reshape(-1, 8).contiguous())
+        return out.reshape(shape)
+
+    def square(self, a):
+        return self.mul(a, a)
+
+    def scale_small(self, a, k: int):
+        """Multiply by a small integer constant |k| < 2^15."""
+        assert abs(k) < 1 << 15
+        out = self._reduce(_pad_limbs(_u(a) * abs(k), 9))
+        return self.neg(out) if k < 0 else out
+
+    # -- powers -------------------------------------------------------------
+    def pow_const(self, a, e: int):
+        """a^e for a host-known exponent, square-and-multiply from the top
+        bit (one kernel launch per square and per set bit)."""
+        if e == 0:
+            return self.constant(1, a.device).expand(a.shape).clone()
+        bits = bin(e)[3:]
+        acc = a
+        for bit in bits:
+            acc = self.square(acc)
+            if bit == "1":
+                acc = self.mul(acc, a)
+        return acc
+
+    def inv(self, a):
+        """Fermat inverse; inv(0) == 0 (dalek semantics)."""
+        return self.pow_const(a, self.modulus - 2)
+
+    def batch_inv(self, a):
+        """The Fermat inverse of every element (as the JAX package: one
+        branch-free exponentiation over the whole batch)."""
+        return self.inv(a)
+
+    def select(self, cond, a, b):
+        c = cond
+        while c.ndim < a.ndim:
+            c = c[..., None]
+        return torch.where(c, a, b)
+
+    def to_bits(self, a, nbits: int = 253) -> torch.Tensor:
+        """Canonical LSB-first bit matrix (..., nbits) int32."""
+        u = _u(self.canonicalize(a))
+        pos = torch.arange(nbits, device=a.device)
+        return ((u[..., pos // 32] >> (pos % 32)) & 1).to(torch.int32)
+
+    def eq(self, a, b) -> torch.Tensor:
+        return (self.canonicalize(a) == self.canonicalize(b)).all(dim=-1)
+
+
+# Scalar field Z/l and curve base field Z/p (ops/field.py:307-309 there).
+FQ = LimbField(L, "fq")
+FP = LimbField(P, "fp")

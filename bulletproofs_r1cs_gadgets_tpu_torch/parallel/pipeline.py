@@ -1,0 +1,63 @@
+"""The proving pipeline's single-device step (the JAX package's
+``parallel/pipeline.py``; its ``make_sharded_step`` waits for the port of
+``parallel/sharded_backend.py``).
+
+``proving_step`` is the computational heart of batched proving over the
+real flagship primitives:
+
+* witness transform: a batched Poseidon Merkle-path recompute (width 6,
+  rounds 4+140+4: the VSMT-2 hash geometry of ``models/vsmt2.py``) that
+  folds each proof's leaf up its path with ``DevicePoseidon.hash_2``, with
+  the cube S-box as in the reference (the proving stack itself runs the
+  inverse S-box end to end);
+* partial MSM: a commitment partial, the ``smul_lanes`` ladder per point
+  and a ``padd`` halving tree.
+
+``__graft_entry__.entry`` returns the JAX package's version of this step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..gadgets.poseidon_params import PoseidonParams
+from ..ops.curve import scalar_mul_bits, tree_reduce
+from ..ops.poseidon import DevicePoseidon
+
+_HASHERS: dict = {}
+
+
+def flagship_hasher(device="cuda") -> DevicePoseidon:
+    """The VSMT-2 hash geometry (width 6, rounds 4+140+4) with the cube
+    S-box as a batched device permutation; built once per device."""
+    key = str(torch.device(device))
+    got = _HASHERS.get(key)
+    if got is None:
+        got = DevicePoseidon(PoseidonParams(6, 4, 4, 140), sbox="cube",
+                             device=device)
+        _HASHERS[key] = got
+    return got
+
+
+def witness_transform(witness: torch.Tensor) -> torch.Tensor:
+    """Batched Merkle-path recompute: (B, W, 8) FQ words, per proof lane 0
+    the leaf and lanes 1..W-1 the path nodes, folded with the Poseidon 2:1
+    hash acc <- H(acc, node_i).  Returns (B, 8) root digests
+    (models/vsmt2.py:35-158)."""
+    h = flagship_hasher(witness.device)
+    acc = witness[:, 0]
+    for i in range(1, witness.shape[1]):
+        acc = h.hash_2(acc, witness[:, i])
+    return acc
+
+
+def partial_msm(points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """(N, 4, 8) x (N, nbits) LSB-first bits -> (4, 8) partial commitment."""
+    return tree_reduce(scalar_mul_bits(points, bits))
+
+
+def proving_step(witness, points, bits):
+    """Single-device step: (digests (B, 8), commitment (4, 8))."""
+    digest = witness_transform(witness)
+    commitment = partial_msm(points, bits)
+    return digest, commitment

@@ -134,7 +134,7 @@ class ShardedWalkMsm:
         limbs = F.words_to_limbs(torch.cat([p.to(home) for p in parts]))
         tot = limbs[0:1]
         for i in range(1, self.n_shards):
-            tot = C.point_add(tot, limbs[i : i + 1])
+            tot = C.point_add_limbs(tot, limbs[i : i + 1])
         return F.limbs_to_words(tot)
 
     def msm(self, points, words: torch.Tensor, valid_chunks: int

@@ -10,7 +10,9 @@ and on the reference's route flags) and a batch of eight proved through
 ``TorchBackend("cuda")``, the reference's equivalence gate (one depth-8
 proof down every route), and the multi-device layer and the stream
 (depth-253 proofs placed over the cards, the sharded walk at 2^18, a
-stream of twelve), and checks every kernel on the way.
+stream of twelve), and the device-oracle path (``DeviceBackend``,
+``proving_step``, the batched generator derivation, ``MsmEngine``), and
+checks every kernel on the way.
 Phases, each printing one line with its wall time (any failure exits
 non-zero and prints no result):
 
@@ -39,8 +41,15 @@ non-zero and prints no result):
    the shared generators at phase 1's 143,704 points, msm_grid over
    143,704 generators at offset 0 and 2048; msm_grid_local over one
    phase-8 shard, 32 chunks = 65,536 generators, at 32, 7 and 0 valid
-   chunks), and on a subset against the host MSM or scalar
-   multiplication.  Tolerance: exact (equal points, equal table words).
+   chunks; the device-oracle path's kernels: padd / pdbl over 2^18
+   points, smul_lanes over 2^14 points x 253 bits, msm_block_totals over
+   2^16 + 1000 points (a ragged last block), msm_chunk_acc over 143,704
+   points with a nonzero acc, fold_grid from 2^18 into 2^17 with per-lane
+   words (the edge scalars 0, 1, L - 1) and with constant rows, mul_fq /
+   mul_fp over 2^20 elements with the edges 0, 1, m - 1, 2^256 - 1, each
+   word for word), and on a subset against the host MSM, scalar
+   multiplication or Python ints.  Tolerance: exact (equal points, equal
+   table words; equal words for the device-oracle kernels).
 3. a VSMT-2 depth-4 proof through the port (padded to 4096: round 1
    folds with fold_c), byte-identical to the host
    path with the same prover randomness, its digest equal to the JAX
@@ -100,11 +109,27 @@ non-zero and prints no result):
    the same provers, restored, through ``prove_provers``, the report (proofs/s, group times, peak device
    memory), and a short ``keep=False`` run whose ``on_result`` indices
    and bytes match.
+10. the device-oracle path (the JAX package's XLA oracle modules, on the
+   kernels of ``csrc/oracle.cu``), each part timed: (a) phase 4's
+   depth-253 prover, restored, through ``DeviceBackend("cuda")``:
+   byte-identical to phase 4's ``TorchBackend`` proof, verified through
+   ``DeviceBackend``, a tampered copy rejected; (b) ``proving_step`` at
+   B = 8 proofs x W = 254 (a leaf and a depth-253 path each, the cube
+   Poseidon 2:1 hash) and 2^16 points x 253 bits: each digest equal to the
+   host Poseidon chain, the commitment to the host MSM (the C++
+   ``NativeBackend``); (c) party 0's 2^18 G generators from their
+   SHAKE-256 seeds (``uniform_bytes_to_device``, the batched
+   ``from_uniform_bytes``), equal as Ristretto points to
+   ``BulletproofGens``' G (the products on the card by ``FP.mul``); (d)
+   ``MsmEngine.msm`` at 2^16 against the host MSM and
+   ``scalar_mul_shared`` over 2^14 points against host scalar
+   multiplication.  Each part must launch its kernels.
 
 Each path's launch counts are set to 0 just before it and read just
 after.  The third line from the end is the card's nvidia-smi name and
 power limit, the line before the last holds the per-kernel JSON record
-(``launches`` summed over phases 4 (both parts), 5, 6, 7, 8 and 9;
+(``launches`` summed over phases 4 (both parts), 5, 6, 7, 8, 9 and 10,
+every kernel at least once;
 ``bound_ms``
 the larger of the work's 32-bit multiplies over the card's multiply rate
 and its bytes over 3.35 TB/s, counted from this run's inputs;
@@ -126,6 +151,7 @@ PKG = "bulletproofs_r1cs_gadgets_tpu_torch"
 _W4 = f"{PKG}/csrc/msm_fold.cu"
 _WIN = f"{PKG}/csrc/win.cu"
 _W3H = f"{PKG}/csrc/fold_w3h.cu"
+_OR = f"{PKG}/csrc/oracle.cu"
 SOURCES = {
     "msm_w4": _W4, "msm_w4_pair": _W4, "fold_bits": _W4, "msm_lane": _W4,
     "table_w5": _WIN, "msm_win5": _WIN, "table_w4": _WIN,
@@ -133,6 +159,8 @@ SOURCES = {
     "fold_c": _W4, "fold_c_comb": _W4, "msm_win": _WIN,
     "msm_grid": _W4,  # launches msm_w4's kernel over a view
     "msm_grid_local": _W4,  # msm_w4's kernel over one shard's live prefix
+    "padd": _OR, "pdbl": _OR, "smul_lanes": _OR, "msm_block_totals": _OR,
+    "msm_chunk_acc": _OR, "fold_grid": _OR, "mul_fp": _OR, "mul_fq": _OR,
 }
 _PC = "bulletproofs_r1cs_gadgets_tpu/ops/pallas_curve.py"
 REPLACES = {
@@ -151,10 +179,21 @@ REPLACES = {
     "msm_win": f"{_PC}:1156",
     "msm_grid": f"{_PC}:438",
     "msm_grid_local": f"{_PC}:487",
+    "padd": f"{_PC}:176",
+    "pdbl": f"{_PC}:190",
+    "smul_lanes": f"{_PC}:1519",
+    "msm_block_totals": f"{_PC}:252",
+    "msm_chunk_acc": f"{_PC}:279",
+    "fold_grid": f"{_PC}:865",
+    "mul_fp": "bulletproofs_r1cs_gadgets_tpu/ops/pallas_field.py:201",
+    "mul_fq": "bulletproofs_r1cs_gadgets_tpu/ops/pallas_field.py:200",
 }
 # the kernels the route flags add (ported in the same slice): every one
 # must launch in phase 6 and on the full-width routes
 FLAG_KERNELS = ("fold_c", "fold_c_comb", "msm_win", "msm_grid")
+# the device-oracle path's kernels (phase 10; TorchBackend launches none)
+ORACLE_KERNELS = ("padd", "pdbl", "smul_lanes", "msm_block_totals",
+                  "msm_chunk_acc", "fold_grid", "mul_fp", "mul_fq")
 KERNELS = tuple(REPLACES)
 GOLDEN = os.path.join(ROOT, PKG, "golden", "vsmt2_depth4.json")
 SEED = 20261016
@@ -171,6 +210,8 @@ COMB_N = (1 << 16, 2048)  # msm_win_pair: IPP rounds 2 and 7 (side n)
 SHARDS, SHARD_CHUNKS = 4, 32  # phase 8: 4 shards x 32 chunks = 2^18 points
 PLACED = 4  # depth-253 provers placed over the devices in phase 7
 STREAM = 12  # depth-253 provers streamed in phase 9
+ORACLE_B, ORACLE_W = 8, 254  # phase 10 (b): proofs x (leaf + 253 nodes)
+ORACLE_MSM_N = 1 << 16  # phase 10 (b) points, (d) MsmEngine points
 # digits -16 in windows 0..49 and 1 in window 50
 ALL_MINUS_16 = (1 << 250) - 16 * ((1 << 250) - 1) // 31
 # The reference's seven route combos of its equivalence gate
@@ -623,6 +664,7 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
     records.update(phase_kernels_flags(bp, torch, cc, F, gens, dev, rng))
     records["msm_grid_local"] = phase_kernel_grid_local(bp, torch, cc, F,
                                                         gens, dev, rng)
+    records.update(phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng))
     for name, r in records.items():
         r["library_ms"] = None  # no PyTorch call computes these functions
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
@@ -1324,9 +1366,9 @@ def phase_full(bp, torch, cc, gens, params, tree):
     log(f"  launches {out['launches']}")
     for name, count in out["launches"].items():  # the default route's
         assert count > 0 or name in ("msm_lane", "msm_grid_local") \
-            or name in FLAG_KERNELS, \
+            or name in FLAG_KERNELS or name in ORACLE_KERNELS, \
             f"kernel {name} was not launched on the single-proof path"
-    out["routes"], out["route_launches"] = phase_full_routes(
+    out["routes"], out["route_launches"], route_bytes = phase_full_routes(
         bp, torch, cc, gens, comp, tape, comms, prover, snap
     )
 
@@ -1347,6 +1389,7 @@ def phase_full(bp, torch, cc, gens, params, tree):
         raise AssertionError("proof verified against a wrong root")
     backend.evict_gens()
     out["case"] = (comp, tape, comms, prover, proof)  # for phase 8
+    out["oracle_case"] = (snap, route_bytes)  # for phase 10
     return out
 
 
@@ -1370,7 +1413,7 @@ def phase_full_routes(bp, torch, cc, gens, comp, tape, comms, prover, snap):
     the verifier runs on the two routes whose verifier differs (winmsm
     off: msm_grid; w5 off: msm_win over table_w4).  Each route's launches
     must hold route_kernels.  Returns the times and the launch counts of
-    these proofs and verifies."""
+    these proofs and verifies, and the proof bytes (prover rng SEED)."""
     import contextlib
 
     import numpy as np
@@ -1405,7 +1448,7 @@ def phase_full_routes(bp, torch, cc, gens, comp, tape, comms, prover, snap):
     launches = dict(cc.LAUNCHES)
     for name in FLAG_KERNELS:
         assert launches[name] > 0, f"kernel {name} not launched on a route"
-    return times, launches
+    return times, launches, want
 
 
 def phase_batch(bp, torch, cc, gens, params, tree):
@@ -1878,6 +1921,332 @@ def phase_stream(bp, torch, cc, gens, params, tree, circuit):
     return out
 
 
+# ---- the device-oracle path's kernels (phase 2) and the path (phase 10)
+ORACLE_PTS = 1 << 18  # padd / pdbl points
+SMUL_N = 1 << 14  # smul_lanes points (x 253 bits)
+TOTALS_N = (1 << 16) + 1000  # msm_block_totals: 33 blocks, the last ragged
+FIELD_N = 1 << 20  # mul_fq / mul_fp elements
+SC_PRODUCTS = 64 + 81 + 45  # mul_fq's 32 x 32 -> 64 products (Barrett)
+
+
+def exact_err(F, got, want, P) -> int:
+    """0 when the two tensors hold the same words; else the affine
+    difference of the first points that differ (never 0)."""
+    import torch
+
+    if torch.equal(got, want):
+        return 0
+    if got.dim() == 3:
+        return max(1, point_err(F, got, want, P))
+    return 1
+
+
+def bit_ladder_ops(words, count: int = 253) -> tuple[dict, int]:
+    """The bit ladder's work that the data needs: from each row's top set
+    bit, one doubling per later bit and one add per set bit after it."""
+    return ladder_ops(_codes(words, 1, count), 1)
+
+
+def fold_w2_ops(wl, wr) -> dict:
+    """fold_grid's work that the data needs: two table doublings per
+    output, from the top nonzero window of either scalar two doublings per
+    window, and one add per nonzero digit past the first."""
+    import numpy as np
+
+    codes = np.concatenate([_codes(wl, 2, 128), _codes(wr, 2, 128)], axis=1)
+    per_win = (_codes(wl, 2, 128) != 0) | (_codes(wr, 2, 128) != 0)
+    live = per_win.any(axis=1)
+    top = 127 - np.argmax(per_win[:, ::-1], axis=1)
+    return dict(
+        dbl=int(2 * top[live].sum() + 2 * len(wl)),
+        add=int(((codes != 0).sum(axis=1)[live] - 1).sum()),
+    )
+
+
+def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
+    """The device-oracle path's eight kernels at its shapes, each exactly
+    (equal words) against its plain version, and on subsets against the
+    host group law, MSM or Python ints: padd / pdbl over 2^18 points,
+    smul_lanes over 2^14 points x 253 bits, msm_block_totals over 2^16 +
+    1000 points (a ragged last block), msm_chunk_acc over 143,704 points
+    with a nonzero acc, fold_grid from 2^18 into 2^17 (per-lane words with
+    the edge scalars 0, 1, L - 1; then constant rows), mul_fq / mul_fp over
+    2^20 elements with the edges 0, 1, m - 1, 2^256 - 1."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
+
+    P, L = bp.P, bp.L
+    records = {}
+    G = F.from_raw(gens.G_raw(ORACLE_PTS), dev)
+    H = F.from_raw(gens.H_raw(ORACLE_PTS), dev)
+    hostG = F.to_points(G[:64])
+    hostH = F.to_points(H[:64])
+
+    def record(name, got, plain_fn, fn, reps, ops, nbytes):
+        plain, plain_ms = timed_once(torch, plain_fn)
+        err = exact_err(F, got, plain, P)
+        assert err == 0, f"{name} != plain (err {err})"
+        records[name] = dict(max_abs_err=err, ms=time_ms(torch, fn, reps),
+                             plain_ms=plain_ms, **bound(ops, nbytes))
+
+    # ---- padd / pdbl over 2^18 points
+    n = ORACLE_PTS
+    got = cc.padd(G, H)
+    assert F.to_points(got[:64]) == [a + b for a, b in zip(hostG, hostH)]
+    record("padd", got, lambda: cc.padd_plain(G, H), lambda: cc.padd(G, H), 20,
+           dict(add=n), 3 * n * 128)
+    got = cc.pdbl(G)
+    assert F.to_points(got[:64]) == [a.double() for a in hostG]
+    record("pdbl", got, lambda: cc.pdbl_plain(G), lambda: cc.pdbl(G), 20,
+           dict(dbl=n), 2 * n * 128)
+
+    # ---- smul_lanes over 2^14 points x 253 bits
+    n = SMUL_N
+    rows = random_scalar_rows(bp, n, rng)
+    rows[:3] = bp.scvec.from_ints([0, 1, L - 1])
+    words = ck.bit_words(rows)
+    words[3] = np.frombuffer(((1 << 253) - 1).to_bytes(32, "little"), "<i4")
+    w = torch.from_numpy(words).to(dev)
+    pts = G[:n]
+    got = cc.smul_lanes(pts, w)
+    want = [p.scalar_mul(bp.Scalar(decode_bits(r) % L))
+            for p, r in zip(hostG[:16], words[:16])]
+    assert F.to_points(got[:16]) == want, "smul_lanes != host"
+    ops, _ = bit_ladder_ops(words)
+    record("smul_lanes", got, lambda: cc.smul_lanes_plain(pts, w),
+           lambda: cc.smul_lanes(pts, w), 5, ops, n * (2 * 128 + 32))
+
+    # ---- msm_block_totals over 2^16 + 1000 points: 33 blocks
+    n = TOTALS_N
+    rows = random_scalar_rows(bp, n, rng)
+    rows[:2] = bp.scvec.from_ints([0, L - 1])
+    rows[n - 300 : n - 200] = 0
+    words = ck.bit_words(rows)
+    w = torch.from_numpy(words).to(dev)
+    pts = G[:n]
+    got = cc.msm_block_totals(pts, w)
+    nb = -(-n // cc.BLOCK_PTS)
+    assert got.shape == (nb, 4, 8)
+    last = (nb - 1) * cc.BLOCK_PTS
+    host = bp.multiscalar_mul(bp.scvec.to_scalars(rows[last:]),
+                              F.to_points(pts[last:]))
+    assert F.to_points(got[-1:])[0] == host, "ragged block total != host MSM"
+    ops, live = bit_ladder_ops(words)
+    ops["add"] += nb * cc.BLOCK_PTS - nb  # block trees
+    record("msm_block_totals", got, lambda: cc.msm_block_totals_plain(pts, w),
+           lambda: cc.msm_block_totals(pts, w), 5, ops,
+           n * (128 + 32) + nb * 128)
+
+    # ---- msm_chunk_acc over 143,704 points, a nonzero acc
+    n = N1
+    rows = random_scalar_rows(bp, n, rng)
+    rows[:2] = bp.scvec.from_ints([0, L - 1])
+    words = ck.bit_words(rows)
+    w = torch.from_numpy(words).to(dev)
+    pts = G[:n]
+    acc = F.from_points([bp.PedersenGens.default().B], dev)
+    got = cc.msm_chunk_acc(pts, w, acc)
+    sub = cc.msm_chunk_acc(pts[:64], w[:64].contiguous(), acc)
+    host = bp.multiscalar_mul(bp.scvec.to_scalars(rows[:64]), hostG) \
+        + bp.PedersenGens.default().B
+    assert F.to_points(sub)[0] == host, "msm_chunk_acc != host MSM"
+    ops, live = bit_ladder_ops(words)
+    ops["add"] += n
+    record("msm_chunk_acc", got, lambda: cc.msm_chunk_acc_plain(pts, w, acc),
+           lambda: cc.msm_chunk_acc(pts, w, acc), 5, ops, n * (128 + 32) + 256)
+
+    # ---- fold_grid from 2^18 into 2^17: per-lane words with edges, then
+    # the constants u^-1, u of a round as one row each
+    v = ORACLE_PTS // 2
+    sl = random_scalar_rows(bp, v, rng)
+    sr = random_scalar_rows(bp, v, rng)
+    sl[:3] = bp.scvec.from_ints([0, 1, L - 1])
+    sr[:3] = bp.scvec.from_ints([0, L - 1, 1])
+    wl, wr = ck.w2_words(sl, dev), ck.w2_words(sr, dev)
+    got = cc.fold_grid(G, wl, wr, v)
+    hostR = F.to_points(G[v : v + 8])
+    want = [a.scalar_mul(x) + b.scalar_mul(y) for a, b, x, y in zip(
+        hostG[:8], hostR, bp.scvec.to_scalars(sl[:8]),
+        bp.scvec.to_scalars(sr[:8]))]
+    assert F.to_points(got[:8]) == want, "fold_grid != host"
+    record("fold_grid", got, lambda: cc.fold_grid_plain(G, wl, wr, v),
+           lambda: cc.fold_grid(G, wl, wr, v), 5,
+           fold_w2_ops(wl.cpu().numpy(), wr.cpu().numpy()),
+           v * (3 * 128 + 2 * 32))
+    u = bp.scvec.to_scalars(sr[5:6])[0]
+    cu, ci = ck.const_grid_words(u, dev), ck.const_grid_words(u.invert(), dev)
+    got = cc.fold_grid(G, ci, cu, v)
+    plain, const_plain_ms = timed_once(
+        torch, lambda: cc.fold_grid_plain(G, ci, cu, v))
+    assert exact_err(F, got, plain, P) == 0, "constant fold_grid != plain"
+    want = [a.scalar_mul(u.invert()) + b.scalar_mul(u)
+            for a, b in zip(hostG[:8], hostR)]
+    assert F.to_points(got[:8]) == want, "constant fold_grid != host"
+    for c0, c1 in ((0, 1), (1, L - 1)):  # edge constants on 2048 outputs
+        e0 = ck.const_grid_words(bp.Scalar(c0), dev)
+        e1 = ck.const_grid_words(bp.Scalar(c1), dev)
+        sub = G[: 2 * FOLD_M].contiguous()
+        assert torch.equal(cc.fold_grid(sub, e0, e1, FOLD_M),
+                           cc.fold_grid_plain(sub, e0, e1, FOLD_M))
+    records["fold_grid"]["const_ms"] = time_ms(
+        torch, lambda: cc.fold_grid(G, ci, cu, v), 5)
+    records["fold_grid"]["const_plain_ms"] = const_plain_ms
+
+    # ---- mul_fq / mul_fp over 2^20 elements with edges
+    n = FIELD_N
+    for name, m, kern, plain_fn, prods in (
+            ("mul_fq", L, cc.mul_fq, cc.mul_fq_plain, SC_PRODUCTS),
+            ("mul_fp", P, cc.mul_fp, cc.mul_fp_plain, 73)):
+        raw = np.frombuffer(rng.bytes(64 * n), dtype="<i4").reshape(2, n, 8)
+        edge = F.ints_to_words([0, 1, m - 1, (1 << 256) - 1])
+        a_np, b_np = raw[0].copy(), raw[1].copy()
+        a_np[:4], b_np[:4] = edge, edge[::-1]
+        a_np[4:8], b_np[4:8] = edge, edge
+        a = torch.from_numpy(a_np).to(dev)
+        b = torch.from_numpy(b_np).to(dev)
+        got = kern(a, b)
+        xs, ys = F.words_to_ints(a_np[:64]), F.words_to_ints(b_np[:64])
+        assert F.words_to_ints(got[:64].cpu().numpy()) == [
+            x * y % m for x, y in zip(xs, ys)], f"{name} != Python ints"
+        plain, plain_ms = timed_once(torch, lambda: plain_fn(a, b))
+        assert torch.equal(got, plain), f"{name} != plain"
+        records[name] = dict(
+            max_abs_err=0, ms=time_ms(torch, lambda: kern(a, b), 20),
+            plain_ms=plain_ms,
+            **bound(dict(fe=n * prods / 73), 3 * 32 * n),
+        )
+    return records
+
+
+def phase_oracle(bp, torch, cc, F, gens, full, dev):
+    """Phase 10, the device-oracle path at full width: (a) the depth-253
+    proof through DeviceBackend("cuda"), (b) proving_step at B = 8,
+    W = 254, N = 2^16 x 253 bits, (c) from_uniform_bytes over party 0's
+    2^18 G seeds, (d) MsmEngine.msm at 2^16 and scalar_mul_shared over
+    2^14 points.  Each part's launches are counted from 0 and its wall time
+    recorded."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.core.pedersen import (
+        GeneratorsChain,
+        _chain_label,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.poseidon import (
+        Poseidon_hash_2,
+        SboxType,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import curve as C
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.field import FP, FQ
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.msm import MsmEngine
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import (
+        NativeBackend,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.parallel import pipeline
+
+    rng = np.random.RandomState(SEED + 10)
+    out, launches = {}, dict.fromkeys(cc.LAUNCHES, 0)
+
+    def part(tag, need):
+        ran = dict(cc.LAUNCHES)
+        for k in launches:
+            launches[k] += ran[k]
+        missing = [k for k in need if not ran[k]]
+        assert not missing, f"phase 10 {tag}: {missing} not launched"
+        log(f"  ({tag}) launches { {k: v for k, v in ran.items() if v} }")
+
+    # (a) the depth-253 proof through DeviceBackend, phase 4's prover / rng
+    comp, tape, comms, prover, _ = full["case"]
+    snap, want = full["oracle_case"]
+    backend = bp.DeviceBackend(dev)
+    cc.reset_launches()
+    prover.restore(snap)
+    prover.rng = np.random.RandomState(SEED)
+    proof, out["a_prove_ms"] = timed_once(
+        torch, lambda: prover.prove(gens, backend=backend))
+    assert proof.to_bytes() == want, \
+        "DeviceBackend proof differs from TorchBackend's"
+    _, out["a_verify_ms"] = timed_once(
+        torch, lambda: verify(bp, comp, tape, comms, proof, gens, backend))
+    part("a", ("msm_chunk_acc", "fold_grid"))
+    try:
+        verify(bp, comp, tape, comms, tampered(bp, proof), gens, backend)
+    except bp.VerificationError:
+        pass
+    else:
+        raise AssertionError("DeviceBackend accepted a tampered proof")
+    log(f"  (a) DeviceBackend depth-253 proof byte-identical to TorchBackend's,"
+        f" prove {out['a_prove_ms']:.1f} ms, verify {out['a_verify_ms']:.1f} "
+        f"ms; tampered copy rejected")
+
+    # (b) proving_step: B proofs of a depth-253 path each, N points
+    B, W, N = ORACLE_B, ORACLE_W, ORACLE_MSM_N
+    vals = [[int.from_bytes(rng.bytes(32), "little") % bp.L for _ in range(W)]
+            for _ in range(B)]
+    witness = FQ.to_device([x for r in vals for x in r], dev).reshape(B, W, 8)
+    points = F.from_raw(gens.G_raw(N), dev)
+    rows = random_scalar_rows(bp, N, rng)
+    bitw = torch.from_numpy(
+        np.unpackbits(rows.view(np.uint8), axis=1, bitorder="little")[:, :253]
+        .astype(np.int32)).to(dev)
+    pipeline.flagship_hasher(dev)
+    cc.reset_launches()
+    (digest, commitment), out["b_step_ms"] = timed_once(
+        torch, lambda: pipeline.proving_step(witness, points, bitw))
+    part("b", ("smul_lanes", "padd", "mul_fq"))
+    params = pipeline.flagship_hasher(dev).params
+    exp = []
+    for r in vals:
+        acc = bp.Scalar(r[0])
+        for x in r[1:]:
+            acc = Poseidon_hash_2(acc, bp.Scalar(x), params, SboxType.Cube)
+        exp.append(acc.v)
+    assert FQ.to_ints(digest) == exp, "digests != host Poseidon chain"
+    host = NativeBackend().msm(rows, gens.G(N))
+    assert C.points_from_device(commitment)[0] == host, \
+        "commitment != host MSM"
+    log(f"  (b) proving_step B={B} W={W} N={N}: {out['b_step_ms']:.1f} ms; "
+        f"digests equal the host Poseidon chain, commitment the host MSM")
+
+    # (c) party 0's 2^18 G generators from their SHAKE-256 seeds
+    n = GENS_N
+    seeds = GeneratorsChain(_chain_label(b"G", 0)).uniform_bytes(n)
+    cc.reset_launches()
+    pts, out["c_derive_ms"] = timed_once(
+        torch, lambda: C.uniform_bytes_to_device(seeds, dev))
+    part("c", ("mul_fp", "padd"))
+    G = F.from_raw(gens.G_raw(n), dev)
+    X1, Y1, X2, Y2 = pts[:, 0], pts[:, 1], G[:, 0], G[:, 1]
+    same = ((FP.mul(X1, Y2) == FP.mul(Y1, X2)).all(-1)
+            | (FP.mul(X1, X2) == FP.mul(Y1, Y2)).all(-1))
+    assert bool(same.all()), \
+        f"{int((~same).sum())} derived points != BulletproofGens' G"
+    log(f"  (c) {n} generators derived in {out['c_derive_ms']:.1f} ms, equal "
+        f"to BulletproofGens({n})'s G")
+
+    # (d) MsmEngine.msm at 2^16 (bench.py stage 1), scalar_mul_shared
+    n = ORACLE_MSM_N
+    rows = random_scalar_rows(bp, n, rng)
+    eng = MsmEngine(dev)
+    hostG = gens.G(n)
+    eng.device_points(hostG)
+    cc.reset_launches()
+    got, out["d_msm_ms"] = timed_once(torch, lambda: eng.msm(rows, hostG))
+    k = int.from_bytes(rng.bytes(32), "little") % bp.L
+    pts = G[:SMUL_N]
+    shared, out["d_shared_ms"] = timed_once(
+        torch, lambda: C.scalar_mul_shared(pts, k))
+    part("d", ("msm_block_totals", "pdbl"))
+    assert got == NativeBackend().msm(rows, hostG), "MsmEngine.msm != host MSM"
+    assert C.points_from_device(shared[:32]) == [
+        p.scalar_mul(bp.Scalar(k)) for p in hostG[:32]
+    ], "scalar_mul_shared != host"
+    log(f"  (d) MsmEngine.msm {n} points {out['d_msm_ms']:.1f} ms, "
+        f"scalar_mul_shared {SMUL_N} points {out['d_shared_ms']:.1f} ms")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if sys.argv[1:] == ["--gate-host"]:
         os.nice(19)  # beside the card's phases: yield the host's cores
@@ -1930,9 +2299,11 @@ def main() -> int:
         sharded = phase_sharded(bp, torch, cc, F, gens, full["case"])
     with Phase("9 stream"):
         stream = phase_stream(bp, torch, cc, gens, params, tree, reuse[0])
+    with Phase("10 device-oracle path"):
+        oracle = phase_oracle(bp, torch, cc, F, gens, full, dev)
     runs = (full["launches"], full["route_launches"], batch["launches"],
             gate_launches, placed["launches"], sharded["launches"],
-            stream["launches"])
+            stream["launches"], oracle.pop("launches"))
     kernels = [
         dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -1942,14 +2313,18 @@ def main() -> int:
         )
         for name in KERNELS
     ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    assert not idle, f"kernels never launched on a path: {idle}"
     summary = {
         "single": {k: v for k, v in full.items()
-                   if k not in ("launches", "route_launches", "case")},
+                   if k not in ("launches", "route_launches", "case",
+                                "oracle_case")},
         "batch": {k: v for k, v in batch.items() if k != "launches"},
         "gate_ms": gate_times,
         "placed": {k: v for k, v in placed.items() if k != "launches"},
         "sharded": {k: v for k, v in sharded.items() if k != "launches"},
         "stream": {k: v for k, v in stream.items() if k != "launches"},
+        "oracle": oracle,
     }
     log("summary " + json.dumps(summary))
     print(card)

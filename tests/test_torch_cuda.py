@@ -91,7 +91,9 @@ def test_kernels_match_plain_on_card(cuda_device):
         "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
         "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
         "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
-        "msm_grid_local": 0,
+        "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
+        "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
+        "mul_fp": 0, "mul_fq": 0,
     }
 
 
@@ -124,7 +126,9 @@ def test_w5_and_lane_kernels_match_plain_on_card(cuda_device):
         "table_w5": 1, "msm_win5": 3, "msm_lane": 1,
         "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 0, "msm_win_pair": 0,
         "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
-        "msm_grid_local": 0,
+        "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
+        "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
+        "mul_fp": 0, "mul_fq": 0,
     }
 
 
@@ -155,7 +159,9 @@ def test_combined_layout_kernels_match_plain_on_card(cuda_device):
         "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
         "fold_w3h": 3, "fold_w3h_comb": 1, "table_w4": 2, "msm_win_pair": 2,
         "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
-        "msm_grid_local": 0,
+        "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
+        "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
+        "mul_fp": 0, "mul_fq": 0,
     }
 
 
@@ -194,7 +200,9 @@ def test_route_flag_kernels_match_plain_on_card(cuda_device):
         "table_w5": 0, "msm_win5": 0, "msm_lane": 0,
         "fold_w3h": 0, "fold_w3h_comb": 0, "table_w4": 1, "msm_win_pair": 0,
         "fold_c": 6, "fold_c_comb": 1, "msm_win": 2, "msm_grid": 1,
-        "msm_grid_local": 0,
+        "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
+        "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
+        "mul_fp": 0, "mul_fq": 0,
     }
 
 
@@ -340,6 +348,65 @@ def test_msm_grid_local_matches_plain_on_card(cuda_device):
         if valid == 0:
             assert F.to_points(got) == F.to_points(acc)
     assert cc.LAUNCHES["msm_grid_local"] - before == 3
+
+
+def test_oracle_kernels_match_plain_on_card(cuda_device):
+    """The device-oracle path's eight kernels at ragged sizes (n not a
+    multiple of 128 or 2048), each against its plain version on the same
+    CUDA tensors, word for word; one launch each."""
+    dev = cuda_device
+    n = 2048 + 45
+    pts = F.from_raw(BulletproofGens(2 * n).G_raw(2 * n), dev)
+    a, b = pts[:n], pts[n:]
+    rows = _scalar_rows(n, 120)
+    rows[5:9] = 0
+    words = torch.from_numpy(ck.bit_words(rows)).to(dev)
+    acc = F.from_points(_points(1, 121), dev)
+    before = dict(cc.LAUNCHES)
+    assert torch.equal(cc.padd(a, b), cc.padd_plain(a, b))
+    assert torch.equal(cc.pdbl(a), cc.pdbl_plain(a))
+    m = 300
+    assert torch.equal(cc.smul_lanes(a[:m], words[:m]),
+                       cc.smul_lanes_plain(a[:m], words[:m]))
+    assert torch.equal(cc.msm_block_totals(a, words),
+                       cc.msm_block_totals_plain(a, words))
+    assert torch.equal(cc.msm_chunk_acc(a, words, acc),
+                       cc.msm_chunk_acc_plain(a, words, acc))
+    v = 200
+    wl = ck.w2_words(_scalar_rows(v, 122), dev)
+    wr = ck.const_grid_words(Scalar(L - 1), dev)
+    assert torch.equal(cc.fold_grid(pts, wl, wr, v),
+                       cc.fold_grid_plain(pts, wl, wr, v))
+    x = F.ints_to_words([0, 1, L - 1, (1 << 256) - 1] * 64)
+    fa = torch.from_numpy(x.copy()).to(dev)
+    fb = fa.flip(0).contiguous()
+    assert torch.equal(cc.mul_fq(fa, fb), cc.mul_fq_plain(fa, fb))
+    assert torch.equal(cc.mul_fp(fa, fb), cc.mul_fp_plain(fa, fb))
+    ran = {k: cc.LAUNCHES[k] - before[k] for k in before}
+    assert {k: v for k, v in ran.items() if v} == {
+        "padd": 1, "pdbl": 1, "smul_lanes": 1, "msm_block_totals": 1,
+        "msm_chunk_acc": 1, "fold_grid": 1, "mul_fp": 1, "mul_fq": 1,
+    }
+
+
+def test_device_backend_on_card_matches_host(cuda_device):
+    """A proof through DeviceBackend("cuda", min_device_n=1): the host
+    engine's bytes, verified through it, a tampered copy rejected."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.backend import DeviceBackend
+
+    comms, ref = _prove(None)
+    backend = DeviceBackend(cuda_device, min_device_n=1)
+    before = dict(cc.LAUNCHES)
+    comms_d, got = _prove(backend)
+    assert comms_d == comms
+    assert got.to_bytes() == ref.to_bytes()
+    _verify(comms, got, backend)
+    raw = bytearray(got.to_bytes())
+    raw[len(raw) - 64] ^= 1
+    with pytest.raises(VerificationError):
+        _verify(comms, R1CSProof.from_bytes(bytes(raw)), backend)
+    for name in ("msm_chunk_acc", "fold_grid"):
+        assert cc.LAUNCHES[name] > before[name], name
 
 
 def test_sharded_walk_over_two_cards(two_cards):

@@ -91,8 +91,8 @@ def test_point_add_double_negate_match_ristretto():
     p, q = _rand_points(6, 4), list(reversed(_rand_points(6, 5)))
     tp = F.words_to_limbs(F.from_points(p))
     tq = F.words_to_limbs(F.from_points(q))
-    add = to_points(F.limbs_to_words(C.point_add(tp, tq)))
-    dbl = to_points(F.limbs_to_words(C.point_double(tp)))
+    add = to_points(F.limbs_to_words(C.point_add_limbs(tp, tq)))
+    dbl = to_points(F.limbs_to_words(C.point_double_limbs(tp)))
     mask = torch.tensor([i % 2 == 0 for i in range(len(p))])
     neg = to_points(F.limbs_to_words(C.point_negate(tp, mask)))
     for i in range(len(p)):
@@ -115,7 +115,7 @@ def test_select_and_block_reduce():
     assert total == want
     ident = C.identity(len(p), t.device)
     mask = torch.tensor([True, False, True, False, True, False])
-    sel = to_points(F.limbs_to_words(C.point_select(mask, t, ident)))
+    sel = to_points(F.limbs_to_words(C.point_select_limbs(mask, t, ident)))
     for i, pt in enumerate(sel):
         assert pt == (p[i] if mask[i] else RistrettoPoint.identity())
 

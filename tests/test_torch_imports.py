@@ -46,6 +46,14 @@ def test_port_imports_with_jax_blocked():
         "assert not hasattr(bp, 'NativeBackend')\n"
         "import bulletproofs_r1cs_gadgets_tpu_torch.ops.build\n"
         "import bulletproofs_r1cs_gadgets_tpu_torch.carry\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.ops.backend import "
+        "DeviceBackend\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.ops.field import FP, FQ\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.ops.msm import MsmEngine\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.ops.poseidon import "
+        "DevicePoseidon\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.parallel.pipeline import "
+        "proving_step\n"
         "import chip_smoke\n"
         "import chip_profile\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
@@ -115,6 +123,22 @@ def test_torch_backend_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TorchBackend("cuda:0")
     assert TorchBackend("cpu").device == torch.device("cpu")
+
+
+def test_device_backend_defaults_to_the_card():
+    """``DeviceBackend()`` runs on the card; without one it refuses rather
+    than fall back to the plain versions on the host.  Only an explicit
+    ``"cpu"`` gets the host."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.backend import DeviceBackend
+
+    if torch.cuda.is_available():
+        assert DeviceBackend().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DeviceBackend()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DeviceBackend("cuda:0")
+    assert DeviceBackend("cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_refuses_without_gpu():
