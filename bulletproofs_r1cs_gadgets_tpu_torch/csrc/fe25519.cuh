@@ -135,6 +135,144 @@ __device__ __forceinline__ fe fe_mul(const fe& a, const fe& b) {
 
 __device__ __forceinline__ fe fe_sq(const fe& a) { return fe_mul(a, a); }
 
+// ---- the carry-chain multiply and squaring (fe_mul_cc, fe_sq_cc): the
+// same values as fe_mul / fe_sq, each partial-product row one PTX carry
+// chain (mad.lo.cc / madc.lo.cc, then madc.hi.cc), so no 64-bit adds or
+// separate carry words.  One instruction per asm statement, as carry
+// chains are written in PTX libraries: the compiler places nothing that
+// writes the carry flag between the statements of one chain.  The window
+// walkers (win.cu) use them; the other kernels keep fe_mul.
+namespace ptx {
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t r;
+    asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t r;
+    asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t r;
+    asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t r;
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+// the last of a chain: takes the carry in, sets none
+__device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t r;
+    asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+    uint32_t r;
+    asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+    uint32_t r;
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+// the carry flag as a word (the last of a chain)
+__device__ __forceinline__ uint32_t carry() {
+    uint32_t r;
+    asm volatile("addc.u32 %0, 0, 0;" : "=r"(r));
+    return r;
+}
+}  // namespace ptx
+
+// t (16 words, < 2^512) -> [0, 2^256): low + 38 * high in two chains (the
+// top word < 40), then top * 38 folded in as fe_fold does.
+__device__ __forceinline__ fe fe_reduce_cc(const uint32_t t[16]) {
+    fe r;
+    r.w[0] = ptx::mad_lo_cc(t[8], 38u, t[0]);
+#pragma unroll
+    for (int i = 1; i < 8; ++i) r.w[i] = ptx::madc_lo_cc(t[8 + i], 38u, t[i]);
+    uint32_t top = ptx::carry();
+    r.w[1] = ptx::mad_hi_cc(t[8], 38u, r.w[1]);
+#pragma unroll
+    for (int i = 1; i < 7; ++i) r.w[i + 1] = ptx::madc_hi_cc(t[8 + i], 38u, r.w[i + 1]);
+    top = ptx::madc_hi(t[15], 38u, top);
+    r.w[0] = ptx::add_cc(r.w[0], top * 38u);
+#pragma unroll
+    for (int i = 1; i < 8; ++i) r.w[i] = ptx::addc_cc(r.w[i], 0u);
+    // a second wrap leaves r < 38 * 40, so this add cannot carry
+    r.w[0] += ptx::carry() * 38u;
+    return r;
+}
+
+// Row i adds a_i * b to t[i .. i + 8] (t[i + 8] fresh): the low halves in
+// one chain, its carry into t[i + 8], the high halves in a second chain
+// one word up.  The running sum stays below 2^(32 (i + 9)), so the last
+// high add cannot carry out.
+__device__ __forceinline__ fe fe_mul_cc(const fe& a, const fe& b) {
+    uint32_t t[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = a.w[0] * b.w[j];
+    t[1] = ptx::mad_hi_cc(a.w[0], b.w[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < 7; ++j) t[j + 1] = ptx::madc_hi_cc(a.w[0], b.w[j], t[j + 1]);
+    t[8] = ptx::madc_hi(a.w[0], b.w[7], 0u);
+#pragma unroll
+    for (int i = 1; i < 8; ++i) {
+        t[i] = ptx::mad_lo_cc(a.w[i], b.w[0], t[i]);
+#pragma unroll
+        for (int j = 1; j < 8; ++j) t[i + j] = ptx::madc_lo_cc(a.w[i], b.w[j], t[i + j]);
+        t[i + 8] = ptx::carry();
+        t[i + 1] = ptx::mad_hi_cc(a.w[i], b.w[0], t[i + 1]);
+#pragma unroll
+        for (int j = 1; j < 7; ++j) t[i + j + 1] = ptx::madc_hi_cc(a.w[i], b.w[j], t[i + j + 1]);
+        t[i + 8] = ptx::madc_hi(a.w[i], b.w[7], t[i + 8]);
+    }
+    return fe_reduce_cc(t);
+}
+
+// a^2 from 36 products: the 28 cross products a_i a_j (i < j) by rows as
+// in fe_mul_cc, doubled by a one-bit shift, then the 8 squares a_i^2 in
+// one chain.
+__device__ __forceinline__ fe fe_sq_cc(const fe& a) {
+    uint32_t t[16];
+    t[0] = 0u;
+#pragma unroll
+    for (int j = 1; j < 8; ++j) t[j] = a.w[0] * a.w[j];
+    t[2] = ptx::mad_hi_cc(a.w[0], a.w[1], t[2]);
+#pragma unroll
+    for (int j = 2; j < 7; ++j) t[j + 1] = ptx::madc_hi_cc(a.w[0], a.w[j], t[j + 1]);
+    t[8] = ptx::madc_hi(a.w[0], a.w[7], 0u);
+#pragma unroll
+    for (int i = 1; i < 6; ++i) {
+        t[2 * i + 1] = ptx::mad_lo_cc(a.w[i], a.w[i + 1], t[2 * i + 1]);
+#pragma unroll
+        for (int j = i + 2; j < 8; ++j) t[i + j] = ptx::madc_lo_cc(a.w[i], a.w[j], t[i + j]);
+        t[i + 8] = ptx::carry();
+        t[2 * i + 2] = ptx::mad_hi_cc(a.w[i], a.w[i + 1], t[2 * i + 2]);
+#pragma unroll
+        for (int j = i + 2; j < 7; ++j) t[i + j + 1] = ptx::madc_hi_cc(a.w[i], a.w[j], t[i + j + 1]);
+        t[i + 8] = ptx::madc_hi(a.w[i], a.w[7], t[i + 8]);
+    }
+    t[13] = ptx::mad_lo_cc(a.w[6], a.w[7], t[13]);
+    t[14] = ptx::carry() + __umulhi(a.w[6], a.w[7]);
+    t[15] = t[14] >> 31;
+#pragma unroll
+    for (int k = 14; k > 0; --k) t[k] = __funnelshift_l(t[k - 1], t[k], 1);
+    t[0] = ptx::mad_lo_cc(a.w[0], a.w[0], 0u);
+    t[1] = ptx::madc_hi_cc(a.w[0], a.w[0], t[1]);
+#pragma unroll
+    for (int i = 1; i < 7; ++i) {
+        t[2 * i] = ptx::madc_lo_cc(a.w[i], a.w[i], t[2 * i]);
+        t[2 * i + 1] = ptx::madc_hi_cc(a.w[i], a.w[i], t[2 * i + 1]);
+    }
+    t[14] = ptx::madc_lo_cc(a.w[7], a.w[7], t[14]);
+    t[15] = ptx::madc_hi(a.w[7], a.w[7], t[15]);
+    return fe_reduce_cc(t);
+}
+
 __device__ __forceinline__ fe fe_neg(const fe& a) { return fe_sub(fe_zero(), a); }
 
 __device__ __forceinline__ fe fe_d2() {

@@ -4,10 +4,10 @@
 // accumulator MSMs that walk them (msm_win5: one walk over a w5 table;
 // msm_win: one walk over a w4 table; msm_win_pair: a combined round's L
 // and R walks over a w4 table in one launch).  One kernel template each,
-// instantiated per digit width.  Plain
-// C entry points for ctypes (ops/build.py), with the conventions of
-// msm_fold.cu: launch on the caller's stream, never synchronise, allocate
-// nothing, return cudaGetLastError().
+// instantiated per digit width.  Plain C entry points for ctypes
+// (ops/build.py), with the conventions of msm_fold.cu: launch on the
+// caller's stream, never synchronise, allocate nothing, return
+// cudaGetLastError().
 //
 // Layouts (row-major, int32):
 //   points (n, 4, 8):       X, Y, Z, T, eight little-endian words each
@@ -18,25 +18,50 @@
 //   w4 words (m, 8):        64 signed base-16 digits d in [-8, 7] per
 //                           scalar, one per nibble (code d & 15)
 //
-// What bounds the walkers: integer multiplies (8 field multiplies per
-// niels add, one add per point and window) and, second, the table stream
-// (128 B per point per window).  Design: the TPU kernels walk windows in
-// order and fold each window's sum in by Horner; here a block owns ONE
-// window of ONE walk and WIN_PTS points (windows and walks run in
-// parallel, so no thread pays for doublings), each thread sums its
-// WIN_PPT selected entries, a block tree reduces them, a second launch
-// sums each window's partials, and a third folds each walk's window
-// totals by Horner (BITS doublings + 1 add per window, one thread per
-// walk) and adds the walk's chain.
+// What bounds the walkers on an H100: 32-bit integer multiplies (8 field
+// multiplies per niels add, one add per step and window), then the table
+// stream (128 B per step and window: 0.94 GB at 143,704 w5 steps, 0.28 ms
+// at 3.35 TB/s against 0.53 ms of multiplies).  Design, three launches:
+//  - pass 1 (msm_win_partials): a block owns one window of one walk and
+//    ppt * 128 steps.  The blocks per window come from the blocks the card
+//    holds at once (occupancy query, 3 an SM at 156 registers), so the
+//    pass runs in one wave, which sets ppt (161 steps a thread at 143,704
+//    w5 steps, 342 at a pair of 2^17-step w4 walks).  A thread keeps its
+//    sum in registers through inlined niels adds on the carry-chain
+//    multiply (fe_mul_cc; no stack frame, no spills) and loads the next
+//    entry during the current add; a shuffle tree in each warp, then one
+//    over the 4 warps, sums the block (7 full adds, ~5% of the work);
+//  - pass 2 (msm_win_windows): a warp per window sums its partials and
+//    stores the total in niels form;
+//  - pass 3 (msm_win_horner): a warp per walk folds the totals by Horner.
+//    Its BITS * (WINDOWS - 1) doublings are one dependent chain; each
+//    doubling or add is two stages of four independent operations, run on
+//    the lanes of a group and exchanged by __shfl_sync: the doubling's
+//    squares on one lane (fe_sq_cc), every multiply on two lanes
+//    (fe_mul_split), so a stage costs about one multiply's latency.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py / chip_profile.py
+// --walkers): msm_win5 at 143,704 steps 1.78 ms (passes 1.44 + Horner
+// 0.27) against 3.02 before this design; msm_win_pair at two 2^17-step
+// walks 3.22 ms against 5.39; the Horner tail 0.27-0.28 ms a launch
+// against 1.0.  Pass 1 runs at 2.7x its bound, held by the multiply's
+// instruction mix: ~320 instructions a field multiply (~165 on the
+// integer multiply pipe, ~155 adds and selects on the ALU pipe) against
+// the bound's 146 multiplies, at 12 warps an SM.  The Horner tail is the
+// latency of ~600 dependent stages (~0.44 us each).
+// Tensor cores are not used: wgmma / IMMA take 8-bit integer operands, a
+// 256-bit product would need carries across tile outputs, and each add is
+// a dependent chain of 8 multiplies.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "ge25519.cuh"
 
 #define TABLE_THREADS 128
-#define WIN_THREADS 128
-#define WIN_PPT 16
-#define WIN_PTS (WIN_THREADS * WIN_PPT)
+#define WIN_THREADS 128               // pass 1: threads a block (4 warps)
+#define WIN_WARPS (WIN_THREADS / 32)
+#define WIN_MIN_BLOCKS 3              // pass 1 blocks an SM holds: <= 168 registers
+#define WIN_WAVES 1                   // pass 1 blocks: about this many card-fulls
+#define WIN_PPT_MIN 4                 // pass 1 steps a thread, at least
 
 // A signed-digit width: BITS-bit windows, a TBL-entry table, digits packed
 // one per FIELD bits into WORDS int32 per scalar.
@@ -92,42 +117,121 @@ __device__ __forceinline__ niels niels_load(const int32_t* src) {
     return q;
 }
 
-__device__ __forceinline__ void fe_store_canon(int32_t* dst, const fe& a) {
-    fe c = fe_canon(a);
-    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d[i] = c.w[i];
+// the identity in niels form: (1, 1, 0, 1)
+__device__ __forceinline__ niels niels_identity() {
+    niels q;
+    q.ypx = fe_one();
+    q.ymx = fe_one();
+    q.t2d = fe_zero();
+    q.z = fe_one();
+    return q;
 }
 
-// -P in niels form: swap Y+X with Y-X, negate 2dT (fe_neg of 0 is 0).
-__device__ __forceinline__ niels niels_neg(const niels& q) {
-    niels r;
-    r.ypx = q.ymx;
-    r.ymx = q.ypx;
-    r.t2d = fe_neg(q.t2d);
-    r.z = q.z;
+__device__ __forceinline__ void fe_store_raw(int32_t* dst, const fe& a) {
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d[i] = a.w[i];
+}
+
+__device__ __forceinline__ void fe_store_canon(int32_t* dst, const fe& a) {
+    fe_store_raw(dst, fe_canon(a));
+}
+
+__device__ __forceinline__ fe fe_select(bool c, const fe& a, const fe& b) {
+    fe r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r.w[i] = c ? a.w[i] : b.w[i];
     return r;
 }
 
-// p (extended) + q (niels): add-2008-hwcd-3 with the 2d product and the
-// operand sums of q precomputed; 8 multiplies.  Complete (a = -1), so the
-// identity accumulator needs no special case.
-__device__ __noinline__ ge ge_add_niels(const ge& p, const niels& q) {
-    fe A = fe_mul(fe_sub(p.Y, p.X), q.ymx);
-    fe B = fe_mul(fe_add(p.Y, p.X), q.ypx);
-    fe C = fe_mul(p.T, q.t2d);
-    fe Dz = fe_mul(p.Z, q.z);
+__device__ __forceinline__ fe fe_shfl(const fe& a, int lane) {
+    fe r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r.w[i] = __shfl_sync(0xffffffffu, a.w[i], lane);
+    return r;
+}
+
+__device__ __forceinline__ ge ge_shfl_down(const ge& p, int off) {
+    ge r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        r.X.w[i] = __shfl_down_sync(0xffffffffu, p.X.w[i], off);
+        r.Y.w[i] = __shfl_down_sync(0xffffffffu, p.Y.w[i], off);
+        r.Z.w[i] = __shfl_down_sync(0xffffffffu, p.Z.w[i], off);
+        r.T.w[i] = __shfl_down_sync(0xffffffffu, p.T.w[i], off);
+    }
+    return r;
+}
+
+// ---- point operations on the carry-chain multiply, inlined where they
+// are called (one call site each per kernel): register-resident, no
+// stack frame.  The formulas are ge25519.cuh's.
+
+// p + (neg ? -q : q), q in niels form: add-2008-hwcd-3 with 2dT and the
+// operand sums of q precomputed, 8 multiplies.  -q swaps Y+X with Y-X and
+// negates 2dT, so C changes sign and F, G swap.  Complete (a = -1): the
+// identity needs no special case.
+__device__ __forceinline__ ge ge_add_niels_cc(const ge& p, const niels& q, bool neg) {
+    fe A = fe_mul_cc(fe_sub(p.Y, p.X), fe_select(neg, q.ypx, q.ymx));
+    fe B = fe_mul_cc(fe_add(p.Y, p.X), fe_select(neg, q.ymx, q.ypx));
+    fe C = fe_mul_cc(p.T, q.t2d);
+    fe Dz = fe_mul_cc(p.Z, q.z);
+    fe Dv = fe_add(Dz, Dz);
+    fe E = fe_sub(B, A);
+    fe Fm = fe_sub(Dv, C);
+    fe Gp = fe_add(Dv, C);
+    fe F = fe_select(neg, Gp, Fm);
+    fe G = fe_select(neg, Fm, Gp);
+    fe H = fe_add(B, A);
+    ge r;
+    r.X = fe_mul_cc(E, F);
+    r.Y = fe_mul_cc(G, H);
+    r.Z = fe_mul_cc(F, G);
+    r.T = fe_mul_cc(E, H);
+    return r;
+}
+
+// p + q, both extended: ge_add on the carry-chain multiply (9 multiplies)
+__device__ __forceinline__ ge ge_add_cc(const ge& p, const ge& q) {
+    fe A = fe_mul_cc(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
+    fe B = fe_mul_cc(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
+    fe C = fe_mul_cc(fe_mul_cc(p.T, q.T), fe_d2());
+    fe Dz = fe_mul_cc(p.Z, q.Z);
     fe Dv = fe_add(Dz, Dz);
     fe E = fe_sub(B, A);
     fe F = fe_sub(Dv, C);
     fe G = fe_add(Dv, C);
     fe H = fe_add(B, A);
     ge r;
-    r.X = fe_mul(E, F);
-    r.Y = fe_mul(G, H);
-    r.Z = fe_mul(F, G);
-    r.T = fe_mul(E, H);
+    r.X = fe_mul_cc(E, F);
+    r.Y = fe_mul_cc(G, H);
+    r.Z = fe_mul_cc(F, G);
+    r.T = fe_mul_cc(E, H);
     return r;
+}
+
+// The sum of one point per thread over a block of WARPS warps: a shuffle
+// tree inside each warp (5 levels), then one over the warps' sums in
+// warp 0 (sh holds WARPS points).  One ge_add_cc site.  Returns true in
+// thread 0, whose v is the sum; the other warps return early.
+template <int WARPS>
+__device__ __forceinline__ bool tree_sum(ge& v, ge* sh) {
+    constexpr int LOG_WARPS = WARPS == 1 ? 0 : WARPS == 2 ? 1 : WARPS == 4 ? 2 : 3;
+    static_assert(WARPS == 1 << LOG_WARPS, "WARPS: 1, 2, 4 or 8");
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+#pragma unroll 1
+    for (int level = 0; level < 5 + LOG_WARPS; ++level) {
+        if (level == 5) {
+            if (lane == 0) sh[warp] = v;
+            __syncthreads();
+            if (warp != 0) return false;
+            v = lane < WARPS ? sh[lane] : ge_identity();
+        }
+        const int off = level < 5 ? 16 >> level : WARPS >> (level - 4);
+        v = ge_add_cc(v, ge_shfl_down(v, off));
+    }
+    return threadIdx.x == 0;
 }
 
 // One thread per point: (k + 1) * P for k = 0..TBL-1 by the TPU kernels'
@@ -156,97 +260,261 @@ table_kernel(const int32_t* __restrict__ pts, int32_t* __restrict__ table, int n
     }
 }
 
-// Pass 1: block (b, win, s) sums, over steps j in [b * WIN_PTS,
-// (b + 1) * WIN_PTS) of walk s, the table entry that step j's digit `win`
-// selects.  Code TBL is the digit -TBL: entry TBL negated.  Partials are
-// stored walk- then window-major: partials[(s * WINDOWS + win) * gridDim.x
-// + b]; blocks past a walk's end store the identity.
+// Pass 1: block (b, win, s) sums, for walk s, the table entries that
+// digit `win` selects at steps j = (b * ppt + k) * WIN_THREADS + t, k <
+// ppt, of its threads t (code TBL is the digit -TBL: entry TBL negated;
+// code 0 adds the identity).  The thread's sum is register-resident and
+// the next entry's eight 16-byte loads are issued before the current add,
+// the word two steps ahead before that (on the card this bought 2.5%:
+// 1.777 against 1.823 ms at 143,704 w5 steps without it).  Partials are
+// stored walk- then window-major: partials[(s * WINDOWS + win) *
+// gridDim.x + b]; a block past its walk's end stores the identity.
 template <int BITS>
-__global__ void __launch_bounds__(WIN_THREADS)
+__global__ void __launch_bounds__(WIN_THREADS, WIN_MIN_BLOCKS)
 msm_win_partials(const int32_t* __restrict__ table, const int32_t* __restrict__ words,
-                 int32_t* __restrict__ partials, walks2 g) {
+                 int32_t* __restrict__ partials, walks2 g, int ppt) {
     using W = Win<BITS>;
     constexpr int PER = 32 / W::FIELD;
-    __shared__ ge sh[WIN_THREADS];
+    constexpr uint32_t MASK = (1u << BITS) - 1u;
+    __shared__ ge sh[WIN_WARPS];
     const int b = blockIdx.x;
     const int win = blockIdx.y;
     const int s = blockIdx.z;
     const walk w = g.s[s];
-    const int wsel = win / PER;
     const int shift = W::FIELD * (win % PER);
+    const int32_t* wcol = words + (long long)W::WORDS * w.woff + win / PER;
+    const long long j0 = (long long)b * ppt * WIN_THREADS + threadIdx.x;
+    int cnt = 0;
+    if (j0 < w.v) cnt = min(ppt, (int)((w.v - 1 - j0) / WIN_THREADS) + 1);
+
+    auto code = [&](int k) -> uint32_t {
+        const long long j = j0 + (long long)k * WIN_THREADS;
+        return ((uint32_t)__ldg(wcol + W::WORDS * j) >> shift) & MASK;
+    };
+    auto fetch = [&](int k, uint32_t e) -> niels {
+        if (e == 0u) return niels_identity();
+        const uint32_t mag = e >= (uint32_t)W::TBL ? 2u * W::TBL - e : e;
+        const long long j = j0 + (long long)k * WIN_THREADS;
+        const long long row = j < w.split ? (long long)w.poff + j
+                                          : (long long)w.poff2 + (j - w.split);
+        return niels_load(table + 32ll * (row * W::TBL + (mag - 1)));
+    };
+
     ge acc = ge_identity();
+    uint32_t e = cnt > 0 ? code(0) : 0u;
+    niels q = fetch(0, e);
+    uint32_t e2 = cnt > 1 ? code(1) : 0u;
 #pragma unroll 1
-    for (int k = 0; k < WIN_PPT; ++k) {
-        int j = b * WIN_PTS + k * WIN_THREADS + threadIdx.x;
-        if (j >= w.v) break;
-        uint32_t e = ((uint32_t)__ldg(words + (long long)W::WORDS * (w.woff + j) + wsel)
-                      >> shift) & ((1u << BITS) - 1u);
-        if (e == 0u) continue;  // digit 0 adds the identity
-        bool neg = e >= (uint32_t)W::TBL;
-        uint32_t mag = neg ? (2u * W::TBL) - e : e;
-        long long row = j < w.split ? (long long)w.poff + j : (long long)w.poff2 + (j - w.split);
-        niels q = niels_load(table + 32ll * (row * W::TBL + (mag - 1)));
-        if (neg) q = niels_neg(q);
-        acc = ge_add_niels(acc, q);
+    for (int k = 0; k < cnt; ++k) {
+        const niels cur = q;
+        const bool neg = e >= (uint32_t)W::TBL;
+        e = e2;
+        if (k + 1 < cnt) q = fetch(k + 1, e);
+        if (k + 2 < cnt) e2 = code(k + 2);
+        acc = ge_add_niels_cc(acc, cur, neg);
     }
-    block_sum(acc, sh);
-    if (threadIdx.x == 0)
-        ge_store_raw(partials + 32ll * (((long long)s * W::WINDOWS + win) * gridDim.x + b), sh[0]);
+    if (tree_sum<WIN_WARPS>(acc, sh))
+        ge_store_raw(partials + 32ll * (((long long)s * W::WINDOWS + win) * gridDim.x + b), acc);
 }
 
-// Pass 2: block (win, s) sums that window's nb partials into
-// wtot[s * WINDOWS + win].
+// Pass 2: warp (win, s) sums that window's nb partials (lane-strided,
+// then a shuffle tree) into wtot[s * WINDOWS + win], stored in niels form
+// (Y+X, Y-X, 2d*T, Z) for the Horner pass.
 template <int BITS>
-__global__ void __launch_bounds__(WIN_THREADS)
+__global__ void __launch_bounds__(32)
 msm_win_windows(const int32_t* __restrict__ partials, int32_t* __restrict__ wtot, int nb) {
-    __shared__ ge sh[WIN_THREADS];
     const long long row = (long long)blockIdx.y * Win<BITS>::WINDOWS + blockIdx.x;
     ge v = ge_identity();
 #pragma unroll 1
-    for (int j = threadIdx.x; j < nb; j += blockDim.x)
-        v = ge_add(v, ge_load(partials + 32ll * (row * nb + j)));
-    block_sum(v, sh);
-    if (threadIdx.x == 0) ge_store_raw(wtot + 32 * row, sh[0]);
+    for (int j = threadIdx.x; j < nb; j += 32)
+        v = ge_add_cc(v, ge_load(partials + 32ll * (row * nb + j)));
+    if (tree_sum<1>(v, nullptr)) {
+        int32_t* dst = wtot + 32 * row;
+        fe_store_raw(dst, fe_add(v.Y, v.X));
+        fe_store_raw(dst + 8, fe_sub(v.Y, v.X));
+        fe_store_raw(dst + 16, fe_mul_cc(v.T, fe_d2()));
+        fe_store_raw(dst + 24, v.Z);
+    }
 }
 
-// Pass 3 (thread s folds walk s): Horner over the walk's window totals,
-// most significant first, then its chain:
+// ---- the cooperative Horner: a warp per walk, lane 8g + 4h + q.  The
+// four independent operations q of each stage of a point operation run in
+// each group g of 8 lanes (the warp's four groups repeat the work), a
+// multiply on its two lanes h, a square on lane h = 0's; the products are
+// exchanged with __shfl_sync.  Every lane holds the whole point between
+// stages.
+
+// Rows 4h .. 4h + 3 of a * b on each of two lanes (h = 0, 1; partners
+// 4 lanes apart), the upper rows' 12 words passed down by a shuffle and
+// added 4 words up: the product, reduced, on the h = 0 lane.
+__device__ __forceinline__ fe fe_mul_split(const fe& a, const fe& b, int h) {
+    uint32_t x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = h ? a.w[4 + i] : a.w[i];
+    uint32_t t[12];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = x[0] * b.w[j];
+    t[1] = ptx::mad_hi_cc(x[0], b.w[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < 7; ++j) t[j + 1] = ptx::madc_hi_cc(x[0], b.w[j], t[j + 1]);
+    t[8] = ptx::madc_hi(x[0], b.w[7], 0u);
+#pragma unroll
+    for (int i = 1; i < 4; ++i) {
+        t[i] = ptx::mad_lo_cc(x[i], b.w[0], t[i]);
+#pragma unroll
+        for (int j = 1; j < 8; ++j) t[i + j] = ptx::madc_lo_cc(x[i], b.w[j], t[i + j]);
+        t[i + 8] = ptx::carry();
+        t[i + 1] = ptx::mad_hi_cc(x[i], b.w[0], t[i + 1]);
+#pragma unroll
+        for (int j = 1; j < 7; ++j) t[i + j + 1] = ptx::madc_hi_cc(x[i], b.w[j], t[i + j + 1]);
+        t[i + 8] = ptx::madc_hi(x[i], b.w[7], t[i + 8]);
+    }
+    uint32_t u[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) u[k] = __shfl_xor_sync(0xffffffffu, t[k], 4);
+    uint32_t s[16];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s[k] = t[k];
+    s[4] = ptx::add_cc(t[4], u[0]);
+#pragma unroll
+    for (int k = 5; k < 12; ++k) s[k] = ptx::addc_cc(t[k], u[k - 4]);
+#pragma unroll
+    for (int k = 12; k < 15; ++k) s[k] = ptx::addc_cc(u[k - 4], 0u);
+    s[15] = u[11] + ptx::carry();
+    return fe_reduce_cc(s);
+}
+
+// Stage 2 of a doubling or an add: lane q forms product q of (E F, G H,
+// F G, E H) = (X, Y, Z, T); T is gathered only if a later add reads it.
+__device__ __forceinline__ ge coop_stage2(const fe& E, const fe& F, const fe& G,
+                                          const fe& H, int q, int h, int base,
+                                          bool with_t) {
+    const fe l = fe_select(q == 0 || q == 3, E, fe_select(q == 1, G, F));
+    const fe r = fe_select(q == 0, F, fe_select(q == 2, G, H));
+    const fe p = fe_mul_split(l, r, h);
+    ge o;
+    o.X = fe_shfl(p, base);
+    o.Y = fe_shfl(p, base + 1);
+    o.Z = fe_shfl(p, base + 2);
+    o.T = with_t ? fe_shfl(p, base + 3) : fe_zero();
+    return o;
+}
+
+// 2p (dbl-2008-hwcd): lane q squares X, Y, Z or X + Y
+__device__ __forceinline__ ge coop_double(const ge& p, int q, int h, int base, bool with_t) {
+    const fe xy = fe_add(p.X, p.Y);
+    const fe l = fe_select(q == 0, p.X, fe_select(q == 1, p.Y, fe_select(q == 2, p.Z, xy)));
+    const fe sq = fe_sq_cc(l);
+    const fe A = fe_shfl(sq, base);
+    const fe B = fe_shfl(sq, base + 1);
+    const fe Zs = fe_shfl(sq, base + 2);
+    const fe S = fe_shfl(sq, base + 3);
+    const fe C = fe_add(Zs, Zs);
+    const fe H = fe_add(A, B);
+    const fe E = fe_sub(H, S);
+    const fe G = fe_sub(A, B);
+    const fe F = fe_add(C, G);
+    return coop_stage2(E, F, G, H, q, h, base, with_t);
+}
+
+// p + a point in niels form, of which lane q holds the one coordinate it
+// multiplies: (Y-X, Y+X, 2dT, Z)[q] against p's (Y-X, Y+X, T, Z)[q]
+__device__ __forceinline__ ge coop_add_niels(const ge& p, const fe& mine, int q, int h,
+                                             int base) {
+    const fe l = fe_select(q == 0, fe_sub(p.Y, p.X),
+                           fe_select(q == 1, fe_add(p.Y, p.X), fe_select(q == 2, p.T, p.Z)));
+    const fe m = fe_mul_split(l, mine, h);
+    const fe A = fe_shfl(m, base);
+    const fe B = fe_shfl(m, base + 1);
+    const fe C = fe_shfl(m, base + 2);
+    const fe Dz = fe_shfl(m, base + 3);
+    const fe Dv = fe_add(Dz, Dz);
+    return coop_stage2(fe_sub(B, A), fe_sub(Dv, C), fe_add(Dv, C), fe_add(B, A), q, h, base,
+                       true);
+}
+
+// Pass 3 (warp s folds walk s): Horner over the walk's window totals,
+// most significant first, BITS doublings between windows (the first
+// BITS - 1 of them leave T out), then the walk's chain:
 // out[s] = chain[s] + sum_win 2^(BITS * win) * wtot[s][win].
 template <int BITS>
-__global__ void msm_win_horner(const int32_t* __restrict__ wtot,
-                               const int32_t* __restrict__ chain,
-                               int32_t* __restrict__ out, int walks) {
+__global__ void __launch_bounds__(32)
+msm_win_horner(const int32_t* __restrict__ wtot, const int32_t* __restrict__ chain,
+               int32_t* __restrict__ out) {
     constexpr int WINDOWS = Win<BITS>::WINDOWS;
-    const int s = threadIdx.x;
-    if (s >= walks) return;
-    const int32_t* t = wtot + 32 * WINDOWS * s;
-    ge h = ge_load(t + 32 * (WINDOWS - 1));
+    __shared__ uint32_t tot[WINDOWS * 32];
+    const int s = blockIdx.x;
+    const int q = threadIdx.x & 3;
+    const int h = (threadIdx.x >> 2) & 1;
+    const int base = threadIdx.x & ~7;
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(wtot) + 32 * WINDOWS * s;
 #pragma unroll 1
-    for (int win = WINDOWS - 2; win >= 0; --win) {
+    for (int i = threadIdx.x; i < WINDOWS * 32; i += 32) tot[i] = src[i];
+    __syncwarp();
+    // lane q's coordinate of a niels entry: Y-X, Y+X, 2dT, Z
+    const int field = q == 0 ? 1 : q == 1 ? 0 : q;
+    ge acc = ge_identity();
 #pragma unroll 1
-        for (int d = 0; d < BITS; ++d) h = ge_double(h);
-        h = ge_add(h, ge_load(t + 32 * win));
+    for (int win = WINDOWS - 1; win >= 0; --win) {
+        if (win < WINDOWS - 1) {
+#pragma unroll 1
+            for (int d = 0; d < BITS; ++d) acc = coop_double(acc, q, h, base, d == BITS - 1);
+        }
+        fe mine;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) mine.w[i] = tot[32 * win + 8 * field + i];
+        acc = coop_add_niels(acc, mine, q, h, base);
     }
-    ge_store(out + 32 * s, ge_add(h, ge_load(chain + 32 * s)));
+    const ge c = ge_load(chain + 32 * s);
+    fe mine = fe_select(q == 0, fe_sub(c.Y, c.X), fe_select(q == 1, fe_add(c.Y, c.X), c.Z));
+    if (q == 2) mine = fe_mul_cc(c.T, fe_d2());
+    acc = coop_add_niels(acc, mine, q, h, base);
+    if (threadIdx.x == 0) ge_store(out + 32 * s, acc);
 }
 
-// The three passes over `walks` (1 or 2) walks; nb = the longest walk's
-// block count.
+// Pass 1's geometry for walks of at most vmax steps: nb blocks per window
+// and walk, ppt steps per thread, nb about WIN_WAVES times the blocks the
+// card holds at once over walks x WINDOWS, at most walk_blocks(vmax).
+static int walk_blocks(int vmax) {
+    return (vmax + WIN_PPT_MIN * WIN_THREADS - 1) / (WIN_PPT_MIN * WIN_THREADS);
+}
+
+template <int BITS>
+static void win_geometry(int vmax, int walks, int* nb, int* ppt) {
+    static int held[64];  // pass 1 blocks the card holds, by device (0: not asked)
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int card = dev >= 0 && dev < 64 ? held[dev] : 0;
+    if (card == 0) {
+        int sms = 1, per_sm = 1;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, msm_win_partials<BITS>,
+                                                      WIN_THREADS, 0);
+        card = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+        if (dev >= 0 && dev < 64) held[dev] = card;
+    }
+    long long want = (long long)WIN_WAVES * card / (walks * Win<BITS>::WINDOWS);
+    int most = walk_blocks(vmax);
+    int n = (int)(want < most ? want : most);
+    n = n > 1 ? n : 1;
+    *ppt = (vmax + n * WIN_THREADS - 1) / (n * WIN_THREADS);
+    *nb = *ppt > 0 ? (vmax + *ppt * WIN_THREADS - 1) / (*ppt * WIN_THREADS) : 1;
+}
+
+// The three passes over `walks` (1 or 2) walks.
 template <int BITS>
 static int msm_win_launch(const int32_t* table, const int32_t* words, const int32_t* chain,
                           int32_t* out, int32_t* partials, int32_t* wtot, walks2 g,
                           int walks, cudaStream_t s) {
     constexpr int WINDOWS = Win<BITS>::WINDOWS;
-    int nb = 0;
-    for (int k = 0; k < walks; ++k) {
-        int b = (g.s[k].v + WIN_PTS - 1) / WIN_PTS;
-        nb = b > nb ? b : nb;
-    }
-    if (nb > 0)
-        msm_win_partials<BITS><<<dim3(nb, WINDOWS, walks), WIN_THREADS, 0, s>>>(
-            table, words, partials, g);
-    msm_win_windows<BITS><<<dim3(WINDOWS, walks), WIN_THREADS, 0, s>>>(partials, wtot, nb);
-    msm_win_horner<BITS><<<1, 32, 0, s>>>(wtot, chain, out, walks);
+    int vmax = 0;
+    for (int k = 0; k < walks; ++k) vmax = g.s[k].v > vmax ? g.s[k].v : vmax;
+    int nb = 1, ppt = 0;
+    win_geometry<BITS>(vmax, walks, &nb, &ppt);
+    msm_win_partials<BITS><<<dim3(nb, WINDOWS, walks), WIN_THREADS, 0, s>>>(
+        table, words, partials, g, ppt);
+    msm_win_windows<BITS><<<dim3(WINDOWS, walks), 32, 0, s>>>(partials, wtot, nb);
+    msm_win_horner<BITS><<<walks, 32, 0, s>>>(wtot, chain, out);
     return (int)cudaGetLastError();
 }
 
@@ -258,9 +526,33 @@ static int table_launch(const int32_t* pts, int32_t* table, int n, cudaStream_t 
     return (int)cudaGetLastError();
 }
 
+// out[i] = a[i] * b[i] (OP 0: fe_mul, 1: fe_mul_cc) or a[i]^2 (2: fe_sq,
+// 3: fe_sq_cc), repeated `reps` times on the result, canonical: holds
+// the carry-chain multiply and squaring against fe_mul and times them.
+template <int OP>
+__global__ void __launch_bounds__(128)
+fe_mul_test(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+            int32_t* __restrict__ out, int n, int reps) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    fe x = fe_load_vec(a + 8 * i);
+    const fe y = fe_load_vec(b + 8 * i);
+#pragma unroll 1
+    for (int r = 0; r < reps; ++r)
+        x = OP == 0 ? fe_mul(x, y) : OP == 1 ? fe_mul_cc(x, y) : OP == 2 ? fe_sq(x) : fe_sq_cc(x);
+    fe_store_canon(out + 8 * i, x);
+}
+
 extern "C" {
 
-int bp_win_points_per_block(void) { return WIN_PTS; }
+// Scratch points the walk passes need for `walks` walks of at most vmax
+// steps at BITS 5 or 4 (pass 1's partials; pass 2's window totals are
+// walks * WINDOWS more, from bp_win5_windows / bp_win4_windows).
+int bp_win_partials(int vmax, int walks, int bits) {
+    const int windows = bits == 5 ? Win<5>::WINDOWS : Win<4>::WINDOWS;
+    int nb = walk_blocks(vmax);
+    return walks * windows * (nb > 1 ? nb : 1);
+}
 
 int bp_win5_windows(void) { return Win<5>::WINDOWS; }
 
@@ -275,7 +567,7 @@ int bp_table_w4(const int32_t* pts, int32_t* table, int n, void* stream) {
 }
 
 // out (1, 4, 8) = chain + sum_{j < v} d_j * P_row(j) (see msm_win_partials).
-// partials: scratch for 51 * ceil(v / WIN_PTS) points; wtot: for 51 points.
+// partials: bp_win_partials(v, 1, 5) points of scratch; wtot: 51 points.
 int bp_msm_win5(const int32_t* table, const int32_t* words, const int32_t* chain,
                 int32_t* out, int32_t* partials, int32_t* wtot, int v, int poff,
                 int woff, int split, int poff2, void* stream) {
@@ -288,7 +580,7 @@ int bp_msm_win5(const int32_t* table, const int32_t* words, const int32_t* chain
 
 // The single w4 walk (pallas_curve.msm_win_dyn): out (1, 4, 8) = chain +
 // sum_{j < v} d_j * P_row(j) over a w4 table with w4 words.  partials:
-// scratch for 64 * ceil(v / WIN_PTS) points; wtot: for 64 points.
+// bp_win_partials(v, 1, 4) points of scratch; wtot: 64 points.
 int bp_msm_win(const int32_t* table, const int32_t* words, const int32_t* chain,
                int32_t* out, int32_t* partials, int32_t* wtot, int v, int poff,
                int woff, int split, int poff2, void* stream) {
@@ -300,8 +592,8 @@ int bp_msm_win(const int32_t* table, const int32_t* words, const int32_t* chain,
 }
 
 // out (2, 4, 8): row s = chain2[s] + walk s over a w4 table (the two walks
-// of a combined IPP round).  partials: scratch for 2 * 64 * ceil(max v /
-// WIN_PTS) points; wtot: for 2 * 64 points.
+// of a combined IPP round).  partials: bp_win_partials(max v, 2, 4)
+// points of scratch; wtot: 2 * 64 points.
 int bp_msm_win_pair(const int32_t* table, const int32_t* words, const int32_t* chain2,
                     int32_t* out, int32_t* partials, int32_t* wtot, int v0, int poff0,
                     int woff0, int split0, int poff20, int v1, int poff1, int woff1,
@@ -311,6 +603,22 @@ int bp_msm_win_pair(const int32_t* table, const int32_t* words, const int32_t* c
     g.s[1] = walk{v1, poff1, woff1, split1, poff21};
     return msm_win_launch<4>(table, words, chain2, out, partials, wtot, g, 2,
                              (cudaStream_t)stream);
+}
+
+// The test entry of the carry-chain multiply and squaring: out (n, 8) =
+// fe_mul_test<op>(a, b) over (n, 8) words, `reps` products deep.
+int bp_fe_mul_test(const int32_t* a, const int32_t* b, int32_t* out, int n, int op,
+                   int reps, void* stream) {
+    if (n > 0) {
+        const int blocks = (n + 127) / 128;
+        cudaStream_t s = (cudaStream_t)stream;
+        if (op == 0) fe_mul_test<0><<<blocks, 128, 0, s>>>(a, b, out, n, reps);
+        else if (op == 1) fe_mul_test<1><<<blocks, 128, 0, s>>>(a, b, out, n, reps);
+        else if (op == 2) fe_mul_test<2><<<blocks, 128, 0, s>>>(a, b, out, n, reps);
+        else if (op == 3) fe_mul_test<3><<<blocks, 128, 0, s>>>(a, b, out, n, reps);
+        else return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

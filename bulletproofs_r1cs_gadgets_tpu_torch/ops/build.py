@@ -9,8 +9,10 @@ through ``ctypes``.  The C entry points take pointers and the stream as
 non-zero code into an exception.  There is no fallback: without ``nvcc``
 or a card this raises.
 
+Every build keeps ptxas's register / stack / spill report beside the
+library (``<library>.ptxas``); :func:`ptxas_usage` reads it per kernel.
 Run ``python -m bulletproofs_r1cs_gadgets_tpu_torch.ops.build`` to build
-ahead of time and print ptxas's register / spill report.
+ahead of time and print the report.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,7 +46,7 @@ SIGNATURES = {
     "bp_msm_w4_pair": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "bp_msm_lane": [_VP, _VP, _VP, _VP, _I, _I, _VP],
     "bp_fold_bits": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
-    "bp_win_points_per_block": [],
+    "bp_win_partials": [_I, _I, _I],
     "bp_win5_windows": [],
     "bp_win4_windows": [],
     "bp_table_w5": [_VP, _VP, _I, _VP],
@@ -63,6 +66,7 @@ SIGNATURES = {
     "bp_fold_grid": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "bp_mul_fp": [_VP, _VP, _VP, _I, _VP],
     "bp_mul_fq": [_VP, _VP, _VP, _I, _VP],
+    "bp_fe_mul_test": [_VP, _VP, _VP, _I, _I, _I, _VP],
 }
 
 
@@ -94,41 +98,83 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libbp_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _run(procs: list[subprocess.Popen], verbose: bool) -> None:
-    failed = []
+def _run(procs: list[subprocess.Popen]) -> str:
+    """Wait for the nvcc processes; their joined output (raises if one
+    failed)."""
+    failed, said = [], []
     for proc in procs:
         out, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{' '.join(proc.args)} ({proc.returncode}):\n"
                           f"{out}\n{err}")
-        elif verbose:
-            print(out + err)
+        said.append(out + err)
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return "\n".join(said)
 
 
 def build(verbose: bool = False) -> str:
     """Compile the kernels unless the library for these sources exists;
-    returns its path.  ``verbose`` adds ptxas's per-kernel report."""
+    returns its path.  ``verbose`` prints ptxas's per-kernel report."""
     so = library_path()
-    if os.path.exists(so) and not verbose:
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    cu, _ = _sources()
-    tmp = f"{so}.{os.getpid()}.tmp"
-    objs = [f"{tmp}.{i}.o" for i in range(len(cu))]
-    nvcc = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas=-v"] if verbose else [])
-    pipe = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    _run([
-        subprocess.Popen([*nvcc, "-I", CSRC, "-c", "-o", obj, src], **pipe)
-        for src, obj in zip(cu, objs)
-    ], verbose)
-    _run([subprocess.Popen([*nvcc, "-shared", "-o", tmp, *objs], **pipe)],
-         False)
-    for obj in objs:
-        os.remove(obj)
-    os.replace(tmp, so)
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        cu, _ = _sources()
+        tmp = f"{so}.{os.getpid()}.tmp"
+        objs = [f"{tmp}.{i}.o" for i in range(len(cu))]
+        nvcc = [_nvcc(), *NVCC_FLAGS]
+        pipe = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        said = _run([
+            subprocess.Popen([*nvcc, "-Xptxas=-v", "-I", CSRC, "-c", "-o",
+                              obj, src], **pipe)
+            for src, obj in zip(cu, objs)
+        ])
+        _run([subprocess.Popen([*nvcc, "-shared", "-o", tmp, *objs], **pipe)])
+        for obj in objs:
+            os.remove(obj)
+        with open(f"{tmp}.ptxas", "w") as f:
+            f.write(said)
+        os.replace(f"{tmp}.ptxas", f"{so}.ptxas")
+        os.replace(tmp, so)
+    if verbose:
+        with open(f"{so}.ptxas") as f:
+            print(f.read())
     return so
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(
+    r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(text: str) -> dict:
+    """ptxas -v output -> {mangled kernel name: {"registers", "stack",
+    "spill_stores", "spill_loads"}} for each entry function."""
+    usage, frames, entry, props = {}, {}, None, None
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            entry = m.group(1)
+            usage.setdefault(entry, {})
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif m := _FRAME.search(line):
+            frames[props] = dict(zip(("stack", "spill_stores", "spill_loads"),
+                                     map(int, m.groups())))
+        elif (m := _REGS.search(line)) and entry is not None:
+            usage[entry]["registers"] = int(m.group(1))
+    for name, got in usage.items():
+        got.update(frames.get(name, {}))
+    return usage
+
+
+def report() -> dict:
+    """ptxas_usage of the library that :func:`build` made for these
+    sources."""
+    with open(f"{build()}.ptxas") as f:
+        return ptxas_usage(f.read())
 
 
 _LOAD_LOCK = threading.Lock()

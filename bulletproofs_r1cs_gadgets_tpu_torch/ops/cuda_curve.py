@@ -64,10 +64,17 @@ window-accumulator MSM over a ``table_w5`` table, with the TPU's
 [v, poff, woff, split, poff2] walk in points.  Bound: integer
 multiplies (51 niels adds of 8 field multiplies per point, against ~330
 point operations per point for the w4 ladder), then the 128 B table read
-per point and window.  Design: the windows run in parallel, one per
-block row; each thread sums 16 selected entries of one window, a block
-tree and a second launch reduce each window, and one thread folds the 51
-window totals by Horner (see ``csrc/win.cu``).
+per point and window.  Design (``csrc/win.cu``, the second version): the
+windows run in parallel, a block per window and range of steps, as many
+blocks as the card holds at once; each thread keeps its sum in registers
+through inlined niels adds on the carry-chain multiply (``fe_mul_cc``)
+and loads the next entry during the current add; a warp shuffle tree sums
+each block, a warp per window sums the blocks, and a warp per walk runs
+Horner with each stage's four operations on lanes (a multiply on two).
+On the card: 1.78 ms at 143,704 steps (3.02 before), the first pass at
+2.7x the bound, held by the multiply's instruction mix; the Horner tail
+0.27 ms a launch (1.0 before).  ``fe_mul_test`` holds the carry-chain multiply and
+squaring against ``fe_mul`` (test entry, no launch count).
 
 ``table_w4`` replaces ``pallas_curve.table_grid_full`` / ``_half`` /
 ``_full_donate`` / ``_half_donate`` (:1012-1026, ``_table_body`` :922,
@@ -84,7 +91,8 @@ window walks of a combined IPP round in one launch.  Bound: integer
 multiplies (64 niels adds per point), then the table stream.  Design:
 ``msm_win5``'s kernel template at 4 bits (64 windows, 8 entries) with a
 walk dimension, each walk with its own [v, poff, woff, split, poff2];
-both walks' Horner folds run in one last launch, one thread each.
+the first pass is sized over both walks, and the Horner pass runs a warp
+per walk.  On the card: 3.22 ms at n = 2^16 (5.39 before).
 
 ``fold_w3h`` replaces ``pallas_curve.fold_grid_w3h`` (:646,
 ``_fold_w3h_call`` :618, ``_fold_w3h_kernel`` :604, ``_emit_fold_w3h``
@@ -115,7 +123,8 @@ tensor, as ``fold_w3h_comb`` does.
 ``msm_win`` replaces ``pallas_curve.msm_win_dyn`` (:1156,
 ``_msm_win_call`` :1105, ``_msm_win_kernel`` :1065): one w4 window walk
 over a ``table_w4`` table, [v, poff, woff, split, poff2] in points.  Bound
-and design: ``msm_win_pair``'s, with one walk.
+and design: ``msm_win_pair``'s, with one walk (2.0 ms at 143,704 steps on
+the card, 3.57 with the first version).
 
 ``msm_grid`` replaces ``pallas_curve.msm_grid_acc`` (:438,
 ``_msm_grid_kernel`` :415): a chained w4 MSM over a chunk range of the
@@ -264,19 +273,22 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch(name: str, dev: torch.device, entry: str, *args) -> None:
+def _launch(name: str, dev: torch.device, entry: str, *args,
+            count: bool = True) -> None:
     """Call the library's entry point `entry` with `args` and the current
-    stream of `dev`, raise if the launch failed, and count it under
-    `name`.  The library launches on the calling thread's current device,
-    which need not be `dev` (a pool thread, a backend on a second card),
-    so `dev` is made current for the call: in torch, which restores the
-    thread's device after it, and in the library's own CUDA runtime
-    (linked statically, so it keeps a current device of its own)."""
+    stream of `dev`, raise if the launch failed, and (unless `count` is
+    False: the test entry ``fe_mul_test``) count it under `name`.  The
+    library launches on the calling thread's current device, which need
+    not be `dev` (a pool thread, a backend on a second card), so `dev` is
+    made current for the call: in torch, which restores the thread's
+    device after it, and in the library's own CUDA runtime (linked
+    statically, so it keeps a current device of its own)."""
     lib = build.load()
     with torch.cuda.device(dev):
         build.check(lib.bp_set_device(dev.index), f"{name} (set device)")
         build.check(getattr(lib, entry)(*args, _stream(dev)), name)
-    _count(name)
+    if count:
+        _count(name)
 
 
 def _msm_partials(lib, n: int) -> int:
@@ -666,6 +678,17 @@ def _check_walk(name: str, walk: tuple, N: int, M: int) -> None:
         )
 
 
+def _win_scratch(dev, bits: int, vmax: int, walks: int):
+    """The walker passes' scratch for `walks` walks of at most vmax steps,
+    sized by the library: pass 1's partials and pass 2's window totals."""
+    lib = build.load()
+    windows = lib.bp_win5_windows() if bits == 5 else lib.bp_win4_windows()
+    partials = torch.empty((lib.bp_win_partials(vmax, walks, bits), 4, 8),
+                           dtype=torch.int32, device=dev)
+    wtot = torch.empty((walks * windows, 4, 8), dtype=torch.int32, device=dev)
+    return partials, wtot
+
+
 def _win_walk(name: str, bits: int, table, words, chain, v, poff, woff,
               split, poff2) -> torch.Tensor:
     """One window walk over a w5 (``msm_win5``) or w4 (``msm_win``)
@@ -684,14 +707,8 @@ def _win_walk(name: str, bits: int, table, words, chain, v, poff, woff,
                           bits)
     if table.data_ptr() % 16:
         raise ValueError(f"{name}: table not 16-byte aligned")
-    lib = build.load()
     out = torch.empty((1, 4, 8), dtype=torch.int32, device=dev)
-    nb = -(-v // lib.bp_win_points_per_block())
-    windows = lib.bp_win5_windows() if bits == 5 else lib.bp_win4_windows()
-    partials = torch.empty(
-        (max(1, windows * nb), 4, 8), dtype=torch.int32, device=dev
-    )
-    wtot = torch.empty((windows, 4, 8), dtype=torch.int32, device=dev)
+    partials, wtot = _win_scratch(dev, bits, v, 1)
     _launch(name, dev, f"bp_{name}", _ptr(table), _ptr(words), _ptr(chain),
             _ptr(out), _ptr(partials), _ptr(wtot), v, poff, woff, split,
             poff2)
@@ -760,15 +777,8 @@ def msm_win_pair(table: torch.Tensor, words: torch.Tensor,
         return msm_win_pair_plain(table, words, chain2, walks)
     if table.data_ptr() % 16:
         raise ValueError("msm_win_pair: table not 16-byte aligned")
-    lib = build.load()
     out = torch.empty((2, 4, 8), dtype=torch.int32, device=dev)
-    per = lib.bp_win_points_per_block()
-    nb = max(-(-w[0] // per) for w in walks)
-    windows = lib.bp_win4_windows()
-    partials = torch.empty(
-        (max(1, 2 * windows * nb), 4, 8), dtype=torch.int32, device=dev
-    )
-    wtot = torch.empty((2 * windows, 4, 8), dtype=torch.int32, device=dev)
+    partials, wtot = _win_scratch(dev, 4, max(w[0] for w in walks), 2)
     _launch("msm_win_pair", dev, "bp_msm_win_pair", _ptr(table), _ptr(words),
             _ptr(chain2), _ptr(out), _ptr(partials), _ptr(wtot), *walks[0],
             *walks[1])
@@ -1056,6 +1066,39 @@ def _mul_launch(name: str, plain, a: torch.Tensor, b: torch.Tensor
         return plain(a, b)
     out = torch.empty((n, 8), dtype=torch.int32, device=dev)
     _launch(name, dev, f"bp_{name}", _ptr(a), _ptr(b), _ptr(out), n)
+    return out
+
+
+FE_MUL_TEST_OPS = ("fe_mul", "fe_mul_cc", "fe_sq", "fe_sq_cc")
+
+
+def fe_mul_test_plain(a, b, op: str, reps: int = 1) -> torch.Tensor:
+    """(n, 8) canonical: a * b^reps mod p (fe_mul / fe_mul_cc) or a^(2^reps)
+    (fe_sq / fe_sq_cc)."""
+    x = a
+    for _ in range(reps):
+        x = mul_fp_plain(x, x if op.startswith("fe_sq") else b)
+    return x
+
+
+def fe_mul_test(a: torch.Tensor, b: torch.Tensor, op: str, reps: int = 1
+                ) -> torch.Tensor:
+    """The test entry of ``csrc/fe25519.cuh``'s multiplies: (n, 8) words,
+    `reps` products deep (``fe_mul_test_plain``), canonical.  `op` is one
+    of FE_MUL_TEST_OPS.  Not a kernel of any path: it holds the
+    carry-chain multiply and squaring of the window walkers against
+    ``fe_mul`` on the card and times them; counts no launch."""
+    dev = a.device
+    n = a.shape[0]
+    _check(a, "a", (n, 8), dev)
+    _check(b, "b", (n, 8), dev)
+    if op not in FE_MUL_TEST_OPS or reps < 1:
+        raise ValueError(f"fe_mul_test: op {op!r}, reps {reps}")
+    if _route(dev) == "plain":
+        return fe_mul_test_plain(a, b, op, reps)
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    _launch("fe_mul_test", dev, "bp_fe_mul_test", _ptr(a), _ptr(b), _ptr(out),
+            n, FE_MUL_TEST_OPS.index(op), reps, count=False)
     return out
 
 

@@ -32,14 +32,30 @@ Measures, for a VSMT-2 depth-253 proof (143,704 multipliers padded to
 Prints the card's nvidia-smi name and power limit first and one JSON line
 per part; ``--out`` also writes every number to a JSON file.  Needs one
 CUDA device; imports nothing of JAX.
+
+    python3 chip_profile.py --walkers [--out walkers.json]
+
+times only the window walkers at ``chip_smoke.py`` phase 2's shapes
+(``msm_win5`` at 143,704 and 12,632 steps, 2^17 and 2^18; ``msm_win_pair``
+at n = 2^16 and 2^11; ``msm_win`` at 143,704), each split into its
+passes and its Horner tail, and the carry-chain multiply's test entry: a
+quick run for tuning the walkers (no plain versions, no proofs).
+
+    python3 chip_profile.py --sass
+
+prints the instruction counts, by opcode, of the walker kernels and of
+the multiply test entry in the built library (``cuobjdump -sass``).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -95,9 +111,66 @@ def wall_s(torch, fn) -> float:
     return time.perf_counter() - t0
 
 
+def sass(build) -> dict:
+    """Instructions of the walker kernels and the multiply test entry in
+    the built library (cuobjdump -sass): the total and the eight commonest
+    opcodes, by mangled kernel name."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", build.build()],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s+Function : ", text)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "msm_win" not in name and "fe_mul_test" not in name:
+            continue
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", body)
+        count = collections.Counter(op.split(".")[0] for op in ops)
+        out[name] = dict(total=len(ops), **dict(count.most_common(8)))
+    return out
+
+
+def walkers(bp, torch, cs, cc, ck, F, gens) -> dict:
+    """The window walkers at chip_smoke.py phase 2's shapes over random
+    words (cs.time_walk: CUDA events split into the Horner tail, by the
+    profiler, and the passes), then cs.phase_fe_mul."""
+    import numpy as np
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(cs.SEED)
+    N, N1 = cs.GENS_N, cs.N1
+    G = F.from_raw(gens.G_raw(N), dev)
+    H = F.from_raw(gens.H_raw(N), dev)
+    ident = F.identity_points(1, dev)
+    rows = cs.random_scalar_rows(bp, N, rng)
+    w5, w4 = ck.w5_words(rows, dev), ck.w4_words(rows, dev)
+    tbl = cc.table_w5(G)
+    for v, poff in ((N1, 0), (N1 - N // 2, 0), (N // 2, N // 2), (N, 0)):
+        cs.time_walk(torch, "msm_win5", f"v {v}", lambda: cc.msm_win5(
+            tbl, w5, ident, v, poff=poff, woff=poff))
+    del tbl
+    chain2 = torch.cat([ident, ident])
+    for n in cs.COMB_N:
+        t = cc.table_w4(torch.cat([G[: 2 * n], H[: 2 * n]]))
+        walks = ck.comb_walks(n)
+        cs.time_walk(torch, "msm_win_pair", f"n {n}",
+                     lambda: cc.msm_win_pair(t, w4, chain2, walks))
+    t = cc.table_w4(G)
+    cs.time_walk(torch, "msm_win", f"v {N1}",
+                 lambda: cc.msm_win(t, w4, ident, N1))
+    del t
+    return dict(walkers=cs.WALKS,
+                fe_mul_test=cs.phase_fe_mul(bp, torch, cc, F, dev, rng))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this file")
+    ap.add_argument("--walkers", action="store_true",
+                    help="time the window walkers only")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the walker kernels' instructions")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -121,7 +194,17 @@ def main() -> int:
     out["card"] = smi.stdout.strip()
     print(out["card"], flush=True)
     build.load()
+    if args.sass:
+        print(json.dumps(sass(build)), flush=True)
+        return 0
     gens = bp.BulletproofGens(cs.GENS_N)
+    if args.walkers:
+        out.update(walkers(bp, torch, cs, cc, ck, F, gens))
+        print(json.dumps(out), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+        return 0
     params, tree = cs.build_tree(bp, cs.DEPTH)
     comp, tape, comms, prover = cs.synthesize(
         bp, params, tree, cs.DEPTH, cs.SEED

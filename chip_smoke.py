@@ -27,7 +27,7 @@ non-zero and prints no result):
    pack with limits 0 / partial / full, fold_bits over 2048 lanes,
    table_w5 over the 2^18 shared generators, msm_win5 over that table
    at the main path's walks (phase 1's 143,704 points, IPP round 1's
-   2^17 at offset 2^17 and its short a_R walk, the verifier's 2^18)
+   2^17 at offset 2^17 and its 12,632-step a_R walk, the verifier's 2^18)
    plus a poff / split / poff2 walk, msm_lane over 16 segments of 2048
    points with an all-zero one, fold_w3h over the 2^18 generators into
    2^17 (random half-gcd pairs split at round 1's breakpoint, and the
@@ -49,7 +49,13 @@ non-zero and prints no result):
    mul_fp over 2^20 elements with the edges 0, 1, m - 1, 2^256 - 1, each
    word for word), and on a subset against the host MSM, scalar
    multiplication or Python ints.  Tolerance: exact (equal points, equal
-   table words; equal words for the device-oracle kernels).
+   table words; equal words for the device-oracle kernels).  Every walk
+   of the window walkers (msm_win5, msm_win_pair, msm_win) is timed, and
+   split into its Horner tail (the profiler's device time of that kernel)
+   and its passes (the rest; the ``walkers`` line); the walkers' carry-chain multiply and squaring are
+   held word for word against fe_mul / fe_sq over 2^20 random and edge
+   operand pairs and timed (``fe_mul_test``); phase 1 logs ptxas's
+   registers, stack and spills of the walker kernels (``ptxas``).
 3. a VSMT-2 depth-4 proof through the port (padded to 4096: round 1
    folds with fold_c), byte-identical to the host
    path with the same prover randomness, its digest equal to the JAX
@@ -444,6 +450,46 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def kernel_ms(torch, fn, reps: int = 3) -> dict:
+    """Device ms per launch of each kernel `fn` launches, by name: the
+    mean over the launches a torch.profiler trace of `reps` calls (after a
+    warm-up) holds, as the trace can miss some of them."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(e.name, []).append(
+                (e.time_range.end - e.time_range.start) / 1000)
+    return {name: sum(v) / len(v) for name, v in spans.items()}
+
+
+# walker timings of phase 2, by kernel and walk: CUDA-event ms per call
+# and its device split into the window passes and the Horner tail
+WALKS = {}
+
+
+def time_walk(torch, kernel: str, walk: str, fn, reps: int = 5) -> float:
+    """CUDA-event ms per call of a window walker, logged split into its
+    Horner tail (the profiler's device time of its one launch of the
+    kernel named ``msm_win_horner``) and its passes (the rest); kept in
+    WALKS."""
+    ms = time_ms(torch, fn, reps)
+    by = kernel_ms(torch, fn)
+    tail = sum(v for k, v in by.items() if "msm_win_horner" in k)
+    WALKS.setdefault(kernel, {})[walk] = dict(
+        ms=ms, passes_ms=ms - tail, tail_ms=tail)
+    log(f"  {kernel} {walk}: {ms:.3f} ms (passes {ms - tail:.3f} + Horner "
+        f"{tail:.3f} ms)")
+    return ms
+
+
 def timed_once(torch, fn):
     """(fn(), its wall time in ms), synchronised on both sides."""
     torch.cuda.synchronize()
@@ -665,6 +711,8 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
     records["msm_grid_local"] = phase_kernel_grid_local(bp, torch, cc, F,
                                                         gens, dev, rng)
     records.update(phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng))
+    log("walkers " + json.dumps(WALKS))
+    phase_fe_mul(bp, torch, cc, F, dev, rng)
     for name, r in records.items():
         r["library_ms"] = None  # no PyTorch call computes these functions
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
@@ -738,8 +786,10 @@ def phase_kernels_w5(bp, torch, cc, F, gens, dev, rng):
         )
         e = max_abs_err(F.to_points(got), F.to_points(plain), P)
         log(f"  msm_win5 {name} {kw}: plain {ms:.1f} ms, max_abs_err {e}")
+        kms = time_walk(torch, "msm_win5", f"{name} (v {kw['v']})",
+                        lambda: cc.msm_win5(tbl, words, acc, **kw))
         if name == "phase 1":
-            plain_ms = ms
+            plain_ms, main_ms = ms, kms
         err = max(err, e)
     assert err == 0, f"msm_win5 != plain (err {err})"
     sc = bp.scvec.to_scalars(rows)
@@ -759,12 +809,52 @@ def phase_kernels_w5(bp, torch, cc, F, gens, dev, rng):
         -(-N1 // 2048), 51, 5,
     )
     records["msm_win5"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cc.msm_win5(tbl, words, ident, N1), 5),
-        plain_ms=plain_ms,
+        max_abs_err=err, ms=main_ms, plain_ms=plain_ms,
         **bound(wops, entries * 128 + N1 * 64 + 2 * 128),
     )
     return records
+
+
+FE_TEST_N, FE_TEST_REPS = 1 << 20, 64  # operand pairs, products deep
+
+
+def phase_fe_mul(bp, torch, cc, F, dev, rng) -> dict:
+    """The window walkers' carry-chain multiply and squaring (csrc/
+    fe25519.cuh fe_mul_cc / fe_sq_cc, through the test entry
+    ``cc.fe_mul_test``) against fe_mul / fe_sq over 2^20 operand pairs,
+    random words and every pair of the edge values 0, 1, p - 1, p, p + 1,
+    2^255, 2^256 - 38 and 2^256 - 1 (values >= p included): equal words
+    after the canonical store, one product deep and FE_TEST_REPS deep, and
+    equal to Python ints on the edges; then each timed FE_TEST_REPS deep
+    (CUDA events).  Returns ms per call and products per second."""
+    import numpy as np
+
+    P = bp.P
+    n = FE_TEST_N
+    edges = [0, 1, P - 1, P, P + 1, 1 << 255, (1 << 256) - 38, (1 << 256) - 1]
+    pairs = [(x, y) for x in edges for y in edges]
+    raw = np.frombuffer(rng.bytes(64 * n), dtype="<i4").reshape(2, n, 8).copy()
+    raw[0, : len(pairs)] = F.ints_to_words([x for x, _ in pairs])
+    raw[1, : len(pairs)] = F.ints_to_words([y for _, y in pairs])
+    a, b = (torch.from_numpy(raw[k]).to(dev) for k in (0, 1))
+    out = {}
+    for ref, new in (("fe_mul", "fe_mul_cc"), ("fe_sq", "fe_sq_cc")):
+        for reps in (1, FE_TEST_REPS):
+            want = cc.fe_mul_test(a, b, ref, reps)
+            got = cc.fe_mul_test(a, b, new, reps)
+            assert torch.equal(got, want), f"{new} != {ref} ({reps} deep)"
+        got = F.words_to_ints(cc.fe_mul_test(a, b, new, 1)[: len(pairs)].cpu().numpy())
+        host = [(x * (x if new == "fe_sq_cc" else y)) % P for x, y in pairs]
+        assert got == host, f"{new} != Python ints on the edges"
+        for op in (ref, new):
+            ms = time_ms(torch, lambda: cc.fe_mul_test(a, b, op, FE_TEST_REPS), 5)
+            # one warp's chain of FE_TEST_REPS dependent products: latency
+            lat = time_ms(torch, lambda: cc.fe_mul_test(
+                a[:32], b[:32], op, FE_TEST_REPS), 5)
+            out[op] = dict(ms=ms, per_s=n * FE_TEST_REPS / ms * 1e3,
+                           latency_ns=lat / FE_TEST_REPS * 1e6)
+    log("fe_mul_test " + json.dumps(out) + f" ({n} x {FE_TEST_REPS} products)")
+    return out
 
 
 def phase_kernel_lane(bp, torch, cc, F, gens, dev, rng):
@@ -955,8 +1045,10 @@ def phase_kernels_comb(bp, torch, cc, F, gens, dev, rng):
         e = max_abs_err(F.to_points(got), F.to_points(plain), P)
         log(f"  msm_win_pair n {n}: plain {ms:.1f} ms, max_abs_err {e}")
         err = max(err, e)
+        kms = time_walk(torch, "msm_win_pair", f"n {n}",
+                        lambda: cc.msm_win_pair(t, words, chain2, walks))
         if n == COMB_N[0]:
-            main_words, main_plain_ms, main_n, main_wn = words, ms, n, wn
+            main_plain_ms, main_n, main_wn, main_ms = ms, n, wn, kms
     assert err == 0, f"msm_win_pair != plain (err {err})"
     sub = 16  # both walks over a 4 * 16-point table against the host
     rows = random_scalar_rows(bp, 4 * sub, rng)
@@ -983,9 +1075,7 @@ def phase_kernels_comb(bp, torch, cc, F, gens, dev, rng):
             pops[key] += o[key]
         entries += e_
     records["msm_win_pair"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cc.msm_win_pair(t, main_words, chain2, walks), 5),
-        plain_ms=main_plain_ms,
+        max_abs_err=err, ms=main_ms, plain_ms=main_plain_ms,
         **bound(pops, entries * 128 + 4 * n * 32 + 4 * 128),
     )
     return records
@@ -1133,9 +1223,9 @@ def phase_kernels_flags(bp, torch, cc, F, gens, dev, rng):
             torch, lambda: cc.msm_win_plain(tbl, words, acc, *walk)
         )
         e = max_abs_err(F.to_points(got), F.to_points(plain), P)
-        kms = time_ms(torch, lambda: cc.msm_win(tbl, words, acc, *walk), 5)
-        log(f"  msm_win {name} {walk}: kernel {kms:.3f} ms, plain {ms:.1f} "
-            f"ms, max_abs_err {e}")
+        log(f"  msm_win {name} {walk}: plain {ms:.1f} ms, max_abs_err {e}")
+        kms = time_walk(torch, "msm_win", f"{name} (v {walk[0]})",
+                        lambda: cc.msm_win(tbl, words, acc, *walk))
         err = max(err, e)
         if name == "phase 1":
             main_ms, main_plain_ms = kms, ms
@@ -2271,6 +2361,9 @@ def main() -> int:
         t0 = time.time()
         build.load()
         log(f"  kernels built and loaded in {time.time() - t0:.2f} s")
+        walkers = {k: v for k, v in build.report().items() if "win" in k}
+        assert walkers, "no ptxas report for the window walkers"
+        log("ptxas " + json.dumps(walkers))
     with Phase("gens"):
         gens = bp.BulletproofGens(1 << 18)
         gens_small = bp.BulletproofGens(1 << 12)

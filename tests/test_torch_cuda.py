@@ -5,7 +5,10 @@ This file imports no JAX, so it also runs where the port runs:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 Each kernel is held against its plain torch version on the same CUDA
-tensors, and a proof, a proof on the combined IPP route (its threshold
+tensors (the window walkers also at step counts around their block sizes
+and at edge walks, on subsets against the host MSM; the walkers'
+carry-chain multiply and squaring against ``fe_mul`` on edge operands),
+and a proof, a proof on the combined IPP route (its threshold
 lowered) and a batch of three proofs (``prove_provers``) through
 ``TorchBackend("cuda")`` against the host engine's bytes; the equivalence
 gate's depth-8 proof on the default route and with ``winmsm`` off.  On a
@@ -42,6 +45,7 @@ from bulletproofs_r1cs_gadgets_tpu_torch.ops import torch_backend as tb
 from bulletproofs_r1cs_gadgets_tpu_torch.parallel.sharded_fast import (
     ShardedWalkMsm,
 )
+from test_torch_walker import host_walk
 
 pytestmark = pytest.mark.cuda
 
@@ -204,6 +208,120 @@ def test_route_flag_kernels_match_plain_on_card(cuda_device):
         "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
         "mul_fp": 0, "mul_fq": 0,
     }
+
+
+# ---- the window walkers' geometry: step counts around a thread row (128)
+# and around pass 1's blocks at the smallest and at a full-card size
+WALK_STEPS = (1, 2, 127, 128, 129, 511, 512, 513, 7679, 7680, 7681)
+WALK_N = 8192 + 64
+ALL_M16 = 0x10101010  # a w5 word of four -16 digits (code 16 per byte)
+ALL_M8 = -0x77777778  # 0x88888888: a w4 word of eight -8 digits
+
+
+def _walk_inputs(dev, bits: int, seed: int):
+    """A WALK_N-point table, words with an all-zero range at rows 100-163
+    and all -16 / -8 digit rows at 200-231, a non-identity chain."""
+    pts = F.from_raw(BulletproofGens(WALK_N).G_raw(WALK_N), dev)
+    rows = _scalar_rows(WALK_N, seed)
+    rows[100:164] = 0
+    if bits == 5:
+        tbl, words = cc.table_w5(pts), ck.w5_words(rows, dev)
+        words[200:232] = ALL_M16
+    else:
+        tbl, words = cc.table_w4(pts), ck.w4_words(rows, dev)
+        words[200:232] = ALL_M8
+    return pts, tbl, words, F.from_points(_points(1, seed + 1), dev)
+
+
+def test_msm_win5_walks_match_plain_and_host_on_card(cuda_device):
+    """msm_win5 at step counts around a thread row and pass 1's blocks,
+    an all-zero word range (the chain back), all -16 rows, a split walk
+    over both ends of the table, the whole table; chained on a
+    non-identity point.  Every walk equals the plain version; the split,
+    the -16 and the short walks equal the host MSM."""
+    dev = cuda_device
+    pts, tbl, words, chain = _walk_inputs(dev, 5, 130)
+    host_chain = F.to_points(chain)[0]
+    walks = [(v, 9, 300, v, 0) for v in WALK_STEPS] + [
+        (64, 100, 100, 64, 0),  # all-zero words
+        (32, 3000, 200, 32, 0),  # all -16 digits
+        (40, WALK_N - 16, 190, 16, 5),  # split over both ends
+        (WALK_N, 0, 0, WALK_N, 0),
+    ]
+    before = cc.LAUNCHES["msm_win5"]
+    for walk in walks:
+        got = cc.msm_win5(tbl, words, chain, *walk)
+        want = cc.msm_win5_plain(tbl, words, chain, *walk)
+        assert F.to_points(got) == F.to_points(want), walk
+        if walk[0] <= 40:
+            assert F.to_points(got)[0] == host_walk(pts, words, host_chain,
+                                                    walk, 5), walk
+    assert cc.LAUNCHES["msm_win5"] - before == len(walks)
+    zero = cc.msm_win5(tbl, words, chain, 64, poff=100, woff=100)
+    assert F.to_points(zero) == F.to_points(chain)
+
+
+def test_msm_win_and_pair_walks_match_plain_and_host_on_card(cuda_device):
+    """msm_win at the same step counts and edges over a w4 table (all -8
+    rows), and msm_win_pair with two walks of unequal length (one of them
+    split over both ends of the table, one a single step), two equal
+    combined-round walks, and an empty walk beside a full one."""
+    dev = cuda_device
+    pts, tbl, words, chain = _walk_inputs(dev, 4, 140)
+    host_chain = F.to_points(chain)[0]
+    walks = [(v, 9, 300, v, 0) for v in WALK_STEPS] + [
+        (64, 100, 100, 64, 0), (32, 3000, 200, 32, 0),
+        (40, WALK_N - 16, 190, 16, 5), (WALK_N, 0, 0, WALK_N, 0),
+    ]
+    before = dict(cc.LAUNCHES)
+    for walk in walks:
+        got = cc.msm_win(tbl, words, chain, *walk)
+        assert F.to_points(got) == F.to_points(
+            cc.msm_win_plain(tbl, words, chain, *walk)), walk
+        if walk[0] <= 40:
+            assert F.to_points(got)[0] == host_walk(pts, words, host_chain,
+                                                    walk, 4), walk
+    chain2 = torch.cat([chain, F.from_points(_points(1, 141), dev)])
+    pairs = [
+        ((7681, 0, 0, 7681, 0), (40, WALK_N - 16, 190, 16, 5)),
+        ((1, 5, 7, 1, 0), (513, 200, 200, 300, 4000)),
+        ck.comb_walks(WALK_N // 4),
+        ((0, 0, 0, 0, 0), (WALK_N, 0, 0, WALK_N, 0)),
+    ]
+    for pair in pairs:
+        got = cc.msm_win_pair(tbl, words, chain2, pair)
+        assert F.to_points(got) == F.to_points(
+            cc.msm_win_pair_plain(tbl, words, chain2, pair)), pair
+    got = F.to_points(cc.msm_win_pair(tbl, words, chain2, pairs[1]))
+    for k in (0, 1):
+        assert got[k] == host_walk(pts, words, F.to_points(chain2)[k],
+                                   pairs[1][k], 4), k
+    ran = {k: cc.LAUNCHES[k] - before[k] for k in before}
+    assert {k: v for k, v in ran.items() if v} == {
+        "msm_win": len(walks), "msm_win_pair": len(pairs) + 1}
+
+
+def test_carry_chain_multiply_matches_fe_mul_on_card(cuda_device):
+    """fe_mul_cc / fe_sq_cc against fe_mul / fe_sq (the test entry), word
+    for word after the canonical store, one and 16 products deep, on
+    every pair of the edges 0, 1, p - 1, p, p + 1, 2^255, 2^256 - 38,
+    2^256 - 1 and 4096 random pairs; the edges also against Python ints."""
+    P = (1 << 255) - 19
+    edges = [0, 1, P - 1, P, P + 1, 1 << 255, (1 << 256) - 38, (1 << 256) - 1]
+    pairs = [(x, y) for x in edges for y in edges]
+    rng = np.random.RandomState(150)
+    rand = [int.from_bytes(rng.bytes(32), "little") for _ in range(2 * 4096)]
+    xs = [x for x, _ in pairs] + rand[:4096]
+    ys = [y for _, y in pairs] + rand[4096:]
+    a = torch.from_numpy(F.ints_to_words(xs).copy()).to(cuda_device)
+    b = torch.from_numpy(F.ints_to_words(ys).copy()).to(cuda_device)
+    for ref, new in (("fe_mul", "fe_mul_cc"), ("fe_sq", "fe_sq_cc")):
+        for reps in (1, 16):
+            assert torch.equal(cc.fe_mul_test(a, b, new, reps),
+                               cc.fe_mul_test(a, b, ref, reps)), (new, reps)
+        got = F.words_to_ints(cc.fe_mul_test(a, b, new)[: len(pairs)].cpu().numpy())
+        sq = new == "fe_sq_cc"
+        assert got == [x * (x if sq else y) % P for x, y in pairs], new
 
 
 def test_gate_routes_on_card_match(cuda_device):
