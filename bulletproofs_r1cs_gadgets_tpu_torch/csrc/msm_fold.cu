@@ -1,19 +1,19 @@
-// Hopper kernels for the VSMT-2 slice: the chained w4 MSM (msm_w4, which
-// the msm_grid wrapper also launches over a view of the generators), the
-// two-segment pair MSM (msm_w4_pair), the per-segment totals of the
+// Hopper kernels for the VSMT-2 slice: the per-segment totals of the
 // batched frozen rounds (msm_lane), the IPP generator fold (fold_bits) and
 // the constant folds of the grid rounds (fold_c, fold_c_comb: the w4
-// ladder of msm_w4 plus one add).  Plain C entry points for ctypes
-// (ops/build.py): each
+// ladder plus one add).  The chained w4 MSMs (msm_w4, msm_w4_pair, and
+// msm_grid / msm_grid_local over views) are windowed and live in win.cu
+// beside the walkers whose passes they share.  Plain C entry points for
+// ctypes (ops/build.py): each
 // launches on the caller's stream, never synchronises, allocates nothing,
 // and returns cudaGetLastError().
 //
 // Layouts (row-major, int32):
 //   points  (n, 4, 8): X, Y, Z, T as eight little-endian words each, any
 //                      value below 2^256 (gens arrive canonical)
-//   words   (n, 8):    one scalar per row; signed 4-bit digits for the MSMs
-//                      (nibble e, digit e - 16 when e >= 8), raw little-
-//                      endian bits for the fold
+//   words   (n, 8):    one scalar per row; signed 4-bit digits for the
+//                      ladders (nibble e, digit e - 16 when e >= 8), raw
+//                      little-endian bits for the fold
 //   out points are stored canonical (every coordinate in [0, p)).
 //
 // What bounds these kernels: integer multiply throughput.  One w4 ladder
@@ -38,8 +38,9 @@ __device__ __forceinline__ void load_words(const int32_t* src, uint32_t w[8]) {
 }
 
 // d * P for the signed-digit scalar in w (64 nibbles, most significant
-// first): an 8-entry table (k+1)P, 4 doublings + one table add per window.
-// Nibble 0 adds nothing, so the ladder starts at the top nonzero digit.
+// first; msm_lane and the constant folds): an 8-entry table (k+1)P, 4
+// doublings + one table add per window.  Nibble 0 adds nothing, so the
+// ladder starts at the top nonzero digit.
 __device__ ge ladder_w4(const ge& P, const uint32_t w[8]) {
     ge tbl[8];
     tbl[0] = P;
@@ -71,47 +72,6 @@ __device__ ge ladder_w4(const ge& P, const uint32_t w[8]) {
         }
     }
     return acc;
-}
-
-// Pass 1: one ladder per point, block-reduced into one partial per block.
-// Blocks [0, blocks_lo) cover points [0, lo_n); the rest cover points
-// [half, half + hi_n) (the pair kernel's high segment; hi_n = 0 for msm_w4).
-__global__ void __launch_bounds__(MSM_THREADS)
-msm_w4_partials(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
-                int32_t* __restrict__ partials, int lo_n, int half, int hi_n,
-                int blocks_lo) {
-    __shared__ ge sh[MSM_THREADS];
-    int b = blockIdx.x;
-    int seg = b >= blocks_lo;
-    int local = seg ? b - blocks_lo : b;
-    int n_seg = seg ? hi_n : lo_n;
-    long long i = (long long)local * blockDim.x + threadIdx.x;
-    ge v = ge_identity();
-    if (i < n_seg) {
-        long long row = (seg ? (long long)half : 0ll) + i;
-        uint32_t w[8];
-        load_words(words + 8 * row, w);
-        if (!fe_is_zero_words(w)) v = ladder_w4(ge_load(pts + 32 * row), w);
-    }
-    block_sum(v, sh);
-    if (threadIdx.x == 0) ge_store_raw(partials + 32ll * b, sh[0]);
-}
-
-// Pass 2: block `seg` sums its segment's partials (in any order: the group
-// law is exact) plus that segment's incoming accumulator.
-__global__ void __launch_bounds__(MSM_THREADS)
-msm_w4_final(const int32_t* __restrict__ partials, const int32_t* __restrict__ acc,
-             int32_t* __restrict__ out, int blocks_lo, int nblocks) {
-    __shared__ ge sh[MSM_THREADS];
-    int seg = blockIdx.x;
-    int beg = seg ? blocks_lo : 0;
-    int end = seg ? nblocks : blocks_lo;
-    ge v = ge_identity();
-#pragma unroll 1
-    for (int j = beg + threadIdx.x; j < end; j += blockDim.x)
-        v = ge_add(v, ge_load(partials + 32ll * j));
-    block_sum(v, sh);
-    if (threadIdx.x == 0) ge_store(out + 32 * seg, ge_add(sh[0], ge_load(acc + 32 * seg)));
 }
 
 // msm_lane pass 1: block (b, s) runs the ladders of points
@@ -184,7 +144,7 @@ fold_bits_kernel(const int32_t* __restrict__ left, const int32_t* __restrict__ r
 
 // The constant fold of the grid rounds (pallas_curve._fold_c_kernel):
 // out[i] = P[i] + c_i * P[i + v], c_i the first constant below bp and the
-// second from bp on, by the w4 ladder of msm_w4 (~330 point operations per
+// second from bp on, by the w4 ladder (~330 point operations per
 // output; bound: integer multiplies).  Block (x, side): side s reads
 // in + s * 2v points and its two constants' signed w4 words at
 // words + 16 * s, and writes out + s * v points.  Thread i reads P[i] and
@@ -225,33 +185,6 @@ extern "C" {
 int bp_set_device(int device) { return (int)cudaSetDevice(device); }
 
 int bp_msm_threads(void) { return MSM_THREADS; }
-
-// Chained MSM: out (1, 4, 8) = acc + sum_i d_i * P_i over n points.
-// partials: scratch for max(1, ceil(n / MSM_THREADS)) points.
-int bp_msm_w4(const int32_t* pts, const int32_t* words, const int32_t* acc,
-              int32_t* out, int32_t* partials, int n, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    int nb = msm_blocks(n);
-    if (nb > 0)
-        msm_w4_partials<<<nb, MSM_THREADS, 0, s>>>(pts, words, partials, n, 0, 0, nb);
-    msm_w4_final<<<1, MSM_THREADS, 0, s>>>(partials, acc, out, nb, nb);
-    return (int)cudaGetLastError();
-}
-
-// Two chained MSMs in one walk: out[0] = acc2[0] + sum over points
-// [0, lo_n), out[1] = acc2[1] + sum over [half, half + hi_n).
-// partials: scratch for max(1, ceil(lo_n / T) + ceil(hi_n / T)) points.
-int bp_msm_w4_pair(const int32_t* pts, const int32_t* words, const int32_t* acc2,
-                   int32_t* out, int32_t* partials, int half, int lo_n, int hi_n,
-                   void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    int blo = msm_blocks(lo_n);
-    int nb = blo + msm_blocks(hi_n);
-    if (nb > 0)
-        msm_w4_partials<<<nb, MSM_THREADS, 0, s>>>(pts, words, partials, lo_n, half, hi_n, blo);
-    msm_w4_final<<<2, MSM_THREADS, 0, s>>>(partials, acc2, out, blo, nb);
-    return (int)cudaGetLastError();
-}
 
 // v independent MSM totals: out[s] = sum over points [s * seg, (s + 1) * seg).
 // partials: scratch for v * max(1, ceil(seg / MSM_THREADS)) points.

@@ -4,10 +4,12 @@
 // accumulator MSMs that walk them (msm_win5: one walk over a w5 table;
 // msm_win: one walk over a w4 table; msm_win_pair: a combined round's L
 // and R walks over a w4 table in one launch).  One kernel template each,
-// instantiated per digit width.  Plain C entry points for ctypes
-// (ops/build.py), with the conventions of msm_fold.cu: launch on the
-// caller's stream, never synchronise, allocate nothing, return
-// cudaGetLastError().
+// instantiated per digit width.  Beside them the windowed w4 MSM
+// (msm_w4, msm_w4_pair; see "the windowed w4 MSM" below), which builds
+// its tables in shared memory and ends in the walkers' passes 2 and 3.
+// Plain C entry points for ctypes (ops/build.py), with the conventions of
+// msm_fold.cu: launch on the caller's stream, never synchronise, allocate
+// nothing, return cudaGetLastError().
 //
 // Layouts (row-major, int32):
 //   points (n, 4, 8):       X, Y, Z, T, eight little-endian words each
@@ -54,7 +56,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "ge25519.cuh"
+#include "ge25519_cc.cuh"
 
 #define TABLE_THREADS 128
 #define WIN_THREADS 128               // pass 1: threads a block (4 warps)
@@ -94,144 +96,11 @@ struct walks2 {
     walk s[2];
 };
 
-struct niels {
-    fe ypx, ymx, t2d, z;
-};
-
-__device__ __forceinline__ fe fe_load_vec(const int32_t* src) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4 a = __ldg(s);
-    uint4 b = __ldg(s + 1);
-    fe r;
-    r.w[0] = a.x; r.w[1] = a.y; r.w[2] = a.z; r.w[3] = a.w;
-    r.w[4] = b.x; r.w[5] = b.y; r.w[6] = b.z; r.w[7] = b.w;
-    return r;
-}
-
-__device__ __forceinline__ niels niels_load(const int32_t* src) {
-    niels q;
-    q.ypx = fe_load_vec(src);
-    q.ymx = fe_load_vec(src + 8);
-    q.t2d = fe_load_vec(src + 16);
-    q.z = fe_load_vec(src + 24);
-    return q;
-}
-
-// the identity in niels form: (1, 1, 0, 1)
-__device__ __forceinline__ niels niels_identity() {
-    niels q;
-    q.ypx = fe_one();
-    q.ymx = fe_one();
-    q.t2d = fe_zero();
-    q.z = fe_one();
-    return q;
-}
-
-__device__ __forceinline__ void fe_store_raw(int32_t* dst, const fe& a) {
-    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d[i] = a.w[i];
-}
-
-__device__ __forceinline__ void fe_store_canon(int32_t* dst, const fe& a) {
-    fe_store_raw(dst, fe_canon(a));
-}
-
-__device__ __forceinline__ fe fe_select(bool c, const fe& a, const fe& b) {
-    fe r;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) r.w[i] = c ? a.w[i] : b.w[i];
-    return r;
-}
-
 __device__ __forceinline__ fe fe_shfl(const fe& a, int lane) {
     fe r;
 #pragma unroll
     for (int i = 0; i < 8; ++i) r.w[i] = __shfl_sync(0xffffffffu, a.w[i], lane);
     return r;
-}
-
-__device__ __forceinline__ ge ge_shfl_down(const ge& p, int off) {
-    ge r;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        r.X.w[i] = __shfl_down_sync(0xffffffffu, p.X.w[i], off);
-        r.Y.w[i] = __shfl_down_sync(0xffffffffu, p.Y.w[i], off);
-        r.Z.w[i] = __shfl_down_sync(0xffffffffu, p.Z.w[i], off);
-        r.T.w[i] = __shfl_down_sync(0xffffffffu, p.T.w[i], off);
-    }
-    return r;
-}
-
-// ---- point operations on the carry-chain multiply, inlined where they
-// are called (one call site each per kernel): register-resident, no
-// stack frame.  The formulas are ge25519.cuh's.
-
-// p + (neg ? -q : q), q in niels form: add-2008-hwcd-3 with 2dT and the
-// operand sums of q precomputed, 8 multiplies.  -q swaps Y+X with Y-X and
-// negates 2dT, so C changes sign and F, G swap.  Complete (a = -1): the
-// identity needs no special case.
-__device__ __forceinline__ ge ge_add_niels_cc(const ge& p, const niels& q, bool neg) {
-    fe A = fe_mul_cc(fe_sub(p.Y, p.X), fe_select(neg, q.ypx, q.ymx));
-    fe B = fe_mul_cc(fe_add(p.Y, p.X), fe_select(neg, q.ymx, q.ypx));
-    fe C = fe_mul_cc(p.T, q.t2d);
-    fe Dz = fe_mul_cc(p.Z, q.z);
-    fe Dv = fe_add(Dz, Dz);
-    fe E = fe_sub(B, A);
-    fe Fm = fe_sub(Dv, C);
-    fe Gp = fe_add(Dv, C);
-    fe F = fe_select(neg, Gp, Fm);
-    fe G = fe_select(neg, Fm, Gp);
-    fe H = fe_add(B, A);
-    ge r;
-    r.X = fe_mul_cc(E, F);
-    r.Y = fe_mul_cc(G, H);
-    r.Z = fe_mul_cc(F, G);
-    r.T = fe_mul_cc(E, H);
-    return r;
-}
-
-// p + q, both extended: ge_add on the carry-chain multiply (9 multiplies)
-__device__ __forceinline__ ge ge_add_cc(const ge& p, const ge& q) {
-    fe A = fe_mul_cc(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
-    fe B = fe_mul_cc(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
-    fe C = fe_mul_cc(fe_mul_cc(p.T, q.T), fe_d2());
-    fe Dz = fe_mul_cc(p.Z, q.Z);
-    fe Dv = fe_add(Dz, Dz);
-    fe E = fe_sub(B, A);
-    fe F = fe_sub(Dv, C);
-    fe G = fe_add(Dv, C);
-    fe H = fe_add(B, A);
-    ge r;
-    r.X = fe_mul_cc(E, F);
-    r.Y = fe_mul_cc(G, H);
-    r.Z = fe_mul_cc(F, G);
-    r.T = fe_mul_cc(E, H);
-    return r;
-}
-
-// The sum of one point per thread over a block of WARPS warps: a shuffle
-// tree inside each warp (5 levels), then one over the warps' sums in
-// warp 0 (sh holds WARPS points).  One ge_add_cc site.  Returns true in
-// thread 0, whose v is the sum; the other warps return early.
-template <int WARPS>
-__device__ __forceinline__ bool tree_sum(ge& v, ge* sh) {
-    constexpr int LOG_WARPS = WARPS == 1 ? 0 : WARPS == 2 ? 1 : WARPS == 4 ? 2 : 3;
-    static_assert(WARPS == 1 << LOG_WARPS, "WARPS: 1, 2, 4 or 8");
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll 1
-    for (int level = 0; level < 5 + LOG_WARPS; ++level) {
-        if (level == 5) {
-            if (lane == 0) sh[warp] = v;
-            __syncthreads();
-            if (warp != 0) return false;
-            v = lane < WARPS ? sh[lane] : ge_identity();
-        }
-        const int off = level < 5 ? 16 >> level : WARPS >> (level - 4);
-        v = ge_add_cc(v, ge_shfl_down(v, off));
-    }
-    return threadIdx.x == 0;
 }
 
 // One thread per point: (k + 1) * P for k = 0..TBL-1 by the TPU kernels'
@@ -518,6 +387,234 @@ static int msm_win_launch(const int32_t* table, const int32_t* words, const int3
     return (int)cudaGetLastError();
 }
 
+// ---- the windowed w4 MSM (msm_w4, msm_w4_pair; msm_grid and
+// msm_grid_local launch msm_w4's entry over a view).  It replaces
+// pallas_curve.py's msm_chunk_acc_w4 (:369) and msm_grid_pair (:768)
+// (and msm_grid_acc :438, msm_grid_local :487: the same body): out = acc
+// + sum_i d_i P_i over signed w4 words, for the pair over two segments
+// with their own accumulators.  What bounds it on an H100: 32-bit integer
+// multiplies (per point a 7-operation table and ~60 niels adds, 160 B
+// read), and at the main path's 1,024-4,096 points the latency of the
+// passes, which cannot fill 132 SMs.  The first version ran one
+// 64-window ladder per point on one thread (~330 point operations, out
+// of line, its table in local memory): 1.446 ms at the 4,096-point frozen
+// pack against a bound of 0.093.  Design: windows, then Horner.  Pass 1
+// (msm_w4_tiles) gives each block tiles of 16 or 64 points (by the size
+// and the card); it builds their eight multiples in niels form in shared
+// memory (two threads a point) and then each thread sums one window's
+// selected entries over half a tile in registers, through the walkers'
+// inlined niels add; per point that is 7 table operations and <= 64
+// niels adds, and the card gets 64 independent sums per block in place
+// of serial ladders.  The walkers' pass 2 (msm_win_windows<4>) and
+// cooperative Horner (msm_win_horner<4>) finish, with the incoming
+// accumulators as the chains.  The kernel lives here, not in
+// msm_fold.cu, because passes 2-3 are this file's templates; the point
+// operations it shares with the walkers and the fold are
+// ge25519_cc.cuh's.  Measured (NVIDIA H100 80GB
+// HBM3, 700.00 W; chip_profile.py --kernels, parent and this design in
+// turns): the frozen pack 1.43 -> 0.43 ms, of which the Horner tail is
+// 0.28 (the floor at the main path's sizes); msm_w4 at 2,048 / 1,024
+// points 1.28 / 1.27 -> 0.41 / 0.40, at 2^14 1.45 -> 0.58; msm_grid at
+// 143,704 9.6 -> 2.4 (bound 0.67); msm_grid_local at 65,536 4.6 -> 1.4.
+// The 64-point tile took msm_grid from 2.9 to 2.4 ms and cost the frozen
+// pack 0.49 against 0.43 ms, hence the choice by size.
+#define W4_THREADS (2 * Win<4>::WINDOWS)    // pass 1: two threads a window
+#define W4_MIN_BLOCKS 3                     // pass 1 blocks an SM holds: <= 168 registers
+#define W4_STRIDE (32 * Win<4>::TBL + 1)    // shared words of one point's table
+#define W4_TILES 2                          // pass 1's tiles: 16 and 64 points
+
+// One segment of an MSM: points (and word rows) [off, off + n).
+struct seg {
+    int n, off;
+};
+
+struct segs2 {
+    seg s[2];
+};
+
+// A point's table in shared memory: word j (8c + i: word i of niels
+// coordinate c) of entry k at t[8 j + k].  A warp reads one point's
+// entries (its threads are windows), which sit in 8 consecutive banks for
+// each word; the tables of consecutive points start one bank apart (the
+// stride's +1), so a warp of table threads (one point each) stores
+// without conflicts.
+__device__ __forceinline__ void w4_put(uint32_t* t, int k, const niels& q) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        t[8 * i + k] = q.ypx.w[i];
+        t[8 * (8 + i) + k] = q.ymx.w[i];
+        t[8 * (16 + i) + k] = q.t2d.w[i];
+        t[8 * (24 + i) + k] = q.z.w[i];
+    }
+}
+
+__device__ __forceinline__ niels w4_get(const uint32_t* t, int k) {
+    niels q;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        q.ypx.w[i] = t[8 * i + k];
+        q.ymx.w[i] = t[8 * (8 + i) + k];
+        q.t2d.w[i] = t[8 * (16 + i) + k];
+        q.z.w[i] = t[8 * (24 + i) + k];
+    }
+    return q;
+}
+
+// The multiples (k + 1) P, k = 0..7, of the point at src into its shared
+// table in niels form, by two threads (role 0 and 1, in different warps,
+// so no warp diverges): both double P; role 0 then makes 4P, 5P = 4P + P
+// and 8P (entries 1: 2P, 3, 4, 7), role 1 3P = 2P + P, 6P and 7P = 6P + P
+// (entries 0: P, 2, 5, 6).  Each role's four steps are one loop with one
+// doubling site and one add site.
+__device__ __forceinline__ void w4_table(const int32_t* src, uint32_t* t, int role) {
+    const niels nP = ge_to_niels_cc(ge_load(src));
+    if (role) w4_put(t, 0, nP);
+    ge x = ge_load(src);
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+        ge y;
+        if (role ? (k & 1) : k == 2) y = ge_add_niels_cc(x, nP, false);
+        else y = ge_double_cc(x, true);
+        const int entry = role ? (k == 1 ? 2 : k == 2 ? 5 : 6)
+                               : (k == 0 ? 1 : k == 1 ? 3 : k == 2 ? 4 : 7);
+        if (!role || k > 0) w4_put(t, entry, ge_to_niels_cc(y));
+        if (role || k != 2) x = y;
+    }
+}
+
+// Pass 1: block (b, s) takes tiles b, b + nb, ... (at most ppt) of
+// segment s, TILE points each.  Per tile it loads the word rows and
+// builds every live point's eight multiples into shared memory (two
+// threads a point: roles in different warps); then thread t adds, for
+// window t % 64, the entries its digits select over its half of the
+// tile's points (digit code e, e >= 8 the digit e - 16: entry 16 - e
+// negated; code 0 adds nothing), into a register-resident sum through the
+// inlined niels add.  After its tiles the two halves' sums of each window
+// are added, and the block stores one partial per window, walk- then
+// window-major: partials[(s * 64 + win) * nb + b], the layout
+// msm_win_windows<4> reads.  A block with no tile stores the identity.
+template <int TILE>
+__global__ void __launch_bounds__(W4_THREADS, W4_MIN_BLOCKS)
+msm_w4_tiles(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
+             int32_t* __restrict__ partials, segs2 g, int ppt) {
+    constexpr int WINDOWS = Win<4>::WINDOWS;
+    constexpr int SPAN = TILE < 32 ? 32 : TILE;  // table threads of one role
+    static_assert(TILE % 2 == 0 && 2 * SPAN <= W4_THREADS, "two table threads a point");
+    extern __shared__ uint32_t smem[];
+    uint32_t* tbl = smem;
+    uint32_t* wsh = smem + TILE * W4_STRIDE;
+    const int b = blockIdx.x;
+    const int s = blockIdx.y;
+    const seg sg = g.s[s];
+    const int t = threadIdx.x;
+    const int win = t % WINDOWS;
+    const int half = t / WINDOWS;
+    const int tiles = (sg.n + TILE - 1) / TILE;
+    ge acc = ge_identity();
+#pragma unroll 1
+    for (int k = 0; k < ppt; ++k) {
+        const int tile = b + k * gridDim.x;
+        if (tile >= tiles) break;
+        const int base = tile * TILE;
+        const int cnt = min(TILE, sg.n - base);
+        const long long row0 = (long long)sg.off + base;
+        __syncthreads();  // the last tile's tables are read
+#pragma unroll 1
+        for (int j = t; j < 8 * TILE; j += W4_THREADS)
+            wsh[j] = (j >> 3) < cnt ? (uint32_t)__ldg(words + 8 * row0 + j) : 0u;
+        __syncthreads();
+        const int p = t % SPAN;
+        if (t < 2 * SPAN && p < cnt && !fe_is_zero_words(wsh + 8 * p))
+            w4_table(pts + 32 * (row0 + p), tbl + p * W4_STRIDE, t / SPAN);
+        __syncthreads();
+#pragma unroll 1
+        for (int i = 0; i < TILE / 2; ++i) {
+            const int q = half * (TILE / 2) + i;
+            const uint32_t e = (wsh[8 * q + (win >> 3)] >> (4 * (win & 7))) & 15u;
+            if (e) {
+                const bool neg = e >= 8u;  // e = 8 is the digit -8: entry 8P negated
+                acc = ge_add_niels_cc(acc, w4_get(tbl + q * W4_STRIDE, (neg ? 16 - e : e) - 1),
+                                      neg);
+            }
+        }
+    }
+    __syncthreads();  // the tables are read: their space takes the halves' sums
+    ge* sh = reinterpret_cast<ge*>(smem);
+    if (half) sh[win] = acc;
+    __syncthreads();
+    if (!half)
+        ge_store_raw(partials + 32ll * (((long long)s * WINDOWS + win) * gridDim.x + b),
+                     ge_add_cc(acc, sh[win]));
+}
+
+// Pass 1's tile k: its points, its shared memory (tables and words) and
+// its kernel.
+static const int W4_TILE_POINTS[W4_TILES] = {16, 64};
+
+static size_t w4_smem(int k) {
+    return sizeof(uint32_t) * W4_TILE_POINTS[k] * (W4_STRIDE + 8);
+}
+
+static void (*const W4_KERNELS[W4_TILES])(const int32_t*, const int32_t*, int32_t*, segs2,
+                                          int) = {msm_w4_tiles<16>, msm_w4_tiles<64>};
+
+// Pass 1's geometry for `walks` segments of at most vmax points on the
+// current device: the tile (W4_TILE_POINTS[*k]), nb blocks a segment and ppt
+// tiles a block, nb at most the blocks the card holds at once (occupancy
+// query) over the segments, so the pass runs in one wave.  The tile is
+// the small one while its tiles fit that wave one a block (at the main
+// path's 1,024-4,096 points the pass is latency: a small tile is a short
+// chain), else the large one (a full card is throughput: a large tile
+// spends less on tables, syncs and partials).  The first query on a
+// device also allows the 64-point tile's dynamic shared memory (above
+// 48 KB); a launch it would not allow fails.
+static void w4_geometry(int vmax, int walks, int* k, int* nb, int* ppt) {
+    static int held[64][W4_TILES];  // pass 1 blocks the card holds (0: not asked)
+    int dev = 0;
+    cudaGetDevice(&dev);
+    const bool cached = dev >= 0 && dev < 64;
+    int card[W4_TILES];
+    for (int j = 0; j < W4_TILES; ++j) {
+        card[j] = cached ? held[dev][j] : 0;
+        if (card[j] == 0) {
+            const size_t smem = w4_smem(j);
+            if (smem > 48 * 1024)
+                cudaFuncSetAttribute(W4_KERNELS[j],
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            int sms = 1, per_sm = 1;
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, W4_KERNELS[j], W4_THREADS,
+                                                          smem);
+            card[j] = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+            if (cached) held[dev][j] = card[j];
+        }
+    }
+    const int j = (vmax + W4_TILE_POINTS[0] - 1) / W4_TILE_POINTS[0] > card[0] / walks;
+    const int tiles = (vmax + W4_TILE_POINTS[j] - 1) / W4_TILE_POINTS[j];
+    int n = card[j] / walks < tiles ? card[j] / walks : tiles;
+    n = n > 1 ? n : 1;
+    *k = j;
+    *ppt = (tiles + n - 1) / n;
+    *nb = *ppt > 0 ? (tiles + *ppt - 1) / *ppt : 1;
+}
+
+// The three passes over `walks` (1 or 2) segments: out[s] = chain[s] +
+// sum over segment s.
+static int msm_w4_launch(const int32_t* pts, const int32_t* words, const int32_t* chain,
+                         int32_t* out, int32_t* partials, int32_t* wtot, segs2 g, int walks,
+                         cudaStream_t s) {
+    constexpr int WINDOWS = Win<4>::WINDOWS;
+    int vmax = 0;
+    for (int k = 0; k < walks; ++k) vmax = g.s[k].n > vmax ? g.s[k].n : vmax;
+    int k = 0, nb = 1, ppt = 0;
+    w4_geometry(vmax, walks, &k, &nb, &ppt);
+    W4_KERNELS[k]<<<dim3(nb, walks), W4_THREADS, w4_smem(k), s>>>(pts, words, partials, g,
+                                                                   ppt);
+    msm_win_windows<4><<<dim3(WINDOWS, walks), 32, 0, s>>>(partials, wtot, nb);
+    msm_win_horner<4><<<walks, 32, 0, s>>>(wtot, chain, out);
+    return (int)cudaGetLastError();
+}
+
 template <int TBL>
 static int table_launch(const int32_t* pts, int32_t* table, int n, cudaStream_t s) {
     if (n > 0)
@@ -552,6 +649,44 @@ int bp_win_partials(int vmax, int walks, int bits) {
     const int windows = bits == 5 ? Win<5>::WINDOWS : Win<4>::WINDOWS;
     int nb = walk_blocks(vmax);
     return walks * windows * (nb > 1 ? nb : 1);
+}
+
+// The windowed w4 MSM's first pass on the current device for `walks`
+// segments of at most vmax points: its tile (points), and the scratch
+// points it needs (pass 2's window totals are walks * 64 more, from
+// bp_win4_windows).
+int bp_w4_tile(int vmax, int walks) {
+    int k = 0, nb = 1, ppt = 0;
+    w4_geometry(vmax, walks, &k, &nb, &ppt);
+    return W4_TILE_POINTS[k];
+}
+
+int bp_w4_partials(int vmax, int walks) {
+    int k = 0, nb = 1, ppt = 0;
+    w4_geometry(vmax, walks, &k, &nb, &ppt);
+    return walks * Win<4>::WINDOWS * nb;
+}
+
+// Chained MSM: out (1, 4, 8) = acc + sum_{i < n} d_i * P_i (w4 words).
+// partials: bp_w4_partials(n, 1) points of scratch; wtot: 64 points.
+int bp_msm_w4(const int32_t* pts, const int32_t* words, const int32_t* acc, int32_t* out,
+              int32_t* partials, int32_t* wtot, int n, void* stream) {
+    segs2 g;
+    g.s[0] = seg{n, 0};
+    g.s[1] = g.s[0];
+    return msm_w4_launch(pts, words, acc, out, partials, wtot, g, 1, (cudaStream_t)stream);
+}
+
+// Two chained MSMs in one launch set: out[0] = acc2[0] + sum over points
+// [0, lo_n), out[1] = acc2[1] + sum over [half, half + hi_n).  partials:
+// bp_w4_partials(max(lo_n, hi_n), 2) points of scratch; wtot: 2 * 64.
+int bp_msm_w4_pair(const int32_t* pts, const int32_t* words, const int32_t* acc2,
+                   int32_t* out, int32_t* partials, int32_t* wtot, int half, int lo_n,
+                   int hi_n, void* stream) {
+    segs2 g;
+    g.s[0] = seg{lo_n, 0};
+    g.s[1] = seg{hi_n, half};
+    return msm_w4_launch(pts, words, acc2, out, partials, wtot, g, 2, (cudaStream_t)stream);
 }
 
 int bp_win5_windows(void) { return Win<5>::WINDOWS; }

@@ -42,8 +42,10 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "bp_set_device": [_I],
     "bp_msm_threads": [],
-    "bp_msm_w4": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
-    "bp_msm_w4_pair": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "bp_w4_tile": [_I, _I],
+    "bp_w4_partials": [_I, _I],
+    "bp_msm_w4": [_VP] * 6 + [_I, _VP],
+    "bp_msm_w4_pair": [_VP] * 6 + [_I, _I, _I, _VP],
     "bp_msm_lane": [_VP, _VP, _VP, _VP, _I, _I, _VP],
     "bp_fold_bits": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
     "bp_win_partials": [_I, _I, _I],

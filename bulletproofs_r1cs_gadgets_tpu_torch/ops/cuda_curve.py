@@ -26,17 +26,25 @@ design does about that):
 ``msm_w4`` replaces ``pallas_curve.msm_chunk_acc_w4`` (ops/pallas_curve.py
 :369, the ``_ladder_w4`` signed-digit ladder + ``emit_block_reduce``)
 together with the per-chunk loop of ``chunks.msm_chain``.  Bound: 32-bit
-integer multiplies (~330 point operations x ~9 field multiplies per
-point; 160 B read per point).  Design: one thread per point runs the
-signed w4 ladder from the reference's nibble words (8-entry table in
-local memory, all-zero rows skipped), a shared-memory tree reduces each
-block to one partial, and a second launch sums the partials and the
-incoming accumulator.  One launch pair covers any n.
+integer multiplies (per live point a 7-operation table and one niels add
+per nonzero digit, ~64; 160 B read per point).  Design (``csrc/win.cu``,
+the second version): windows, then Horner.  A first pass gives each block
+tiles of 16 or 64 points (the library picks by size and card); per tile
+the block builds every point's eight multiples in niels form in shared
+memory (two threads a point) and each thread adds, for one of the 64
+windows, the entries its digits select over half the tile into a
+register-resident sum (the walkers' inlined niels add on the carry-chain
+multiply); one partial per window and block.  The walkers' second pass
+and cooperative Horner (``msm_win_windows<4>``, ``msm_win_horner<4>``)
+finish, with the incoming accumulator as the chain.  The first pass's
+blocks come from the card's resident blocks, so the library sizes the
+scratch (``bp_w4_partials``).  The first version ran one 64-window
+ladder per point (~330 point operations) per thread.
 
 ``msm_w4_pair`` replaces ``pallas_curve.msm_grid_pair`` (:768).  Same
-bound.  Design: the ``msm_w4`` passes over two segments, points
-[0, lo_limit) and [half, half + hi_limit); limits skip work, and each
-segment chains its own accumulator.
+bound and design, over two segments, points [0, lo_limit) and [half,
+half + hi_limit) (a grid dimension of the first pass, one Horner walk
+each); limits skip work, and each segment chains its own accumulator.
 
 ``fold_bits`` replaces ``pallas_curve.fold_chunk`` (:1566, ``_emit_fold``
 :1533).  Bound: integer multiplies (253 doublings + up to 253 adds per
@@ -45,11 +53,12 @@ ladder over bits 252..0 with the {L, R, L+R} selection; no reduction.
 
 ``msm_lane`` replaces ``pallas_curve.msm_lane_dyn`` (:1515,
 ``_msm_lane_kernel`` :1473): v independent MSM totals, one per segment of
-``seg`` points (the flotilla of batched frozen IPP rounds).  Same bound
-as ``msm_w4``.  Design: ``msm_w4``'s per-thread ladder over a 2-D grid
-(blocks x segments), one partial per block, a second launch with one
-block per segment; the TPU's lattice-position output is a (v, 4, 8)
-tensor.
+``seg`` points (the flotilla of batched frozen IPP rounds).  Bound:
+integer multiplies (the ~330 point operations of the w4 ladder per
+point).  Design: the first ``msm_w4``'s per-thread ladder
+(``csrc/msm_fold.cu``) over a 2-D grid (blocks x segments), one partial
+per block, a second launch with one block per segment; the TPU's
+lattice-position output is a (v, 4, 8) tensor.
 
 ``table_w5`` replaces ``pallas_curve.table_grid5_full`` (:1233,
 ``_table16_body`` :1174, ``_to_niels`` :934): the 16 multiples (k+1)P of
@@ -100,12 +109,15 @@ per walk.  On the card: 3.22 ms at n = 2^16 (5.39 before).
 ``fold_grid_w3h_comb`` (:685, ``_fold_w3h_comb_call`` :649): out[i] =
 beta * P[i] + alpha * P[i + v] with two signed half-width pairs split at
 a breakpoint, one side or both sides of the combined layout.  Bound:
-integer multiplies (~226 point operations per point).  Design: one
-thread per output point, two 4-entry tables and one shared doubling
-chain over 44 signed w3 digits; the kernels take the two pairs' digit
-words and the breakpoint (the TPU passes per-lane word arrays), and
-write a tensor apart from their input (the TPU folds in place, which
-blocks running in any order cannot).
+integer multiplies (~226 point operations per point).  Design
+(``csrc/fold_w3h.cu``, the second version): one thread per output point,
+two 4-entry niels tables and one shared doubling chain over 44 signed w3
+digits, every point operation inlined on the carry-chain multiply
+(squares by ``fe_sq_cc``, the first two doublings of a window without T,
+8-multiply niels adds); the kernels take the two pairs' digit words and
+the breakpoint (the TPU passes per-lane word arrays), and write a tensor
+apart from their input (the TPU folds in place, which blocks running in
+any order cannot).
 
 ``fold_c`` replaces ``pallas_curve.fold_grid_c`` / ``fold_grid_c_donate``
 (:541 / :548, ``_fold_c_call`` :513, ``_fold_c_kernel`` :490), and
@@ -113,8 +125,8 @@ blocks running in any order cannot).
 :698): out[i] = P[i] + c_i * P[i + v] with two constants split at a
 breakpoint, one side or both sides of the combined layout.  Bound:
 integer multiplies (the ~330 point operations of the w4 ladder per
-output).  Design: ``msm_w4``'s per-thread ladder plus one add, one thread
-per output; the kernels take the two constants' w4 words and the
+output).  Design: ``msm_lane``'s per-thread w4 ladder plus one add, one
+thread per output; the kernels take the two constants' w4 words and the
 breakpoint (the TPU passes per-lane word arrays).  One side may fold in
 place (thread i reads rows i and i + v and writes row i only), the
 counterpart of the TPU's donated variant; the combined fold writes a new
@@ -130,18 +142,18 @@ the card, 3.57 with the first version).
 ``_msm_grid_kernel`` :415): a chained w4 MSM over a chunk range of the
 generators.  Its body is ``msm_chunk_acc_w4``'s (``_ladder_w4``, block
 reduce, add); the two TPU kernels differ only in the capacity shapes they
-address.  So it launches the ``msm_w4`` kernel over the view
+address.  So it launches the ``msm_w4`` kernels over the view
 ``points[poff : poff + n]`` of the cached generator tensor (no copy), and
 counts its own launches.
 
 ``msm_grid_local`` replaces ``pallas_curve.msm_grid_local`` (:487, the
 same ``_msm_grid_kernel`` over the whole width of one device's shard,
 clamped to its valid chunks): one shard's walk in
-``parallel/sharded_fast.py``.  Again the ``msm_w4`` kernel, over the
+``parallel/sharded_fast.py``.  Again the ``msm_w4`` kernels, over the
 shard's live prefix, with its own wrapper and count.  The reference walks
 a shard with no valid chunk over one zero-word chunk; here it launches
-over no points (the second pass alone returns the accumulator), so the
-result does not rest on the words past the valid span being zero.
+over no points (the passes return the accumulator), so the result does
+not rest on the words past the valid span being zero.
 
 The device-oracle path's kernels (``csrc/oracle.cu``; callers in
 ``ops/{field,curve,msm,backend,poseidon}.py`` and ``parallel/pipeline.py``)
@@ -292,8 +304,24 @@ def _launch(name: str, dev: torch.device, entry: str, *args,
 
 
 def _msm_partials(lib, n: int) -> int:
+    """msm_lane's first-pass partials for a segment of n points."""
     t = lib.bp_msm_threads()
     return -(-n // t)
+
+
+def _w4_scratch(dev: torch.device, vmax: int, walks: int):
+    """The windowed w4 MSM's scratch for `walks` segments of at most vmax
+    points: pass 1's partials, as many as the library's geometry gives on
+    `dev` (it asks the card how many blocks it holds), and pass 2's
+    window totals."""
+    lib = build.load()
+    with torch.cuda.device(dev):
+        build.check(lib.bp_set_device(dev.index), "msm_w4 scratch (set device)")
+        nparts = lib.bp_w4_partials(vmax, walks)
+    partials = torch.empty((nparts, 4, 8), dtype=torch.int32, device=dev)
+    wtot = torch.empty((walks * lib.bp_win4_windows(), 4, 8), dtype=torch.int32,
+                       device=dev)
+    return partials, wtot
 
 
 # ------------------------------------------------------- plain versions
@@ -540,13 +568,10 @@ def _msm_w4_launch(name: str, points: torch.Tensor, words: torch.Tensor,
     _check(acc, "acc", (1, 4, 8), dev)
     if _route(dev) == "plain":
         return msm_w4_plain(points, words, acc)
-    lib = build.load()
     out = torch.empty((1, 4, 8), dtype=torch.int32, device=dev)
-    partials = torch.empty(
-        (max(1, _msm_partials(lib, n)), 4, 8), dtype=torch.int32, device=dev
-    )
+    partials, wtot = _w4_scratch(dev, n, 1)
     _launch(name, dev, "bp_msm_w4", _ptr(points), _ptr(words), _ptr(acc),
-            _ptr(out), _ptr(partials), n)
+            _ptr(out), _ptr(partials), _ptr(wtot), n)
     return out
 
 
@@ -601,14 +626,10 @@ def msm_w4_pair(points: torch.Tensor, words: torch.Tensor,
     _check(acc2, "acc2", (2, 4, 8), dev)
     if _route(dev) == "plain":
         return msm_w4_pair_plain(points, words, acc2, half, lo, hi)
-    lib = build.load()
     out = torch.empty((2, 4, 8), dtype=torch.int32, device=dev)
-    nparts = _msm_partials(lib, lo) + _msm_partials(lib, hi)
-    partials = torch.empty(
-        (max(1, nparts), 4, 8), dtype=torch.int32, device=dev
-    )
+    partials, wtot = _w4_scratch(dev, max(lo, hi), 2)
     _launch("msm_w4_pair", dev, "bp_msm_w4_pair", _ptr(points), _ptr(words),
-            _ptr(acc2), _ptr(out), _ptr(partials), half, lo, hi)
+            _ptr(acc2), _ptr(out), _ptr(partials), _ptr(wtot), half, lo, hi)
     return out
 
 

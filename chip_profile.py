@@ -43,8 +43,26 @@ quick run for tuning the walkers (no plain versions, no proofs).
 
     python3 chip_profile.py --sass
 
-prints the instruction counts, by opcode, of the walker kernels and of
-the multiply test entry in the built library (``cuobjdump -sass``).
+prints the instruction counts, by opcode, of the walker kernels, the
+windowed w4 MSM, the half-width fold and the multiply test entry in the
+built library (``cuobjdump -sass``).
+
+    python3 chip_profile.py --routes comb [--out p.json]
+
+runs parts 1-2 for the named routes only (comma-separated), for a warm
+prove's device time by kernel without the rest.
+
+    python3 chip_profile.py --kernels [--out kernels.json]
+
+times the windowed w4 MSM and the half-width fold at ``chip_smoke.py``
+phase 2's main-path shapes through their wrappers only (so a copy of the
+script times an older tree's kernels too): ``msm_w4_pair`` over the
+4096-point frozen pack, ``msm_w4`` at 2^14, 2048 and 1024 points,
+``msm_grid`` at 143,704, ``msm_grid_local`` over a 65,536-point shard,
+``fold_w3h`` 2^18 -> 2^17, ``fold_w3h_comb`` 2^18 -> 2^17 and 8192 ->
+4096; and, on the frozen pack, the composition ``table_w4`` +
+``msm_win_pair``, which computes ``msm_w4_pair``'s function, in turns
+with it (pair, composition, composition, pair; equal results).
 """
 
 from __future__ import annotations
@@ -122,7 +140,8 @@ def sass(build) -> dict:
     out = {}
     for body in re.split(r"\n\s+Function : ", text)[1:]:
         name = body.split("\n", 1)[0].strip()
-        if "msm_win" not in name and "fe_mul_test" not in name:
+        if not any(k in name for k in ("msm_win", "msm_w4", "fold_w3h",
+                                       "fe_mul_test")):
             continue
         ops = re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", body)
@@ -164,13 +183,76 @@ def walkers(bp, torch, cs, cc, ck, F, gens) -> dict:
                 fe_mul_test=cs.phase_fe_mul(bp, torch, cc, F, dev, rng))
 
 
+def kernels(bp, torch, cs, cc, ck, F, gens) -> dict:
+    """The windowed w4 MSM and the half-width fold at chip_smoke.py phase
+    2's main-path shapes over random words (cs.time_ms, ms a call), and
+    msm_w4_pair against table_w4 + msm_win_pair on the frozen pack."""
+    import numpy as np
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(cs.SEED)
+    N, N1, L = cs.GENS_N, cs.N1, bp.L
+    G = F.from_raw(gens.G_raw(N), dev)
+    H = F.from_raw(gens.H_raw(N), dev)
+    rows = cs.random_scalar_rows(bp, N, rng)
+    w4 = ck.w4_words(rows, dev)
+    ident = F.identity_points(1, dev)
+    ms = {}
+
+    def timed(name, fn, reps=10):
+        ms[name] = cs.time_ms(torch, fn, reps)
+        print(f"  {name}: {ms[name]:.3f} ms", flush=True)
+
+    S = cs.PAIR_S
+    half = 2 * S
+    pack = torch.cat([G[:S], H[:S], G[:S], H[:S]]).contiguous()
+    pw = w4[: 2 * half].contiguous()
+    acc2 = torch.cat([ident, ident])
+    walks = ((half, 0, 0, half, 0), (half, half, half, half, half))
+
+    def pair():
+        return cc.msm_w4_pair(pack, pw, acc2, half)
+
+    def composition():
+        return cc.msm_win_pair(cc.table_w4(pack), pw, acc2, walks)
+
+    assert F.to_points(pair()) == F.to_points(composition())
+    for turn, (tag, fn) in enumerate((("pair", pair), ("composition", composition),
+                                      ("composition", composition), ("pair", pair))):
+        timed(f"frozen pack {2 * half}: {tag} (turn {turn})", fn)
+    for n in cs.MSM_SIZES:
+        Gn, wn = G[:n], w4[:n]
+        timed(f"msm_w4 {n}", lambda: cc.msm_w4(Gn, wn, ident))
+    timed(f"msm_grid {N1}", lambda: cc.msm_grid(G, w4[:N1], ident, 0))
+    shard = cs.SHARD_CHUNKS * ck.CHUNK
+    Gs, ws = G[:shard], w4[:shard]
+    timed(f"msm_grid_local {shard}", lambda: cc.msm_grid_local(
+        Gs, ws, ident, cs.SHARD_CHUNKS, ck.CHUNK))
+
+    def rand_pair():
+        return ck.half_gcd_split(int.from_bytes(rng.bytes(32), "little") % L, L)
+
+    words = ck.w3h_fold_words([[rand_pair(), rand_pair()]], dev)
+    timed(f"fold_w3h {N} -> {N // 2}", lambda: cc.fold_w3h(G, words, N1 - N // 2))
+    for m in (N // 4, cs.COMB7_M):
+        C = torch.cat([G[: 2 * m], H[: 2 * m]])
+        cw = ck.w3h_fold_words([[rand_pair(), rand_pair()]] * 2, dev)
+        timed(f"fold_w3h_comb {4 * m} -> {2 * m}",
+              lambda: cc.fold_w3h_comb(C, cw, m // 5))
+    return dict(kernels_ms=ms)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this file")
     ap.add_argument("--walkers", action="store_true",
                     help="time the window walkers only")
     ap.add_argument("--sass", action="store_true",
-                    help="count the walker kernels' instructions")
+                    help="count the redesigned kernels' instructions")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the windowed w4 MSM and the half-width fold only")
+    ap.add_argument("--routes",
+                    help="profile these routes only (comma-separated), no batch")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -198,8 +280,9 @@ def main() -> int:
         print(json.dumps(sass(build)), flush=True)
         return 0
     gens = bp.BulletproofGens(cs.GENS_N)
-    if args.walkers:
-        out.update(walkers(bp, torch, cs, cc, ck, F, gens))
+    if args.walkers or args.kernels:
+        part = walkers if args.walkers else kernels
+        out.update(part(bp, torch, cs, cc, ck, F, gens))
         print(json.dumps(out), flush=True)
         if args.out:
             with open(args.out, "w") as f:
@@ -232,6 +315,9 @@ def main() -> int:
         "w5_off": flags(w5=False),
     }
 
+    if args.routes:
+        routes = {name: routes[name] for name in args.routes.split(",")}
+
     def prove(name):
         be, ctx = routes[name]
         with ctx():
@@ -246,6 +332,8 @@ def main() -> int:
     prove_s = {name: [] for name in routes}
     verify_s = {name: [] for name in routes}
     for name in ROUTE_ORDER:
+        if name not in routes:
+            continue
         be = routes[name][0]
         fresh()
         prove_s[name].append(wall_s(torch, lambda: prove(name)))
@@ -268,6 +356,12 @@ def main() -> int:
         )
         print(name, json.dumps(out[f"profile_prove_{name}"]),
               json.dumps(out[f"profile_verify_{name}"]), flush=True)
+
+    if args.routes:
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+        return 0
 
     # 3. the walker against the w4 ladder over the same generators
     dev = torch.device("cuda", 0)

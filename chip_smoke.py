@@ -23,8 +23,10 @@ non-zero and prints no result):
    from ``bulletproofs_r1cs_gadgets_tpu_torch/csrc`` (one ``nvcc -c`` per
    source, all in parallel, then one link).
 2. each kernel against its plain torch version on the card at main-path
-   shapes (msm_w4 over 2^14 points, msm_w4_pair over a 4096-point frozen
-   pack with limits 0 / partial / full, fold_bits over 2048 lanes,
+   shapes (msm_w4 over 2^14 points and over 2048 and 1024, IPP rounds
+   8-9's segments, with rows of 0, 1, L - 1, all -8 digits; msm_w4_pair
+   over a 4096-point frozen pack with limits 0 / partial / full,
+   fold_bits over 2048 lanes,
    table_w5 over the 2^18 shared generators, msm_win5 over that table
    at the main path's walks (phase 1's 143,704 points, IPP round 1's
    2^17 at offset 2^17 and its 12,632-step a_R walk, the verifier's 2^18)
@@ -32,7 +34,9 @@ non-zero and prints no result):
    points with an all-zero one, fold_w3h over the 2^18 generators into
    2^17 (random half-gcd pairs split at round 1's breakpoint, and the
    edge pairs (0, 1) / (1, -1)), fold_w3h_comb over a 2^18-point
-   combined tensor, table_w4 over 2^18 points, msm_win_pair at IPP
+   combined tensor (round 2) and an 8192-point one (round 7, one side on
+   the edge pairs; breakpoints inside a block), table_w4 over 2^18
+   points, msm_win_pair at IPP
    rounds 2 (n = 2^16) and 7 (n = 2048); the route flags' kernels:
    fold_c over the 2^18 generators into 2^17 (random constants split at
    round 1's breakpoint, the edge constants 0, 1, L - 1, in place) and
@@ -48,14 +52,19 @@ non-zero and prints no result):
    words (the edge scalars 0, 1, L - 1) and with constant rows, mul_fq /
    mul_fp over 2^20 elements with the edges 0, 1, m - 1, 2^256 - 1, each
    word for word), and on a subset against the host MSM, scalar
-   multiplication or Python ints.  Tolerance: exact (equal points, equal
-   table words; equal words for the device-oracle kernels).  Every walk
-   of the window walkers (msm_win5, msm_win_pair, msm_win) is timed, and
-   split into its Horner tail (the profiler's device time of that kernel)
-   and its passes (the rest; the ``walkers`` line); the walkers' carry-chain multiply and squaring are
+   multiplication or Python ints.  Tolerance: exact (the same group
+   elements, ``point_err`` 0: the windowed MSM and the niels fold add in
+   another order than their plain versions; equal table words; equal
+   words for the device-oracle kernels).  Every walk of the window
+   walkers (msm_win5, msm_win_pair, msm_win) and of the windowed w4 MSM
+   (msm_w4, msm_w4_pair, msm_grid, msm_grid_local, which end in the
+   walkers' Horner) is timed, and split into its Horner tail (the
+   profiler's device time of that kernel) and its passes (the rest; the
+   ``walkers`` line); the walkers' carry-chain multiply and squaring are
    held word for word against fe_mul / fe_sq over 2^20 random and edge
    operand pairs and timed (``fe_mul_test``); phase 1 logs ptxas's
-   registers, stack and spills of the walker kernels (``ptxas``).
+   registers, stack and spills of the walkers, the windowed MSM and the
+   fold (``ptxas``).
 3. a VSMT-2 depth-4 proof through the port (padded to 4096: round 1
    folds with fold_c), byte-identical to the host
    path with the same prover randomness, its digest equal to the JAX
@@ -138,7 +147,9 @@ power limit, the line before the last holds the per-kernel JSON record
 every kernel at least once;
 ``bound_ms``
 the larger of the work's 32-bit multiplies over the card's multiply rate
-and its bytes over 3.35 TB/s, counted from this run's inputs;
+and its bytes over 3.35 TB/s, counted from this run's inputs; the
+redesigned w4 MSMs and half-width folds also give ``bound_ladder_ms``,
+the bound their first versions' ladders were held to;
 ``library_ms`` null: no PyTorch call computes these functions), and the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -159,12 +170,12 @@ _WIN = f"{PKG}/csrc/win.cu"
 _W3H = f"{PKG}/csrc/fold_w3h.cu"
 _OR = f"{PKG}/csrc/oracle.cu"
 SOURCES = {
-    "msm_w4": _W4, "msm_w4_pair": _W4, "fold_bits": _W4, "msm_lane": _W4,
+    "msm_w4": _WIN, "msm_w4_pair": _WIN, "fold_bits": _W4, "msm_lane": _W4,
     "table_w5": _WIN, "msm_win5": _WIN, "table_w4": _WIN,
     "msm_win_pair": _WIN, "fold_w3h": _W3H, "fold_w3h_comb": _W3H,
     "fold_c": _W4, "fold_c_comb": _W4, "msm_win": _WIN,
-    "msm_grid": _W4,  # launches msm_w4's kernel over a view
-    "msm_grid_local": _W4,  # msm_w4's kernel over one shard's live prefix
+    "msm_grid": _WIN,  # launches msm_w4's kernels over a view
+    "msm_grid_local": _WIN,  # msm_w4's kernels over one shard's live prefix
     "padd": _OR, "pdbl": _OR, "smul_lanes": _OR, "msm_block_totals": _OR,
     "msm_chunk_acc": _OR, "fold_grid": _OR, "mul_fp": _OR, "mul_fq": _OR,
 }
@@ -209,10 +220,12 @@ BATCH = 8  # depth-253 proofs in phase 5
 GENS_N = 1 << 18  # the padded size: table_w5 generators, msm_win5 words
 N1 = 143_704  # depth-253 multipliers: the phase-1 walks
 MSM_N = 1 << 14  # phase-2 shapes: msm_w4 points,
+MSM_SIZES = (MSM_N, 2048, 1024)  # msm_w4 at 2^14 and IPP rounds 8-9
 PAIR_S = 1024  # frozen side (the pair walks 4 * PAIR_S points),
 FOLD_M = 2048  # fold_bits lanes,
 LANE_V, LANE_SEG = 16, 2048  # msm_lane segments x points
 COMB_N = (1 << 16, 2048)  # msm_win_pair: IPP rounds 2 and 7 (side n)
+COMB7_M = 2048  # fold_w3h_comb at IPP round 7: 2 x 2^12 -> 2 x 2^11
 SHARDS, SHARD_CHUNKS = 4, 32  # phase 8: 4 shards x 32 chunks = 2^18 points
 PLACED = 4  # depth-253 provers placed over the devices in phase 7
 STREAM = 12  # depth-253 provers streamed in phase 9
@@ -276,21 +289,34 @@ def check_route(tag: str, ran: dict, route, combined: bool = True) -> None:
 # products of 32 x 32 -> 64 bits (64 schoolbook, 8 for the x38 fold, 1 in
 # fe_fold), each two 32-bit multiplies (low and high word); point
 # operations count their field multiplies: double 8, add 9 (with the 2d
-# product), niels add 8.  The multiply rate is 64 per clock per SM (CUDA
-# C++ Programming Guide, arithmetic instruction throughput, compute
-# capability 9.0: 32-bit integer multiply and multiply-add) times the SM
-# count times the card's maximum SM clock (nvidia-smi clocks.max.sm), set
-# in phase 0.  Memory: 3.35 TB/s (NVIDIA H100 SXM data sheet).
+# product), niels add 8.  The redesigned MSM and fold (csrc/win.cu
+# msm_w4_tiles, csrc/fold_w3h.cu) square with fe_sq_cc, 45 products (36
+# for the square, 9 for the reduction): their doublings count 4 squares
+# ("sq") and 4 multiplies ("fe"), 3 where T is left out.  The multiply
+# rate is 64 per clock per SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0: 32-bit integer multiply
+# and multiply-add) times the SM count times the card's maximum SM clock
+# (nvidia-smi clocks.max.sm), set in phase 0.  Memory: 3.35 TB/s (NVIDIA
+# H100 SXM data sheet).
 INT_MULS_PER_FE_MUL = 2 * 73
-FE_MULS = {"dbl": 8, "add": 9, "nadd": 8, "fe": 1}
+INT_MULS = {"dbl": 8 * INT_MULS_PER_FE_MUL, "add": 9 * INT_MULS_PER_FE_MUL,
+            "nadd": 8 * INT_MULS_PER_FE_MUL, "fe": INT_MULS_PER_FE_MUL,
+            "sq": 2 * 45}
 HBM_BYTES_PER_S = 3.35e12
 CARD = {"int_muls_per_s": None}
 
 
+def bounds(ops: dict, ladder: dict, nbytes: int) -> dict:
+    """bound() of a redesigned kernel's work `ops`, and as bound_ladder_ms
+    the bound of the work `ladder` its first version's ladders did."""
+    return dict(**bound(ops, nbytes),
+                bound_ladder_ms=bound(ladder, nbytes)["bound_ms"])
+
+
 def bound(ops: dict, nbytes: int) -> dict:
-    """bound_ms / bound_by of work holding `ops` point operations (keys of
-    FE_MULS) and moving `nbytes` bytes."""
-    muls = INT_MULS_PER_FE_MUL * sum(FE_MULS[k] * int(v) for k, v in ops.items())
+    """bound_ms / bound_by of work holding `ops` point and field operations
+    (keys of INT_MULS) and moving `nbytes` bytes."""
+    muls = sum(INT_MULS[k] * int(v) for k, v in ops.items())
     t_ops = muls / CARD["int_muls_per_s"]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return dict(
@@ -328,13 +354,40 @@ def ladder_ops(codes, step_dbl: int) -> dict:
     ), int(live.sum())
 
 
-def msm_w4_ops(words, blocks: int, finals: int = 1) -> dict:
-    """msm_w4 / _pair / msm_lane: 7-operation tables and the ladder per
-    live row, each block's 127-add tree, the second pass's sums."""
+def ladder_w4_ops(words, blocks: int, finals: int = 1) -> dict:
+    """The w4 ladder MSMs (msm_lane; msm_w4 / _pair before their
+    redesign): 7-operation tables and the ladder per live row, each
+    block's 127-add tree, the second pass's sums."""
     ops, live = ladder_ops(_codes(words, 4, 64), 4)
     ops["dbl"] += 4 * live
     ops["add"] += 3 * live + 127 * blocks + blocks + 128 * finals
     return ops
+
+
+def w4_blocks(n: int, walks: int = 1) -> int:
+    """First-pass blocks a segment of the windowed w4 MSM at n points on
+    the current card (the library's geometry)."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import build
+
+    return build.load().bp_w4_partials(n, walks) // (64 * walks)
+
+
+def msm_w4_ops(words, blocks: int, walks: int = 1) -> dict:
+    """The windowed w4 MSM (msm_w4, _pair, msm_grid, msm_grid_local;
+    csrc/win.cu): per live row its table (4 doublings with T, 3 niels adds,
+    8 2dT multiplies) and one niels add per nonzero digit; per walk and
+    first-pass block 64 adds of the two halves' sums, and per window pass
+    2's sum of the blocks' partials and its 2dT; per walk Horner's 252
+    doublings (T on 63), 64 niels adds and the chain's (niels form)."""
+    codes = _codes(words, 4, 64)
+    live = int((codes != 0).any(axis=1).sum())
+    horner_dbl = 4 * 63
+    return dict(
+        sq=4 * (4 * live + walks * horner_dbl),
+        fe=4 * 4 * live + 8 * live + walks * (3 * horner_dbl + 63 + 64 + 1),
+        nadd=3 * live + int((codes != 0).sum()) + walks * 65,
+        add=walks * 64 * 2 * blocks,
+    )
 
 
 def walk_ops(codes, rows, blocks: int, windows: int, bits: int,
@@ -601,7 +654,8 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
     H = F.from_raw(gens.H_raw(PAIR_S), dev)
     Bpt = bp.PedersenGens.default().B
 
-    # ---- msm_w4: 2^14 points, random scalars + edge rows
+    # ---- msm_w4: 2^14 points (and their first 2048 / 1024: IPP rounds 8
+    # and 9's segments), random scalars + edge rows
     n = MSM_N
     from bulletproofs_r1cs_gadgets_tpu_torch.ops.chunks import (
         signed_digit_words,
@@ -616,10 +670,17 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
     words[7, :] = words[6]
     w = torch.from_numpy(words).to(dev)
     acc = F.from_points([Bpt], dev)
-    got = cc.msm_w4(G, w, acc)
-    torch.cuda.synchronize()
-    plain = cc.msm_w4_plain(G, w, acc)
-    err = max_abs_err(F.to_points(got), F.to_points(plain), P)
+    err = 0
+    for m in MSM_SIZES:
+        Gm, wm = G[:m], w[:m]
+        got = cc.msm_w4(Gm, wm, acc)
+        plain, ms = timed_once(torch, lambda: cc.msm_w4_plain(Gm, wm, acc))
+        e = point_err(F, got, plain, P)
+        log(f"  msm_w4 {m} points: plain {ms:.1f} ms, max_abs_err {e}")
+        err = max(err, e)
+        kms = time_walk(torch, "msm_w4", f"n {m}", lambda: cc.msm_w4(Gm, wm, acc))
+        if m == n:
+            main_ms, main_plain_ms = kms, ms
     sub = 64
     sub_got = cc.msm_w4(G[:sub], w[:sub].contiguous(), acc)
     host = bp.multiscalar_mul(
@@ -629,10 +690,9 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
     assert F.to_points(sub_got)[0] == host, "msm_w4 != host MSM"
     assert err == 0, f"msm_w4 != plain (err {err})"
     records["msm_w4"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cc.msm_w4(G, w, acc), 5),
-        plain_ms=time_ms(torch, lambda: cc.msm_w4_plain(G, w, acc), 1),
-        **bound(msm_w4_ops(words, -(-n // 128)), n * 160 + 2 * 128),
+        max_abs_err=err, ms=main_ms, plain_ms=main_plain_ms,
+        **bounds(msm_w4_ops(words, w4_blocks(n)),
+                 ladder_w4_ops(words, -(-n // 128)), n * 160 + 2 * 128),
     )
 
     # ---- msm_w4_pair: a frozen pack [G(S) | H(S)] x 2, S = 1024
@@ -641,31 +701,36 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
     pts = torch.cat([G[:S], H[:S], G[:S], H[:S]]).contiguous()
     prow = random_scalar_rows(bp, 2 * half, rng)
     prow[:2] = bp.scvec.from_ints([0, L - 1])
-    pw = torch.from_numpy(signed_digit_words(prow)).to(dev)
+    pwn = signed_digit_words(prow)
+    pwn[[5, half + 3]] = np.int32(-0x77777778)  # every digit -8
+    pw = torch.from_numpy(pwn).to(dev)
     acc2 = F.from_points([Bpt, Bpt.double()], dev)
     err = 0
     for lo, hi in ((0, half), (half // 3, 0), (half, half), (half, half - 5)):
         got = cc.msm_w4_pair(pts, pw, acc2, half, lo, hi)
         plain = cc.msm_w4_pair_plain(pts, pw, acc2, half, lo, hi)
-        err = max(err, max_abs_err(F.to_points(got), F.to_points(plain), P))
+        err = max(err, point_err(F, got, plain, P))
     assert err == 0, f"msm_w4_pair != plain (err {err})"
     a, b = min(40, half // 2), min(24, half // 2)  # host-checked limits
     got = F.to_points(cc.msm_w4_pair(pts, pw, acc2, half, a, b))
-    sc = bp.scvec.to_scalars(prow)
+    sc = [bp.Scalar(decode_w4(r) % L) for r in np.concatenate(
+        [pwn[:a], pwn[half : half + b]])]
     lo_host = bp.multiscalar_mul(sc[:a], F.to_points(pts[:a])) + Bpt
     hi_host = bp.multiscalar_mul(
-        sc[half : half + b], F.to_points(pts[half : half + b])
+        sc[a:], F.to_points(pts[half : half + b])
     ) + Bpt.double()
     assert got[0] == lo_host and got[1] == hi_host, "pair != host MSM"
     records["msm_w4_pair"] = dict(
         max_abs_err=err,
-        ms=time_ms(torch, lambda: cc.msm_w4_pair(pts, pw, acc2, half), 5),
+        ms=time_walk(torch, "msm_w4_pair", f"pack {2 * half}",
+                     lambda: cc.msm_w4_pair(pts, pw, acc2, half)),
         plain_ms=time_ms(
             torch,
             lambda: cc.msm_w4_pair_plain(pts, pw, acc2, half, half, half), 1,
         ),
-        **bound(msm_w4_ops(pw.cpu().numpy(), 2 * -(-half // 128), 2),
-                2 * half * 160 + 4 * 128),
+        **bounds(msm_w4_ops(pwn, w4_blocks(half, 2), 2),
+                 ladder_w4_ops(pwn, 2 * -(-half // 128), 2),
+                 2 * half * 160 + 4 * 128),
     )
 
     # ---- fold_bits: 2048 lanes, ones on the left as the IPP folds use
@@ -891,22 +956,33 @@ def phase_kernel_lane(bp, torch, cc, F, gens, dev, rng):
         plain_ms=time_ms(
             torch, lambda: cc.msm_lane_plain(pts, words, LANE_V), 1
         ),
-        **bound(msm_w4_ops(words.cpu().numpy(), LANE_V * -(-LANE_SEG // 128),
-                           LANE_V), n * 160 + LANE_V * 128),
+        **bound(ladder_w4_ops(words.cpu().numpy(),
+                              LANE_V * -(-LANE_SEG // 128), LANE_V),
+                n * 160 + LANE_V * 128),
     )
 
 
-def fold_w3h_ops(ck, pairs, brk: int, v: int) -> dict:
+def fold_w3h_ops(ck, pairs, brk: int, v: int, ladder: bool = False) -> dict:
     """fold_w3h point operations for v outputs, pair 0 below brk: two
-    4-entry tables (2 doublings, 1 add each) and the shared ladder."""
-    ops = dict(dbl=0, add=0)
+    4-entry niels tables (2 doublings with T, 1 niels add and 4 2dT
+    multiplies each) and the shared ladder from the top nonzero digit (3
+    doublings a window, T on the third; one niels add a nonzero digit
+    after the first).  `ladder`: the count of the first version (full
+    doublings and adds, extended tables), the bound it was held to."""
+    ops = dict(dbl=0, add=0) if ladder else dict(sq=0, fe=0, nadd=0)
     for (alpha, beta), count in zip(pairs, (brk, v - brk)):
         cb = _codes(ck.w3h_digit_words(beta)[None], 4, 44) & 7
         ca = _codes(ck.w3h_digit_words(alpha)[None], 4, 44) & 7
         lad, _ = ladder_ops(cb | ca, 3)
-        digits = int((cb != 0).sum() + (ca != 0).sum())
-        ops["dbl"] += count * (lad["dbl"] + 4)
-        ops["add"] += count * (max(digits - 1, 0) + 2)
+        adds = max(int((cb != 0).sum() + (ca != 0).sum()) - 1, 0)
+        if ladder:
+            ops["dbl"] += count * (lad["dbl"] + 4)
+            ops["add"] += count * (adds + 2)
+            continue
+        dbl = lad["dbl"] + 4
+        ops["sq"] += count * 4 * dbl
+        ops["fe"] += count * (3 * dbl + lad["dbl"] // 3 + 4 + 8)
+        ops["nadd"] += count * (adds + 2)
     return ops
 
 
@@ -965,37 +1041,45 @@ def phase_kernels_comb(bp, torch, cc, F, gens, dev, rng):
     records["fold_w3h"] = dict(
         max_abs_err=err, ms=time_ms(torch, lambda: cc.fold_w3h(G, fw, main[1]), 5),
         plain_ms=fms,
-        **bound(fold_w3h_ops(ck, *main, v), v * 3 * 128 + fw.numel() * 4),
+        **bounds(fold_w3h_ops(ck, *main, v), fold_w3h_ops(ck, *main, v, True),
+                 v * 3 * 128 + fw.numel() * 4),
     )
     del plain
 
     # ---- fold_w3h_comb: [G(2^17) | H(2^17)] -> [G'(2^16) | H'(2^16)]
-    m = N // 4
-    C = torch.cat([G[: 2 * m], H[: 2 * m]])
-    sides = [[rand_pair(), rand_pair()], [rand_pair(), rand_pair()]]
-    brk = m // 5
-    words = ck.w3h_fold_words(sides, dev)
-    got = cc.fold_w3h_comb(C, words, brk)
-    plain, ms = timed_once(torch, lambda: cc.fold_w3h_comb_plain(C, words, brk))
-    err = point_err(F, got, plain, P)
-    log(f"  fold_w3h_comb: plain {ms:.1f} ms, max_abs_err {err}")
-    assert err == 0, f"fold_w3h_comb != plain (err {err})"
-    for s_ in (0, 1):  # each side equals fold_w3h of that side, word for word
-        one = cc.fold_w3h(C[2 * m * s_ : 2 * m * (s_ + 1)],
-                          words[s_ : s_ + 1].contiguous(), brk)
-        assert torch.equal(got[m * s_ : m * (s_ + 1)], one), \
-            f"fold_w3h_comb side {s_} != fold_w3h"
-    host_fold(got[m:], C[2 * m :], sides[1], brk, [0, brk, m - 1])
-    cops = fold_w3h_ops(ck, sides[0], brk, m)
-    for k, val in fold_w3h_ops(ck, sides[1], brk, m).items():
-        cops[k] += val
-    records["fold_w3h_comb"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cc.fold_w3h_comb(C, words, brk), 5),
-        plain_ms=ms,
-        **bound(cops, 2 * m * 3 * 128 + words.numel() * 4),
-    )
-    del plain, got
+    # (IPP round 2), then [G(2^12) | H(2^12)] -> [G'(2^11) | H'(2^11)]
+    # (round 7) with one side on the edge pairs; breakpoints inside a block
+    round2 = [[rand_pair(), rand_pair()], [rand_pair(), rand_pair()]]
+    round7 = [[rand_pair(), rand_pair()], [(0, 1), (1, -1)]]
+    for m, sides in ((N // 4, round2), (COMB7_M, round7)):
+        C = torch.cat([G[: 2 * m], H[: 2 * m]])
+        brk = m // 5
+        words = ck.w3h_fold_words(sides, dev)
+        got = cc.fold_w3h_comb(C, words, brk)
+        plain, ms = timed_once(
+            torch, lambda: cc.fold_w3h_comb_plain(C, words, brk))
+        err = point_err(F, got, plain, P)
+        kms = time_ms(torch, lambda: cc.fold_w3h_comb(C, words, brk), 5)
+        log(f"  fold_w3h_comb {4 * m} -> {2 * m} points, bp {brk}: kernel "
+            f"{kms:.3f} ms, plain {ms:.1f} ms, max_abs_err {err}")
+        assert err == 0, f"fold_w3h_comb != plain (err {err})"
+        for s_ in (0, 1):  # each side equals fold_w3h of that side, word for word
+            one = cc.fold_w3h(C[2 * m * s_ : 2 * m * (s_ + 1)],
+                              words[s_ : s_ + 1].contiguous(), brk)
+            assert torch.equal(got[m * s_ : m * (s_ + 1)], one), \
+                f"fold_w3h_comb side {s_} != fold_w3h"
+        host_fold(got[m:], C[2 * m :], sides[1], brk, [0, brk, m - 1])
+        if m == N // 4:
+            cops = fold_w3h_ops(ck, sides[0], brk, m)
+            was = fold_w3h_ops(ck, sides[0], brk, m, ladder=True)
+            for ops, ladder in ((cops, False), (was, True)):
+                for k, val in fold_w3h_ops(ck, sides[1], brk, m, ladder).items():
+                    ops[k] += val
+            records["fold_w3h_comb"] = dict(
+                max_abs_err=err, ms=kms, plain_ms=ms,
+                **bounds(cops, was, 2 * m * 3 * 128 + words.numel() * 4),
+            )
+        del plain, got
 
     # ---- table_w4 over 2^18 points (rebuilt in place of a bigger table)
     tbl = cc.table_w4(G)
@@ -1272,9 +1356,12 @@ def phase_kernels_flags(bp, torch, cc, F, gens, dev, rng):
     assert got[0] == host, "msm_grid != host MSM"
     records["msm_grid"] = dict(
         max_abs_err=err,
-        ms=time_ms(torch, lambda: cc.msm_grid(G, gw, chain, 0), 5),
+        ms=time_walk(torch, "msm_grid", f"v {N1}",
+                     lambda: cc.msm_grid(G, gw, chain, 0)),
         plain_ms=grid_plain_ms,
-        **bound(msm_w4_ops(gw.cpu().numpy(), -(-N1 // 128)), N1 * 160 + 2 * 128),
+        **bounds(msm_w4_ops(gw.cpu().numpy(), w4_blocks(N1)),
+                 ladder_w4_ops(gw.cpu().numpy(), -(-N1 // 128)),
+                 N1 * 160 + 2 * 128),
     )
     return records
 
@@ -1305,8 +1392,8 @@ def phase_kernel_grid_local(bp, torch, cc, F, gens, dev, rng):
                                                    chunk)
         )
         e = max_abs_err(F.to_points(got), F.to_points(plain), P)
-        kms = time_ms(torch, lambda: cc.msm_grid_local(pts, words, acc, valid,
-                                                       chunk), 5)
+        kms = time_walk(torch, "msm_grid_local", f"{valid} valid chunks",
+                        lambda: cc.msm_grid_local(pts, words, acc, valid, chunk))
         log(f"  msm_grid_local {n} points, {valid} valid chunks: kernel "
             f"{kms:.3f} ms, plain {ms:.1f} ms, max_abs_err {e}")
         err = max(err, e)
@@ -1323,7 +1410,9 @@ def phase_kernel_grid_local(bp, torch, cc, F, gens, dev, rng):
     assert got[0] == host, "msm_grid_local != host MSM"
     return dict(
         max_abs_err=err, ms=main_ms, plain_ms=plain_ms,
-        **bound(msm_w4_ops(words.cpu().numpy(), -(-n // 128)), n * 160 + 2 * 128),
+        **bounds(msm_w4_ops(words.cpu().numpy(), w4_blocks(n)),
+                 ladder_w4_ops(words.cpu().numpy(), -(-n // 128)),
+                 n * 160 + 2 * 128),
     )
 
 
@@ -2361,9 +2450,12 @@ def main() -> int:
         t0 = time.time()
         build.load()
         log(f"  kernels built and loaded in {time.time() - t0:.2f} s")
-        walkers = {k: v for k, v in build.report().items() if "win" in k}
-        assert walkers, "no ptxas report for the window walkers"
-        log("ptxas " + json.dumps(walkers))
+        redesigned = {k: v for k, v in build.report().items()
+                      if "win" in k or "msm_w4" in k or "fold_w3h" in k}
+        assert any("msm_w4_tiles" in k for k in redesigned) and \
+            any("fold_w3h" in k for k in redesigned), \
+            "no ptxas report for the windowed MSM or the fold"
+        log("ptxas " + json.dumps(redesigned))
     with Phase("gens"):
         gens = bp.BulletproofGens(1 << 18)
         gens_small = bp.BulletproofGens(1 << 12)

@@ -38,6 +38,7 @@ from bulletproofs_r1cs_gadgets_tpu_torch import (
     prove_provers_devices,
     scvec,
 )
+from bulletproofs_r1cs_gadgets_tpu_torch.ops import build
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import cuda_curve as cc
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
@@ -466,6 +467,117 @@ def test_msm_grid_local_matches_plain_on_card(cuda_device):
         if valid == 0:
             assert F.to_points(got) == F.to_points(acc)
     assert cc.LAUNCHES["msm_grid_local"] - before == 3
+
+
+# ---- the windowed w4 MSM (csrc/win.cu) and the niels-table fold
+# (csrc/fold_w3h.cu): sizes around a tile and past a card of blocks, edge
+# rows, limits and breakpoints.  Equality by group element (chip_smoke's
+# point_err): the kernels add in another order than the plain versions.
+def _same_points(got, want) -> bool:
+    import chip_smoke as cs
+
+    return cs.point_err(F, got, want, (1 << 255) - 19) == 0
+
+
+def _w4_inputs(dev, n: int, seed: int):
+    """n generators and w4 words with 0, 1, L - 1 in rows 0-2, rows of all
+    -8 digits every 7th row from 5 and zero rows every 11th from 6."""
+    pts = F.from_raw(BulletproofGens(max(n, 1)).G_raw(max(n, 1)), dev)[:n]
+    words = ck.w4_words(_scalar_rows(max(n, 3), seed)[:n], dev)
+    words[5::7] = ALL_M8
+    words[6::11] = 0
+    return pts.contiguous(), words.contiguous()
+
+
+def test_windowed_msm_w4_matches_plain_on_card(cuda_device):
+    """msm_w4 at 0, 1, T - 1, T, T + 1 and 3T + 5 points (T the tile the
+    library picks at small sizes), and at 8,209 and 16,387 points, where
+    it picks its large tile (a full card of blocks), chained on a
+    non-identity point; its first pass's scratch (bp_w4_partials) at edge
+    sizes: whole windows of blocks, at least one block, one tile a block
+    while they fit, and a bound once the card is full."""
+    dev = cuda_device
+    lib = build.load()
+    build.check(lib.bp_set_device(dev.index), "set device")
+    T = lib.bp_w4_tile(1, 1)
+    acc = F.from_points(_points(1, 120), dev)
+    before = cc.LAUNCHES["msm_w4"]
+    sizes = (0, 1, T - 1, T, T + 1, 3 * T + 5, 8192 + 17, (1 << 14) + 3)
+    assert len({lib.bp_w4_tile(n, 1) for n in sizes}) == 2, \
+        [lib.bp_w4_tile(n, 1) for n in sizes]
+    for n in sizes:
+        pts, words = _w4_inputs(dev, n, 121 + n % 1000)
+        got = cc.msm_w4(pts, words, acc)
+        assert _same_points(got, cc.msm_w4_plain(pts, words, acc)), n
+    assert cc.LAUNCHES["msm_w4"] - before == len(sizes)
+    assert F.to_points(cc.msm_w4(*_w4_inputs(dev, 0, 1), acc)) == \
+        F.to_points(acc)
+    for walks in (1, 2):
+        per = 64 * walks
+        blocks = [lib.bp_w4_partials(v, walks) for v in
+                  (0, 1, T, T + 1, 1 << 14, 1 << 20, 1 << 22)]
+        assert all(b % per == 0 for b in blocks), blocks
+        nb = [b // per for b in blocks]
+        assert nb[:4] == [1, 1, 1, 2], nb
+        assert nb == sorted(nb) and nb[-1] <= nb[-2] * 1.01 + 1, nb
+        assert nb[4] <= -(-(1 << 14) // T), nb
+
+
+def test_windowed_msm_w4_pair_matches_plain_on_card(cuda_device):
+    """msm_w4_pair with lo_limit 0, with hi_limit 0, with the grid round's
+    unequal limits (lo_limit = vR, R's zero tail) and both full, each
+    segment chained on its own point."""
+    dev = cuda_device
+    T = build.load().bp_w4_tile(1, 2)
+    half = 3 * T + 5
+    pts, words = _w4_inputs(dev, 2 * half, 130)
+    acc2 = F.from_points(_points(2, 131), dev)
+    before = cc.LAUNCHES["msm_w4_pair"]
+    limits = ((0, half), (half, 0), (T + 1, half), (half, half), (0, 0))
+    for lo, hi in limits:
+        got = cc.msm_w4_pair(pts, words, acc2, half, lo, hi)
+        assert _same_points(
+            got, cc.msm_w4_pair_plain(pts, words, acc2, half, lo, hi)), (lo, hi)
+    assert cc.LAUNCHES["msm_w4_pair"] - before == len(limits)
+
+
+def test_windowed_msm_grid_local_matches_plain_on_card(cuda_device):
+    """msm_grid_local over a 32-chunk shard (65,536 points; words past
+    every valid span nonzero) at 0, 7 and 32 live chunks."""
+    dev = cuda_device
+    n = 32 * ck.CHUNK
+    pts, words = _w4_inputs(dev, n, 140)
+    acc = F.from_points(_points(1, 141), dev)
+    for valid in (0, 7, 32):
+        got = cc.msm_grid_local(pts, words, acc, valid, ck.CHUNK)
+        assert _same_points(
+            got, cc.msm_grid_local_plain(pts, words, acc, valid, ck.CHUNK)), valid
+
+
+@pytest.mark.parametrize("v", [1, 127, 129])
+def test_niels_fold_matches_plain_on_card(cuda_device, v):
+    """fold_w3h and fold_w3h_comb at v = 1, 127 and 129 outputs a side,
+    random half-gcd pairs and the edge pairs (0, 1) / (1, -1), the
+    breakpoint at 0, at v and inside a block (not a multiple of it)."""
+    dev = cuda_device
+    rng = np.random.RandomState(150 + v)
+    pts = F.from_raw(BulletproofGens(4 * v).G_raw(4 * v), dev)
+    rand = [ck.half_gcd_split(int.from_bytes(rng.bytes(32), "little") % L, L)
+            for _ in range(2)]
+    edge = [(0, 1), (1, -1)]
+    before = dict(cc.LAUNCHES)
+    for bp_ in sorted({0, v, v // 2 + 1}):
+        for pairs in (rand, edge):
+            words = ck.w3h_fold_words([pairs], dev)
+            got = cc.fold_w3h(pts[: 2 * v], words, bp_)
+            assert _same_points(got, cc.fold_w3h_plain(pts[: 2 * v], words, bp_)), \
+                (bp_, pairs)
+        words = ck.w3h_fold_words([rand, edge], dev)
+        got = cc.fold_w3h_comb(pts, words, bp_)
+        assert _same_points(got, cc.fold_w3h_comb_plain(pts, words, bp_)), bp_
+    runs = len({0, v, v // 2 + 1})
+    assert cc.LAUNCHES["fold_w3h"] - before["fold_w3h"] == 2 * runs
+    assert cc.LAUNCHES["fold_w3h_comb"] - before["fold_w3h_comb"] == runs
 
 
 def test_oracle_kernels_match_plain_on_card(cuda_device):
