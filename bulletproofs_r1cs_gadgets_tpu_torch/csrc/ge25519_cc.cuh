@@ -1,10 +1,12 @@
 // Point operations on the carry-chain multiply (fe_mul_cc / fe_sq_cc),
 // inlined where they are called: register-resident, no stack frame.  The
-// window walkers, the windowed w4 MSM (win.cu) and the half-width fold
-// (fold_w3h.cu) build on them; the formulas are ge25519.cuh's, so every
-// operation gives the same group element as its out-of-line counterpart.
-// A kernel keeps one call site of each operation, or its code (and build
-// time) grows by ~1k instructions of unrolled multiplies a site.
+// window walkers, the windowed w4 MSM, the niels tables (win.cu), the
+// half-width fold (fold_w3h.cu) and fold_bits (msm_fold.cu; the
+// cooperative operations at the end) build on them; the formulas are
+// ge25519.cuh's, so every operation gives the same residues as its
+// out-of-line counterpart (and so the same canonical words).  A kernel
+// keeps one call site of each operation, or its code (and build time)
+// grows by ~1k instructions of unrolled multiplies a site.
 #pragma once
 #include "ge25519.cuh"
 
@@ -167,4 +169,110 @@ __device__ __forceinline__ bool tree_sum(ge& v, ge* sh) {
         v = ge_add_cc(v, ge_shfl_down(v, off));
     }
     return threadIdx.x == 0;
+}
+
+__device__ __forceinline__ fe fe_shfl(const fe& a, int lane) {
+    fe r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r.w[i] = __shfl_sync(0xffffffffu, a.w[i], lane);
+    return r;
+}
+
+// ---- cooperative point operations: a group of 8 lanes, lane 8g + 4h + q
+// of a warp, runs one point operation as two stages of four independent
+// operations q, a multiply on its two lanes h (fe_mul_split), a square on
+// each lane (fe_sq_cc); the products are exchanged with __shfl_sync, and
+// every lane holds the whole point between stages, so a stage costs about
+// one multiply's latency.  The walkers' Horner pass (win.cu; its warp's
+// four groups repeat one walk) and fold_bits (msm_fold.cu; four outputs a
+// warp) build on them.  Every lane of the warp must take part in each
+// operation: the shuffles name the full warp.
+
+// Rows 4h .. 4h + 3 of a * b on each of two lanes (h = 0, 1; partners
+// 4 lanes apart), the upper rows' 12 words passed down by a shuffle and
+// added 4 words up: the product, reduced, on the h = 0 lane.
+__device__ __forceinline__ fe fe_mul_split(const fe& a, const fe& b, int h) {
+    uint32_t x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = h ? a.w[4 + i] : a.w[i];
+    uint32_t t[12];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = x[0] * b.w[j];
+    t[1] = ptx::mad_hi_cc(x[0], b.w[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < 7; ++j) t[j + 1] = ptx::madc_hi_cc(x[0], b.w[j], t[j + 1]);
+    t[8] = ptx::madc_hi(x[0], b.w[7], 0u);
+#pragma unroll
+    for (int i = 1; i < 4; ++i) {
+        t[i] = ptx::mad_lo_cc(x[i], b.w[0], t[i]);
+#pragma unroll
+        for (int j = 1; j < 8; ++j) t[i + j] = ptx::madc_lo_cc(x[i], b.w[j], t[i + j]);
+        t[i + 8] = ptx::carry();
+        t[i + 1] = ptx::mad_hi_cc(x[i], b.w[0], t[i + 1]);
+#pragma unroll
+        for (int j = 1; j < 7; ++j) t[i + j + 1] = ptx::madc_hi_cc(x[i], b.w[j], t[i + j + 1]);
+        t[i + 8] = ptx::madc_hi(x[i], b.w[7], t[i + 8]);
+    }
+    uint32_t u[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) u[k] = __shfl_xor_sync(0xffffffffu, t[k], 4);
+    uint32_t s[16];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s[k] = t[k];
+    s[4] = ptx::add_cc(t[4], u[0]);
+#pragma unroll
+    for (int k = 5; k < 12; ++k) s[k] = ptx::addc_cc(t[k], u[k - 4]);
+#pragma unroll
+    for (int k = 12; k < 15; ++k) s[k] = ptx::addc_cc(u[k - 4], 0u);
+    s[15] = u[11] + ptx::carry();
+    return fe_reduce_cc(s);
+}
+
+// Stage 2 of a doubling or an add: lane q forms product q of (E F, G H,
+// F G, E H) = (X, Y, Z, T); T is gathered only if a later add reads it.
+__device__ __forceinline__ ge coop_stage2(const fe& E, const fe& F, const fe& G,
+                                          const fe& H, int q, int h, int base,
+                                          bool with_t) {
+    const fe l = fe_select(q == 0 || q == 3, E, fe_select(q == 1, G, F));
+    const fe r = fe_select(q == 0, F, fe_select(q == 2, G, H));
+    const fe p = fe_mul_split(l, r, h);
+    ge o;
+    o.X = fe_shfl(p, base);
+    o.Y = fe_shfl(p, base + 1);
+    o.Z = fe_shfl(p, base + 2);
+    o.T = with_t ? fe_shfl(p, base + 3) : fe_zero();
+    return o;
+}
+
+// 2p (dbl-2008-hwcd): lane q squares X, Y, Z or X + Y
+__device__ __forceinline__ ge coop_double(const ge& p, int q, int h, int base, bool with_t) {
+    const fe xy = fe_add(p.X, p.Y);
+    const fe l = fe_select(q == 0, p.X, fe_select(q == 1, p.Y, fe_select(q == 2, p.Z, xy)));
+    const fe sq = fe_sq_cc(l);
+    const fe A = fe_shfl(sq, base);
+    const fe B = fe_shfl(sq, base + 1);
+    const fe Zs = fe_shfl(sq, base + 2);
+    const fe S = fe_shfl(sq, base + 3);
+    const fe C = fe_add(Zs, Zs);
+    const fe H = fe_add(A, B);
+    const fe E = fe_sub(H, S);
+    const fe G = fe_sub(A, B);
+    const fe F = fe_add(C, G);
+    return coop_stage2(E, F, G, H, q, h, base, with_t);
+}
+
+// p + a point in niels form, of which lane q holds the one coordinate it
+// multiplies: (Y-X, Y+X, 2dT, Z)[q] against p's (Y-X, Y+X, T, Z)[q]
+__device__ __forceinline__ ge coop_add_niels(const ge& p, const fe& mine, int q, int h,
+                                             int base) {
+    const fe l = fe_select(q == 0, fe_sub(p.Y, p.X),
+                           fe_select(q == 1, fe_add(p.Y, p.X), fe_select(q == 2, p.T, p.Z)));
+    const fe m = fe_mul_split(l, mine, h);
+    const fe A = fe_shfl(m, base);
+    const fe B = fe_shfl(m, base + 1);
+    const fe C = fe_shfl(m, base + 2);
+    const fe Dz = fe_shfl(m, base + 3);
+    const fe Dv = fe_add(Dz, Dz);
+    return coop_stage2(fe_sub(B, A), fe_sub(Dv, C), fe_add(Dv, C), fe_add(B, A), q, h, base,
+                       true);
 }

@@ -58,7 +58,8 @@
 
 #include "ge25519_cc.cuh"
 
-#define TABLE_THREADS 128
+#define TABLE_THREADS 256             // tables: two roles of TABLE_THREADS / 64 warps
+#define TABLE_STRIDE 33               // tables: staged words of one entry
 #define WIN_THREADS 128               // pass 1: threads a block (4 warps)
 #define WIN_WARPS (WIN_THREADS / 32)
 #define WIN_MIN_BLOCKS 3              // pass 1 blocks an SM holds: <= 168 registers
@@ -96,36 +97,100 @@ struct walks2 {
     walk s[2];
 };
 
-__device__ __forceinline__ fe fe_shfl(const fe& a, int lane) {
-    fe r;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) r.w[i] = __shfl_sync(0xffffffffu, a.w[i], lane);
-    return r;
+// ---- the niels multiple tables (table_w4, table_w5).  They replace
+// pallas_curve.py's table_grid_full / _half / _donate (:1012-1026) and
+// table_grid5_full (:1233).  Entry k of point i is (k + 1) P_i, made by
+// the TPU kernels' sequence (2P = dbl P, odd multiples t(k-1) + P, even
+// ones doubled from t(k/2)) and stored in niels form with canonical
+// words, so the words equal the plain version's (the carry-chain
+// operations compute the same residues as ge_add / ge_double).  What
+// bounds it on an H100: the 32-bit multiplies of ~TBL point operations a
+// point (0.13 ms at 2^18 w4 points against 0.09 ms for its 302 MB of
+// stores).  Design: two threads a point, four warps a role, 128 points a block;
+// each role runs TBL / 2 inlined carry-chain operations (TBL_SCHED) and keeps
+// only the points a later step reads (x and one saved point); each step's
+// entry goes to shared memory and the warp stores its 32 entries as
+// 16-byte vectors, eight lanes to an entry's 128 contiguous bytes.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_profile.py --kernels):
+// fewer resident warps ran faster.  At 2^18 w4 points, 168 registers
+// (12 warps an SM, blocks of 64) took 0.56-0.57 ms, 170 (10 warps) 0.51,
+// blocks of 128 (8 warps) 0.51, of 256 (one block, 8 warps, 175
+// registers) 0.48; role 1 taking 2P from role 0 through shared memory
+// (one doubling less a point, a block barrier) 0.59.  Blocks of 256 are
+// kept.
+#define T_ADD 0x10u   // the step adds P to x (else doubles x)
+#define T_SAVE 0x20u  // then saved = the result (else x = the result) ...
+#define T_DROP 0x40u  // ... or the result is dropped ...
+#define T_BACK 0x60u  // ... or dropped and x = saved
+#define T_KEEP_MASK 0x60u
+
+// Step k of role r (low 4 bits: the entry it stores).  Role 0: 2P, 4P,
+// 5P (saved), 8P, 9P, 16P (back to 5P), 10P, 11P; role 1: 2P (storing P,
+// which no step makes), 3P, 6P, 7P (saved), 12P, 13P (back to 7P), 14P,
+// 15P.  The 8-entry tables (table_w4, msm_w4_tiles' w4_table) run the
+// first four steps of each role.
+static __device__ __constant__ uint8_t TBL_SCHED[2][8] = {
+    {1, 3, 4 | T_ADD | T_SAVE, 7, 8 | T_ADD | T_DROP, 15 | T_BACK, 9, 10 | T_ADD | T_DROP},
+    {0, 2 | T_ADD, 5, 6 | T_ADD | T_SAVE, 11, 12 | T_ADD | T_BACK, 13, 14 | T_ADD | T_DROP},
+};
+
+// Step k of `role` on x (P at the start, nP its niels form; SAVES: the
+// 16-entry steps, which keep a second point): x's double or x + P, kept as
+// TBL_SCHED says; returns entry TBL_SCHED[role][k] & 15 in niels form
+// (role 1's first step stores P, which no step makes).
+template <bool SAVES>
+__device__ __forceinline__ niels tbl_step(int role, int k, const niels& nP, ge& x, ge& saved) {
+    const uint32_t op = TBL_SCHED[role][k];
+    ge y;
+    if (op & T_ADD) y = ge_add_niels_cc(x, nP, false);
+    else y = ge_double_cc(x, true);
+    const uint32_t keep = op & T_KEEP_MASK;
+    if (keep == 0u) x = y;
+    else if (SAVES && keep == T_SAVE) saved = y;
+    else if (SAVES && keep == T_BACK) x = saved;
+    return role == 1 && k == 0 ? nP : ge_to_niels_cc(y);
 }
 
-// One thread per point: (k + 1) * P for k = 0..TBL-1 by the TPU kernels'
-// sequence (odd multiples t(k-1) + P, even ones doubled from t(k/2)), each
-// stored in niels form with canonical words.  The 8-entry table is the
-// first half of the 16-entry one, entry for entry.
+// Block b: R = TABLE_THREADS / 64 warps a role, points [32 R b, 32 R (b +
+// 1)); lane l of warp w runs role w / R for point 32 (R b + w % R) + l
+// (lanes past n repeat the last point and store nothing).
+// A step's entries are staged at TABLE_STRIDE words a lane (+1: the
+// lanes' words fall in distinct banks) and stored by the warp: round r,
+// lane l writes 16 bytes, part l % 8 of the entry of point 4 r + l / 8.
 template <int TBL>
 __global__ void __launch_bounds__(TABLE_THREADS)
 table_kernel(const int32_t* __restrict__ pts, int32_t* __restrict__ table, int n) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    ge t[TBL];
-    t[0] = ge_load(pts + 32 * i);
-    t[1] = ge_double(t[0]);
+    __shared__ uint32_t stage[TABLE_THREADS * TABLE_STRIDE];
+    constexpr int R = TABLE_THREADS / 64;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int role = warp / R;
+    const long long first = ((long long)blockIdx.x * R + warp % R) * 32;
+    const int cnt = (int)max(0ll, min(32ll, (long long)n - first));
+    const ge P = ge_load(pts + 32 * (cnt ? first + min(lane, cnt - 1) : n - 1));
+    const niels nP = ge_to_niels_cc(P);
+    uint32_t* st = stage + warp * 32 * TABLE_STRIDE;
+    ge x = P, saved = P;
 #pragma unroll 1
-    for (int k = 3; k <= TBL; ++k)
-        t[k - 1] = (k & 1) ? ge_add(t[k - 2], t[0]) : ge_double(t[k / 2 - 1]);
-    const fe d2 = fe_d2();
-#pragma unroll 1
-    for (int k = 0; k < TBL; ++k) {
-        int32_t* dst = table + 32 * (i * TBL + k);
-        fe_store_canon(dst, fe_add(t[k].Y, t[k].X));
-        fe_store_canon(dst + 8, fe_sub(t[k].Y, t[k].X));
-        fe_store_canon(dst + 16, fe_mul(t[k].T, d2));
-        fe_store_canon(dst + 24, t[k].Z);
+    for (int k = 0; k < TBL / 2; ++k) {
+        const niels e = tbl_step<(TBL > 8)>(role, k, nP, x, saved);
+        fe_store_canon(reinterpret_cast<int32_t*>(st + lane * TABLE_STRIDE), e.ypx);
+        fe_store_canon(reinterpret_cast<int32_t*>(st + lane * TABLE_STRIDE + 8), e.ymx);
+        fe_store_canon(reinterpret_cast<int32_t*>(st + lane * TABLE_STRIDE + 16), e.t2d);
+        fe_store_canon(reinterpret_cast<int32_t*>(st + lane * TABLE_STRIDE + 24), e.z);
+        __syncwarp();
+        int32_t* dst = table + 32ll * (first * TBL + (TBL_SCHED[role][k] & 15u));
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+            const int j = 4 * r + (lane >> 3);
+            const int part = lane & 7;
+            if (j < cnt) {
+                const uint32_t* src = st + j * TABLE_STRIDE + 4 * part;
+                *reinterpret_cast<uint4*>(dst + 32ll * TBL * j + 4 * part) =
+                    make_uint4(src[0], src[1], src[2], src[3]);
+            }
+        }
+        __syncwarp();
     }
 }
 
@@ -204,102 +269,6 @@ msm_win_windows(const int32_t* __restrict__ partials, int32_t* __restrict__ wtot
         fe_store_raw(dst + 16, fe_mul_cc(v.T, fe_d2()));
         fe_store_raw(dst + 24, v.Z);
     }
-}
-
-// ---- the cooperative Horner: a warp per walk, lane 8g + 4h + q.  The
-// four independent operations q of each stage of a point operation run in
-// each group g of 8 lanes (the warp's four groups repeat the work), a
-// multiply on its two lanes h, a square on lane h = 0's; the products are
-// exchanged with __shfl_sync.  Every lane holds the whole point between
-// stages.
-
-// Rows 4h .. 4h + 3 of a * b on each of two lanes (h = 0, 1; partners
-// 4 lanes apart), the upper rows' 12 words passed down by a shuffle and
-// added 4 words up: the product, reduced, on the h = 0 lane.
-__device__ __forceinline__ fe fe_mul_split(const fe& a, const fe& b, int h) {
-    uint32_t x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = h ? a.w[4 + i] : a.w[i];
-    uint32_t t[12];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) t[j] = x[0] * b.w[j];
-    t[1] = ptx::mad_hi_cc(x[0], b.w[0], t[1]);
-#pragma unroll
-    for (int j = 1; j < 7; ++j) t[j + 1] = ptx::madc_hi_cc(x[0], b.w[j], t[j + 1]);
-    t[8] = ptx::madc_hi(x[0], b.w[7], 0u);
-#pragma unroll
-    for (int i = 1; i < 4; ++i) {
-        t[i] = ptx::mad_lo_cc(x[i], b.w[0], t[i]);
-#pragma unroll
-        for (int j = 1; j < 8; ++j) t[i + j] = ptx::madc_lo_cc(x[i], b.w[j], t[i + j]);
-        t[i + 8] = ptx::carry();
-        t[i + 1] = ptx::mad_hi_cc(x[i], b.w[0], t[i + 1]);
-#pragma unroll
-        for (int j = 1; j < 7; ++j) t[i + j + 1] = ptx::madc_hi_cc(x[i], b.w[j], t[i + j + 1]);
-        t[i + 8] = ptx::madc_hi(x[i], b.w[7], t[i + 8]);
-    }
-    uint32_t u[12];
-#pragma unroll
-    for (int k = 0; k < 12; ++k) u[k] = __shfl_xor_sync(0xffffffffu, t[k], 4);
-    uint32_t s[16];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) s[k] = t[k];
-    s[4] = ptx::add_cc(t[4], u[0]);
-#pragma unroll
-    for (int k = 5; k < 12; ++k) s[k] = ptx::addc_cc(t[k], u[k - 4]);
-#pragma unroll
-    for (int k = 12; k < 15; ++k) s[k] = ptx::addc_cc(u[k - 4], 0u);
-    s[15] = u[11] + ptx::carry();
-    return fe_reduce_cc(s);
-}
-
-// Stage 2 of a doubling or an add: lane q forms product q of (E F, G H,
-// F G, E H) = (X, Y, Z, T); T is gathered only if a later add reads it.
-__device__ __forceinline__ ge coop_stage2(const fe& E, const fe& F, const fe& G,
-                                          const fe& H, int q, int h, int base,
-                                          bool with_t) {
-    const fe l = fe_select(q == 0 || q == 3, E, fe_select(q == 1, G, F));
-    const fe r = fe_select(q == 0, F, fe_select(q == 2, G, H));
-    const fe p = fe_mul_split(l, r, h);
-    ge o;
-    o.X = fe_shfl(p, base);
-    o.Y = fe_shfl(p, base + 1);
-    o.Z = fe_shfl(p, base + 2);
-    o.T = with_t ? fe_shfl(p, base + 3) : fe_zero();
-    return o;
-}
-
-// 2p (dbl-2008-hwcd): lane q squares X, Y, Z or X + Y
-__device__ __forceinline__ ge coop_double(const ge& p, int q, int h, int base, bool with_t) {
-    const fe xy = fe_add(p.X, p.Y);
-    const fe l = fe_select(q == 0, p.X, fe_select(q == 1, p.Y, fe_select(q == 2, p.Z, xy)));
-    const fe sq = fe_sq_cc(l);
-    const fe A = fe_shfl(sq, base);
-    const fe B = fe_shfl(sq, base + 1);
-    const fe Zs = fe_shfl(sq, base + 2);
-    const fe S = fe_shfl(sq, base + 3);
-    const fe C = fe_add(Zs, Zs);
-    const fe H = fe_add(A, B);
-    const fe E = fe_sub(H, S);
-    const fe G = fe_sub(A, B);
-    const fe F = fe_add(C, G);
-    return coop_stage2(E, F, G, H, q, h, base, with_t);
-}
-
-// p + a point in niels form, of which lane q holds the one coordinate it
-// multiplies: (Y-X, Y+X, 2dT, Z)[q] against p's (Y-X, Y+X, T, Z)[q]
-__device__ __forceinline__ ge coop_add_niels(const ge& p, const fe& mine, int q, int h,
-                                             int base) {
-    const fe l = fe_select(q == 0, fe_sub(p.Y, p.X),
-                           fe_select(q == 1, fe_add(p.Y, p.X), fe_select(q == 2, p.T, p.Z)));
-    const fe m = fe_mul_split(l, mine, h);
-    const fe A = fe_shfl(m, base);
-    const fe B = fe_shfl(m, base + 1);
-    const fe C = fe_shfl(m, base + 2);
-    const fe Dz = fe_shfl(m, base + 3);
-    const fe Dv = fe_add(Dz, Dz);
-    return coop_stage2(fe_sub(B, A), fe_sub(Dv, C), fe_add(Dv, C), fe_add(B, A), q, h, base,
-                       true);
 }
 
 // Pass 3 (warp s folds walk s): Horner over the walk's window totals,
@@ -462,24 +431,13 @@ __device__ __forceinline__ niels w4_get(const uint32_t* t, int k) {
 
 // The multiples (k + 1) P, k = 0..7, of the point at src into its shared
 // table in niels form, by two threads (role 0 and 1, in different warps,
-// so no warp diverges): both double P; role 0 then makes 4P, 5P = 4P + P
-// and 8P (entries 1: 2P, 3, 4, 7), role 1 3P = 2P + P, 6P and 7P = 6P + P
-// (entries 0: P, 2, 5, 6).  Each role's four steps are one loop with one
-// doubling site and one add site.
+// so no warp diverges): the first four steps of each role of TBL_SCHED.
 __device__ __forceinline__ void w4_table(const int32_t* src, uint32_t* t, int role) {
-    const niels nP = ge_to_niels_cc(ge_load(src));
-    if (role) w4_put(t, 0, nP);
-    ge x = ge_load(src);
+    ge x = ge_load(src), saved;
+    const niels nP = ge_to_niels_cc(x);
 #pragma unroll 1
-    for (int k = 0; k < 4; ++k) {
-        ge y;
-        if (role ? (k & 1) : k == 2) y = ge_add_niels_cc(x, nP, false);
-        else y = ge_double_cc(x, true);
-        const int entry = role ? (k == 1 ? 2 : k == 2 ? 5 : 6)
-                               : (k == 0 ? 1 : k == 1 ? 3 : k == 2 ? 4 : 7);
-        if (!role || k > 0) w4_put(t, entry, ge_to_niels_cc(y));
-        if (role || k != 2) x = y;
-    }
+    for (int k = 0; k < 4; ++k)
+        w4_put(t, TBL_SCHED[role][k] & 15u, tbl_step<false>(role, k, nP, x, saved));
 }
 
 // Pass 1: block (b, s) takes tiles b, b + nb, ... (at most ppt) of
@@ -618,8 +576,8 @@ static int msm_w4_launch(const int32_t* pts, const int32_t* words, const int32_t
 template <int TBL>
 static int table_launch(const int32_t* pts, int32_t* table, int n, cudaStream_t s) {
     if (n > 0)
-        table_kernel<TBL><<<(n + TABLE_THREADS - 1) / TABLE_THREADS, TABLE_THREADS, 0, s>>>(
-            pts, table, n);
+        table_kernel<TBL><<<(n + TABLE_THREADS / 2 - 1) / (TABLE_THREADS / 2), TABLE_THREADS,
+                            0, s>>>(pts, table, n);
     return (int)cudaGetLastError();
 }
 

@@ -263,7 +263,8 @@ def const_rows(s, n: int) -> np.ndarray:
 
 
 def fold_words(arr: np.ndarray, device) -> torch.Tensor:
-    """Bit-word rows of one side of a ``fold_bits`` launch."""
+    """Bit-word rows of ``fold_bits`` launches, (m, 8) int32: one side's,
+    or several sides' rows concatenated (one upload)."""
     return torch.from_numpy(bit_words(arr)).to(device)
 
 

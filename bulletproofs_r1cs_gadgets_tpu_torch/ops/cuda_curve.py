@@ -47,9 +47,17 @@ half + hi_limit) (a grid dimension of the first pass, one Horner walk
 each); limits skip work, and each segment chains its own accumulator.
 
 ``fold_bits`` replaces ``pallas_curve.fold_chunk`` (:1566, ``_emit_fold``
-:1533).  Bound: integer multiplies (253 doublings + up to 253 adds per
-point).  Design: one thread per output point runs the dual bit-serial
-ladder over bits 252..0 with the {L, R, L+R} selection; no reduction.
+:1533): out_i = wl_i * L_i + wr_i * R_i over bits 252..0 of raw bit
+words.  Bound: at the main path's 1,024-2,048 lanes, latency (the
+throughput bound, ~0.02-0.04 ms, is out of reach of so few outputs).
+Design (``csrc/msm_fold.cu``): a group of 8 lanes per
+output on the walkers' cooperative point operations (two stages of four
+multiplies, the products exchanged by shuffles), four outputs a warp;
+each scalar recoded in the kernel into 64 signed base-16 digits, an
+8-entry niels table of L and one of R in shared memory, then Straus: 64
+windows of 4 doublings and one niels add per nonzero digit (a zero
+digit of every group in the warp adds nothing, so ``wl = 1`` costs one
+add).
 
 ``msm_lane`` replaces ``pallas_curve.msm_lane_dyn`` (:1515,
 ``_msm_lane_kernel`` :1473): v independent MSM totals, one per segment of
@@ -63,9 +71,14 @@ lattice-position output is a (v, 4, 8) tensor.
 ``table_w5`` replaces ``pallas_curve.table_grid5_full`` (:1233,
 ``_table16_body`` :1174, ``_to_niels`` :934): the 16 multiples (k+1)P of
 each generator in niels form, built once per generator set.  Bound: the
-2 KiB store per point (15 point operations per point are cheap beside
-it).  Design: one thread per point, the TPU's doubling/adding sequence,
-canonical stores.
+integer multiplies of its 15 point operations per point, then the 2 KiB
+store.  Design (``csrc/win.cu``): two threads a
+point, four warps per role over 128 points, each running half of the TPU's
+doubling/adding sequence on inlined carry-chain operations (the same
+residues, so the canonical words equal the plain version's) and keeping
+only the points a later step reads; each step's entries are staged in
+shared memory and stored as 16-byte vectors, an entry's 128 contiguous
+bytes by eight lanes.
 
 ``msm_win5`` replaces ``pallas_curve.msm_win5_dyn`` (:1345,
 ``_msm_win5_kernel`` :1263, ``_win5_digit_select`` :1236): the w5
@@ -90,8 +103,9 @@ squaring against ``fe_mul`` (test entry, no launch count).
 ``_to_niels`` :934): the 8 multiples over the combined [G' | H'] layout,
 rebuilt each combined round.  One kernel: the four TPU variants are
 capacity shapes and XLA buffer donation; here `out` takes the previous
-round's table storage.  Bound: the 1 KiB store per point.  Design:
-``table_w5``'s kernel template at 8 entries (entry for entry its first
+round's table storage.  Bound: the multiplies of 7 point operations per
+point, then the 1 KiB store.  Design: ``table_w5``'s kernel template at 8
+entries, the first four steps of each role (entry for entry its first
 half).
 
 ``msm_win_pair`` replaces ``pallas_curve.msm_win_pair_dyn`` (:1462,
@@ -773,6 +787,8 @@ def table_w4(points: torch.Tensor, out: torch.Tensor | None = None
         return got if out is None else out.copy_(got)
     if out is None:
         out = torch.empty((n, TBL4, 4, 8), dtype=torch.int32, device=dev)
+    elif out.data_ptr() % 16:
+        raise ValueError("table_w4: out not 16-byte aligned")
     _launch("table_w4", dev, "bp_table_w4", _ptr(points), _ptr(out), n)
     return out
 

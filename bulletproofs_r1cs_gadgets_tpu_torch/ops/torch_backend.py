@@ -899,9 +899,11 @@ class _IppJob:
             self.FFG = frozen_fold_update(self.FFG, n, rbp, cG[0], cG[1])
             self.FFH = frozen_fold_update(self.FFH, n, rbp, cH[0], cH[1])
             return
-        wl = ck.fold_words(_ones_rows(n), self.dev)
-        wgr = ck.fold_words(_pw_rows(cG[0], cG[1], rbp, n), self.dev)
-        whr = ck.fold_words(_pw_rows(cH[0], cH[1], rbp, n), self.dev)
+        # one upload of the three word arrays: wl (ones), G's and H's rows
+        wl, wgr, whr = ck.fold_words(np.concatenate([
+            _ones_rows(n), _pw_rows(cG[0], cG[1], rbp, n),
+            _pw_rows(cH[0], cH[1], rbp, n),
+        ]), self.dev).view(3, n, 8)
         self.G = cc.fold_bits(self.G[:n], self.G[n : 2 * n], wl, wgr)
         self.H = cc.fold_bits(self.H[:n], self.H[n : 2 * n], wl, whr)
 

@@ -44,23 +44,28 @@ quick run for tuning the walkers (no plain versions, no proofs).
     python3 chip_profile.py --sass
 
 prints the instruction counts, by opcode, of the walker kernels, the
-windowed w4 MSM, the half-width fold and the multiply test entry in the
-built library (``cuobjdump -sass``).
+windowed w4 MSM, the half-width fold, fold_bits, the tables and the
+multiply test entry in the built library (``cuobjdump -sass``).
 
     python3 chip_profile.py --routes comb [--out p.json]
 
 runs parts 1-2 for the named routes only (comma-separated), for a warm
-prove's device time by kernel without the rest.
+prove's device time by kernel without the rest.  Part 2 also lists a
+warm prove's host-to-device copies by the port's function that asks for
+each, with their bytes (``copies``).
 
     python3 chip_profile.py --kernels [--out kernels.json]
 
-times the windowed w4 MSM and the half-width fold at ``chip_smoke.py``
-phase 2's main-path shapes through their wrappers only (so a copy of the
-script times an older tree's kernels too): ``msm_w4_pair`` over the
-4096-point frozen pack, ``msm_w4`` at 2^14, 2048 and 1024 points,
-``msm_grid`` at 143,704, ``msm_grid_local`` over a 65,536-point shard,
-``fold_w3h`` 2^18 -> 2^17, ``fold_w3h_comb`` 2^18 -> 2^17 and 8192 ->
-4096; and, on the frozen pack, the composition ``table_w4`` +
+times the windowed w4 MSM, the half-width fold, fold_bits and the tables
+at ``chip_smoke.py`` phase 2's main-path shapes through their wrappers
+only (so a copy of the script times an older tree's kernels too):
+``msm_w4_pair`` over the 4096-point frozen pack, ``msm_w4`` at 2^14,
+2048 and 1024 points, ``msm_grid`` at 143,704, ``msm_grid_local`` over a
+65,536-point shard, ``fold_w3h`` 2^18 -> 2^17, ``fold_w3h_comb`` 2^18 ->
+2^17 and 8192 -> 4096, ``fold_bits`` at 1024 and 2048 lanes (the main
+path) and 2^17 (the chunk-list route's first fold; ones on the left),
+``table_w4`` at 2^18 down to 2^13 points and ``table_w5`` at
+2^18; and, on the frozen pack, the composition ``table_w4`` +
 ``msm_win_pair``, which computes ``msm_w4_pair``'s function, in turns
 with it (pair, composition, composition, pair; equal results).
 """
@@ -82,6 +87,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ROUTES = ["w4", "w5", "comb", "winmsm_off", "w3h_off", "w5_off"]
 ROUTE_ORDER = (ROUTES + ROUTES[::-1]) * 2
 BATCH = 8
+FOLD_WIDE = 1 << 17  # the chunk-list route's first fold_bits round
 
 
 def device_time_ms(prof, torch) -> tuple[float, dict]:
@@ -121,6 +127,63 @@ def profiled(torch, fn) -> dict:
                 by_kernel=by)
 
 
+def copies(torch, fn) -> dict:
+    """The host-to-device copies `fn` asks for through torch's Python API
+    (``Tensor.to`` / ``.cuda`` / ``.copy_``, ``torch.tensor`` /
+    ``as_tensor`` onto a card), by the innermost function of the port on
+    the stack and its caller in the port: {"module.function <-
+    module.caller": [copies, bytes]}.  Copies torch makes in C++ alone
+    (an indexed assignment from the host) are not seen; the profile's
+    HtoD count holds them all."""
+    pkg = os.sep + "bulletproofs_r1cs_gadgets_tpu_torch" + os.sep
+    got = {}
+
+    def note(nbytes):
+        names, f = [], sys._getframe(2)
+        while f is not None and len(names) < 2:
+            if pkg in f.f_code.co_filename:
+                mod = os.path.splitext(os.path.basename(f.f_code.co_filename))[0]
+                names.append(f"{mod}.{f.f_code.co_name}")
+            f = f.f_back
+        c = got.setdefault(" <- ".join(names) or "outside the port", [0, 0])
+        c[0] += 1
+        c[1] += int(nbytes)
+
+    T = torch.Tensor
+    orig = dict(to=T.to, cuda=T.cuda, copy_=T.copy_, tensor=torch.tensor,
+                as_tensor=torch.as_tensor)
+
+    def moved(self, out):
+        if self.device.type == "cpu" and out.device.type == "cuda":
+            note(out.nbytes)
+        return out
+
+    def made(data, out):
+        on_card = isinstance(data, torch.Tensor) and data.device.type == "cuda"
+        if out.device.type == "cuda" and not on_card:
+            note(out.nbytes)
+        return out
+
+    def copy_(self, src, *a, **k):
+        if self.device.type == "cuda" and src.device.type == "cpu":
+            note(src.nbytes)
+        return orig["copy_"](self, src, *a, **k)
+
+    T.to = lambda self, *a, **k: moved(self, orig["to"](self, *a, **k))
+    T.cuda = lambda self, *a, **k: moved(self, orig["cuda"](self, *a, **k))
+    T.copy_ = copy_
+    torch.tensor = lambda data, *a, **k: made(data, orig["tensor"](data, *a, **k))
+    torch.as_tensor = lambda data, *a, **k: made(
+        data, orig["as_tensor"](data, *a, **k))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        T.to, T.cuda, T.copy_ = orig["to"], orig["cuda"], orig["copy_"]
+        torch.tensor, torch.as_tensor = orig["tensor"], orig["as_tensor"]
+    return dict(sorted(got.items(), key=lambda kv: -kv[1][1]))
+
+
 def wall_s(torch, fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -141,6 +204,7 @@ def sass(build) -> dict:
     for body in re.split(r"\n\s+Function : ", text)[1:]:
         name = body.split("\n", 1)[0].strip()
         if not any(k in name for k in ("msm_win", "msm_w4", "fold_w3h",
+                                       "fold_bits", "table_kernel",
                                        "fe_mul_test")):
             continue
         ops = re.findall(
@@ -239,6 +303,15 @@ def kernels(bp, torch, cs, cc, ck, F, gens) -> dict:
         cw = ck.w3h_fold_words([[rand_pair(), rand_pair()]] * 2, dev)
         timed(f"fold_w3h_comb {4 * m} -> {2 * m}",
               lambda: cc.fold_w3h_comb(C, cw, m // 5))
+    for m in (*cs.FOLD_SIZES, FOLD_WIDE):  # the IPP's folds: ones on the left
+        wl = ck.fold_words(ck.const_rows(bp.Scalar(1), m), dev)
+        wr = ck.fold_words(rows[:m], dev)
+        Gl, Gr = G[:m], G[m : 2 * m]
+        timed(f"fold_bits {m}", lambda: cc.fold_bits(Gl, Gr, wl, wr))
+    for k in cs.TABLE_SIZES:
+        Gk = G[:k]
+        timed(f"table_w4 {k}", lambda: cc.table_w4(Gk))
+    timed(f"table_w5 {N}", lambda: cc.table_w5(G), 5)
     return dict(kernels_ms=ms)
 
 
@@ -250,7 +323,7 @@ def main() -> int:
     ap.add_argument("--sass", action="store_true",
                     help="count the redesigned kernels' instructions")
     ap.add_argument("--kernels", action="store_true",
-                    help="time the windowed w4 MSM and the half-width fold only")
+                    help="time the redesigned kernels only")
     ap.add_argument("--routes",
                     help="profile these routes only (comma-separated), no batch")
     args = ap.parse_args()
@@ -350,6 +423,9 @@ def main() -> int:
             prove(name)
 
         out[f"profile_prove_{name}"] = profiled(torch, prove_once)
+        out[f"copies_prove_{name}"] = copies(torch, prove_once)
+        print(name, "copies", json.dumps(out[f"copies_prove_{name}"]),
+              flush=True)
         out[f"profile_verify_{name}"] = profiled(
             torch,
             lambda: cs.verify(bp, comp, tape, comms, proofs[name], gens, be),

@@ -26,7 +26,9 @@ non-zero and prints no result):
    shapes (msm_w4 over 2^14 points and over 2048 and 1024, IPP rounds
    8-9's segments, with rows of 0, 1, L - 1, all -8 digits; msm_w4_pair
    over a 4096-point frozen pack with limits 0 / partial / full,
-   fold_bits over 2048 lanes,
+   fold_bits over 1024 lanes (IPP round 8's folds, the main path's shape)
+   and 2048, with rows of both scalars 0, L - 1, every nibble 8 and bits
+   253..255 set (not read),
    table_w5 over the 2^18 shared generators, msm_win5 over that table
    at the main path's walks (phase 1's 143,704 points, IPP round 1's
    2^17 at offset 2^17 and its 12,632-step a_R walk, the verifier's 2^18)
@@ -62,9 +64,10 @@ non-zero and prints no result):
    profiler's device time of that kernel) and its passes (the rest; the
    ``walkers`` line); the walkers' carry-chain multiply and squaring are
    held word for word against fe_mul / fe_sq over 2^20 random and edge
-   operand pairs and timed (``fe_mul_test``); phase 1 logs ptxas's
-   registers, stack and spills of the walkers, the windowed MSM and the
-   fold (``ptxas``).
+   operand pairs and timed (``fe_mul_test``); table_w4 is timed at the
+   main path's six sizes (2^18 down to 2^13 points); phase 1 logs
+   ptxas's registers, stack and spills of the walkers, the windowed MSM,
+   the half-width fold, fold_bits and the tables (``ptxas``).
 3. a VSMT-2 depth-4 proof through the port (padded to 4096: round 1
    folds with fold_c), byte-identical to the host
    path with the same prover randomness, its digest equal to the JAX
@@ -148,8 +151,14 @@ every kernel at least once;
 ``bound_ms``
 the larger of the work's 32-bit multiplies over the card's multiply rate
 and its bytes over 3.35 TB/s, counted from this run's inputs; the
-redesigned w4 MSMs and half-width folds also give ``bound_ladder_ms``,
-the bound their first versions' ladders were held to;
+redesigned w4 MSMs, half-width folds, fold_bits and tables also give
+``bound_ladder_ms``, the bound their first versions' work was held to;
+fold_bits and the tables give ``kernel_int_muls``, the multiplies the
+kernel runs with its repeated steps, beside ``int_muls``, the work's;
+fold_bits gives its chain floor, ``chain_ops`` dependent cooperative
+operations, and ``chain_ms``, computed, not timed: ``chain_ops`` times
+one cooperative operation's latency as this run measured it in the w4
+Horner tail (its ``tail_ms`` over its HORNER_OPS operations);
 ``library_ms`` null: no PyTorch call computes these functions), and the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -222,7 +231,9 @@ N1 = 143_704  # depth-253 multipliers: the phase-1 walks
 MSM_N = 1 << 14  # phase-2 shapes: msm_w4 points,
 MSM_SIZES = (MSM_N, 2048, 1024)  # msm_w4 at 2^14 and IPP rounds 8-9
 PAIR_S = 1024  # frozen side (the pair walks 4 * PAIR_S points),
-FOLD_M = 2048  # fold_bits lanes,
+FOLD_SIZES = (1024, 2048)  # fold_bits lanes: IPP round 8's (the main path's), and 2048,
+FOLD_M = max(FOLD_SIZES)  # fold_grid lanes (phase 10's kernels),
+TABLE_SIZES = tuple(1 << k for k in range(18, 12, -1))  # table_w4 per round
 LANE_V, LANE_SEG = 16, 2048  # msm_lane segments x points
 COMB_N = (1 << 16, 2048)  # msm_win_pair: IPP rounds 2 and 7 (side n)
 COMB7_M = 2048  # fold_w3h_comb at IPP round 7: 2 x 2^12 -> 2 x 2^11
@@ -306,11 +317,16 @@ HBM_BYTES_PER_S = 3.35e12
 CARD = {"int_muls_per_s": None}
 
 
-def bounds(ops: dict, ladder: dict, nbytes: int) -> dict:
-    """bound() of a redesigned kernel's work `ops`, and as bound_ladder_ms
-    the bound of the work `ladder` its first version's ladders did."""
-    return dict(**bound(ops, nbytes),
-                bound_ladder_ms=bound(ladder, nbytes)["bound_ms"])
+def bounds(ops: dict, ladder: dict, nbytes: int, kernel: dict | None = None) -> dict:
+    """bound() of a redesigned kernel's work `ops`, as bound_ladder_ms
+    the bound of the work `ladder` its first version's ladders did, and as
+    kernel_int_muls the multiplies the kernel itself runs (`kernel`: its
+    repeated steps included), where they differ from the work's."""
+    out = dict(**bound(ops, nbytes),
+               bound_ladder_ms=bound(ladder, nbytes)["bound_ms"])
+    if kernel is not None:
+        out["kernel_int_muls"] = bound(kernel, nbytes)["int_muls"]
+    return out
 
 
 def bound(ops: dict, nbytes: int) -> dict:
@@ -388,6 +404,101 @@ def msm_w4_ops(words, blocks: int, walks: int = 1) -> dict:
         nadd=3 * live + int((codes != 0).sum()) + walks * 65,
         add=walks * 64 * 2 * blocks,
     )
+
+
+# dependent cooperative operations of a w4 Horner walk (msm_win_horner<4>):
+# its doublings, its window adds and the chain's add; a launch's Horner
+# tail over this count is the latency of one cooperative operation
+HORNER_OPS = 4 * 63 + 64 + 1
+
+
+def fold_codes(words):
+    """(n, 8) raw bit words -> (n, 64) signed base-16 digit codes of bits
+    252..0, the top one taking the carry (csrc/msm_fold.cu fold_recode;
+    the CPU tests' model of fold_bits recodes with this function)."""
+    import numpy as np
+
+    w = np.ascontiguousarray(words).view(np.uint32).copy()
+    w[:, 7] &= np.uint32(0x1FFFFFFF)
+    nib = _codes(w.view(np.int32), 4, 64).astype(np.int64)
+    codes = np.zeros_like(nib)
+    carry = np.zeros(len(w), np.int64)
+    for j in range(64):
+        e = nib[:, j] + carry
+        carry = (e >= 8).astype(np.int64)
+        codes[:, j] = e & 15
+    return codes
+
+
+def fold_bits_ops(wl, wr) -> tuple[dict, dict, int]:
+    """(the work of fold_bits' function on these words, the work the kernel
+    runs (csrc/msm_fold.cu), its chain).  The function: per scalar with a
+    digit above 1 in magnitude its table (4 doublings with T, 3 niels adds,
+    8 2dT multiplies), per other nonzero scalar P's 2dT; per output 4
+    doublings a window below its top nonzero one (T on the last) and a
+    niels add per nonzero digit but the first.  The kernel: per output
+    (padded to warps of four) both tables (8 doublings with T, 6 niels
+    adds, 18 2dT multiplies), and per group the warp's windows and adds
+    (a warp doubles below its top window and adds where any of its groups
+    has a nonzero digit).  The chain: the dependent cooperative operations
+    of the slowest warp, the tables' 14 and their 4 conversion stages (as
+    2), the warp's doublings and adds."""
+    import numpy as np
+
+    codes = np.stack([fold_codes(wl), fold_codes(wr)])  # (2, n, 64)
+    nz = codes != 0
+    big = (nz & (codes != 1) & (codes != 15)).any(axis=2)  # a digit |d| > 1
+    small = nz.any(axis=2) & ~big
+    either = nz.any(axis=0)
+    live = either.any(axis=1)
+    top = 63 - np.argmax(either[:, ::-1], axis=1)
+    nlive, windows = int(live.sum()), int(top[live].sum())
+    nbig = int(big.sum())
+    ops = dict(sq=16 * nbig + 16 * windows,
+               fe=24 * nbig + int(small.sum()) + 13 * windows,
+               nadd=3 * nbig + int(nz.sum()) - nlive)
+    pad = -nz.shape[1] % 4  # the kernel's last warp repeats the last output
+    nz = np.concatenate([nz, np.repeat(nz[:, -1:], pad, axis=1)], axis=1)
+    warp = nz.reshape(2, -1, 4, 64).any(axis=2)  # (2, warps, 64)
+    wany = warp.any(axis=0)
+    wtop = np.where(wany.any(axis=1), 63 - np.argmax(wany[:, ::-1], axis=1), 0)
+    wadds = warp.sum(axis=(0, 2))
+    groups = nz.shape[1]
+    kernel = dict(sq=32 * groups + 4 * 16 * int(wtop.sum()),
+                  fe=50 * groups + 4 * 13 * int(wtop.sum()),
+                  nadd=6 * groups + 4 * int(wadds.sum()))
+    chain = 14 + 2 + 4 * wtop + wadds
+    return ops, kernel, int(chain.max())
+
+
+def fold_bits_ladder_ops(wl, wr) -> dict:
+    """The first fold_bits' dual bit-serial ladders on these words: from
+    each output's top set bit one doubling a bit, one add per bit set in
+    either scalar, and L + R."""
+    bits = _codes(wl, 1, 253) | _codes(wr, 1, 253)
+    ops, live = ladder_ops(bits, 1)
+    ops["add"] += live
+    return ops
+
+
+def table_ops(entries: int, n: int) -> tuple[dict, dict, dict]:
+    """(work, ladder work, kernel work) of the niels tables of n points:
+    the function's (the sequence's doublings, with T, and niels adds of P;
+    one 2dT multiply an entry), the first version's (full adds), and the
+    two-role kernel's (both roles double P and convert it)."""
+    adds = entries // 2 - 1
+    dbls = entries - 1 - adds
+    ops = dict(sq=4 * dbls * n, fe=(4 * dbls + entries) * n, nadd=adds * n)
+    kernel = dict(sq=4 * (dbls + 1) * n, fe=(4 * (dbls + 1) + entries + 1) * n,
+                  nadd=adds * n)
+    return ops, dict(dbl=dbls * n, add=adds * n, fe=entries * n), kernel
+
+
+def table_bounds(entries: int, n: int) -> dict:
+    """bounds() of the niels tables of n points: each point read, its
+    entries written."""
+    ops, ladder, kernel = table_ops(entries, n)
+    return bounds(ops, ladder, n * 128 * (entries + 1), kernel)
 
 
 def walk_ops(codes, rows, blocks: int, windows: int, bits: int,
@@ -733,41 +844,53 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
                  2 * half * 160 + 4 * 128),
     )
 
-    # ---- fold_bits: 2048 lanes, ones on the left as the IPP folds use
-    m = FOLD_M
-    left, right = G[:m], G[m : 2 * m]
-    srows = random_scalar_rows(bp, m, rng)
-    ones = bp.scvec.from_ints([1] * m)
-    ones[:3] = bp.scvec.from_ints([0, 0, L - 1])
-    srows[:3] = bp.scvec.from_ints([0, 1, 0])
-    wl = torch.from_numpy(bit_words(ones)).to(dev)
-    wr = torch.from_numpy(bit_words(srows)).to(dev)
-    got = cc.fold_bits(left, right, wl, wr)
-    plain = cc.fold_bits_plain(left, right, wl, wr)
-    gp = F.to_points(got)
-    err = max_abs_err(gp, F.to_points(plain), P)
+    # ---- fold_bits: 1024 lanes (the main path's: IPP round 8's G and H
+    # folds) and 2048, ones on the left as the IPP folds use, with edge
+    # rows: both scalars 0, wl = L - 1, every nibble 8 (digits of -8 and
+    # -7), bits 253..255 set (not read)
+    err, fold = 0, {}
+    for m in FOLD_SIZES:
+        left, right = G[:m], G[m : 2 * m]
+        srows = random_scalar_rows(bp, m, rng)
+        ones = bp.scvec.from_ints([1] * m)
+        ones[:3] = bp.scvec.from_ints([0, 0, L - 1])
+        srows[:3] = bp.scvec.from_ints([0, 1, 0])
+        wln, wrn = bit_words(ones), bit_words(srows)
+        wln[3] = wrn[3] = np.int32(-0x77777778)  # 0x88888888
+        wln[4, 7] |= np.int32(-0x20000000)  # 0xe0000000: bits 253..255
+        wrn[4, 7] |= np.int32(-0x20000000)
+        wl = torch.from_numpy(wln).to(dev)
+        wr = torch.from_numpy(wrn).to(dev)
+        got = cc.fold_bits(left, right, wl, wr)
+        plain, pms = timed_once(torch, lambda: cc.fold_bits_plain(left, right, wl, wr))
+        e = point_err(F, got, plain, P)
+        lanes = list(range(8)) + [m - 1]
+        gp = F.to_points(got[lanes])
+        lpts, rpts = F.to_points(left[lanes]), F.to_points(right[lanes])
+        for j, i in enumerate(lanes):
+            want = bp.multiscalar_mul(
+                [bp.Scalar(decode_bits(wl[i].tolist()) % (1 << 253) % L),
+                 bp.Scalar(decode_bits(wr[i].tolist()) % (1 << 253) % L)],
+                [lpts[j], rpts[j]],
+            )
+            assert gp[j] == want, f"fold_bits {m} lane {i} != host"
+        assert gp[0].is_identity(), "fold of two zero scalars is not identity"
+        kms = time_ms(torch, lambda: cc.fold_bits(left, right, wl, wr), 5)
+        log(f"  fold_bits {m} lanes: kernel {kms:.3f} ms, plain {pms:.1f} ms, "
+            f"max_abs_err {e}")
+        err = max(err, e)
+        fold[m] = (kms, pms, wln, wrn)
     assert err == 0, f"fold_bits != plain (err {err})"
-    lanes = list(range(8)) + [m - 1]
-    lpts, rpts = F.to_points(left[lanes]), F.to_points(right[lanes])
-    for j, i in enumerate(lanes):
-        want = bp.multiscalar_mul(
-            [bp.Scalar(decode_bits(wl[i].tolist())),
-             bp.Scalar(decode_bits(wr[i].tolist()))],
-            [lpts[j], rpts[j]],
-        )
-        assert gp[i] == want, f"fold_bits lane {i} != host"
-    assert gp[0].is_identity(), "fold of two zero scalars is not identity"
-    bits = (_codes(wl.cpu().numpy(), 1, 253)
-            | _codes(wr.cpu().numpy(), 1, 253))
-    fops, flive = ladder_ops(bits, 1)
-    fops["add"] += flive  # L + R
+    m = FOLD_SIZES[0]
+    kms, pms, wln, wrn = fold[m]
+    fops, fkernel, chain_ops = fold_bits_ops(wln, wrn)
+    tail = WALKS["msm_w4"][f"n {m}"]["tail_ms"]  # HORNER_OPS dependent operations
     records["fold_bits"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cc.fold_bits(left, right, wl, wr), 5),
-        plain_ms=time_ms(
-            torch, lambda: cc.fold_bits_plain(left, right, wl, wr), 1
-        ),
-        **bound(fops, m * (2 * 128 + 2 * 32 + 128)),
+        max_abs_err=err, ms=kms, plain_ms=pms,
+        ms_2048=fold[2048][0], plain_ms_2048=fold[2048][1],
+        **bounds(fops, fold_bits_ladder_ops(wln, wrn), m * (2 * 128 + 2 * 32 + 128),
+                 fkernel),
+        chain_ops=chain_ops, chain_ms=chain_ops * tail / HORNER_OPS,
     )
     records.update(phase_kernels_w5(bp, torch, cc, F, gens, dev, rng))
     records["msm_lane"] = phase_kernel_lane(bp, torch, cc, F, gens, dev, rng)
@@ -821,7 +944,7 @@ def phase_kernels_w5(bp, torch, cc, F, gens, dev, rng):
     records["table_w5"] = dict(
         max_abs_err=err, ms=time_ms(torch, lambda: cc.table_w5(pts), 5),
         plain_ms=plain_ms,
-        **bound(dict(dbl=8 * N, add=7 * N, fe=16 * N), N * 128 * 17),
+        **table_bounds(cc.TBL5, N),
     )
 
     # msm_win5: random scalars with 0, 1, L-1 and fifty -16 digits at the
@@ -1101,10 +1224,14 @@ def phase_kernels_comb(bp, torch, cc, F, gens, dev, rng):
             want = affine(p.scalar_mul(bp.Scalar(k + 1)), P)
             got = niels_affine(ints[4 * k : 4 * k + 4], P, bp.D2)
             assert got == want, f"table_w4 entry {k + 1}P of point {i}"
+    by_n = {}
+    for k in TABLE_SIZES:  # the round-1 transition, then rounds 2-6
+        Gk = G[:k]
+        by_n[str(k)] = time_ms(torch, lambda: cc.table_w4(Gk), 5)
+    log("  table_w4 ms by points " + json.dumps(by_n))
     records["table_w4"] = dict(
-        max_abs_err=err, ms=time_ms(torch, lambda: cc.table_w4(G), 5),
-        plain_ms=ms,
-        **bound(dict(dbl=4 * N, add=3 * N, fe=8 * N), N * 128 * 9),
+        max_abs_err=err, ms=by_n[str(N)], plain_ms=ms, ms_by_points=by_n,
+        **table_bounds(cc.TBL4, N),
     )
 
     # ---- msm_win_pair: rounds 2 and 7 over the table of [G'|H'] (4n
@@ -2451,10 +2578,10 @@ def main() -> int:
         build.load()
         log(f"  kernels built and loaded in {time.time() - t0:.2f} s")
         redesigned = {k: v for k, v in build.report().items()
-                      if "win" in k or "msm_w4" in k or "fold_w3h" in k}
-        assert any("msm_w4_tiles" in k for k in redesigned) and \
-            any("fold_w3h" in k for k in redesigned), \
-            "no ptxas report for the windowed MSM or the fold"
+                      if any(s in k for s in ("win", "msm_w4", "fold_w3h",
+                                              "fold_bits", "table_kernel"))}
+        for part in ("msm_w4_tiles", "fold_w3h", "fold_bits", "table_kernel"):
+            assert any(part in k for k in redesigned), f"no ptxas report for {part}"
         log("ptxas " + json.dumps(redesigned))
     with Phase("gens"):
         gens = bp.BulletproofGens(1 << 18)

@@ -580,6 +580,53 @@ def test_niels_fold_matches_plain_on_card(cuda_device, v):
     assert cc.LAUNCHES["fold_w3h_comb"] - before["fold_w3h_comb"] == runs
 
 
+@pytest.mark.parametrize("n", [1000, 1024, 2048])
+def test_cooperative_fold_bits_matches_plain_on_card(cuda_device, n):
+    """fold_bits at the main path's 1,024 lanes, phase 2's 2,048 and at
+    1,000 (not a multiple of a block's eight outputs): ones on the left
+    as the IPP folds use, random right scalars, and in front both scalars
+    zero, wl = 0, wl = L - 1, every nibble 8 and bits 253..255 set (not
+    read)."""
+    dev = cuda_device
+    g = BulletproofGens(n)
+    left, right = F.from_raw(g.G_raw(n), dev), F.from_raw(g.H_raw(n), dev)
+    wl = ck.bit_words(scvec.from_ints([1] * n))
+    wr = ck.bit_words(_scalar_rows(n, 160 + n % 13))
+    wl[:2] = 0
+    wr[0] = 0
+    wl[2] = ck.bit_words(scvec.from_ints([L - 1]))[0]
+    wl[3] = wr[3] = ALL_M8
+    wl[4, 7] |= -0x20000000
+    wr[4, 7] |= -0x20000000
+    wl, wr = torch.from_numpy(wl).to(dev), torch.from_numpy(wr).to(dev)
+    before = cc.LAUNCHES["fold_bits"]
+    got = cc.fold_bits(left, right, wl, wr)
+    assert _same_points(got, cc.fold_bits_plain(left, right, wl, wr))
+    assert F.to_points(got[:1])[0].is_identity()
+    assert cc.LAUNCHES["fold_bits"] - before == 1
+
+
+def test_two_role_tables_match_plain_on_card(cuda_device):
+    """table_w4 and table_w5 at 2^13 + 5 points (a ragged last block of
+    32), byte for byte; table_w4 into `out` (a larger table's first rows,
+    the rest untouched) and as table_w5's first half."""
+    dev = cuda_device
+    n = (1 << 13) + 5
+    pts = F.from_raw(BulletproofGens(n).G_raw(n), dev)
+    before = dict(cc.LAUNCHES)
+    tbl = cc.table_w4(pts)
+    assert torch.equal(tbl, cc.table_w4_plain(pts))
+    spare = torch.full((n + 7, cc.TBL4, 4, 8), -1, dtype=torch.int32, device=dev)
+    got = cc.table_w4(pts, out=spare)
+    assert got.data_ptr() == spare.data_ptr()
+    assert torch.equal(got, tbl) and bool((spare[n:] == -1).all())
+    t5 = cc.table_w5(pts)
+    assert torch.equal(t5, cc.table_w5_plain(pts))
+    assert torch.equal(tbl, t5[:, : cc.TBL4])
+    assert cc.LAUNCHES["table_w4"] - before["table_w4"] == 2
+    assert cc.LAUNCHES["table_w5"] - before["table_w5"] == 1
+
+
 def test_oracle_kernels_match_plain_on_card(cuda_device):
     """The device-oracle path's eight kernels at ragged sizes (n not a
     multiple of 128 or 2048), each against its plain version on the same

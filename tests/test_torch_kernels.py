@@ -250,6 +250,7 @@ def test_cuda_constants_match_engine():
     assert _cuh_words("FE_D2") == D2
     assert _cuh_words("FE_P") == P
     text = (CSRC / "msm_fold.cu").read_text()
-    # fold_bits runs bits 252..0 as the TPU fold does; scalars are < L
-    assert "pos = 252" in text and L < 1 << 253
+    # fold_bits reads bits 252..0 as the TPU fold does (the top word masked
+    # to its low 29 bits before the recoding); scalars are < L
+    assert "w[7] &= 0x1fffffffu" in text and L < 1 << 253
 
