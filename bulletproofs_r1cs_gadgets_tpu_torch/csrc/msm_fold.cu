@@ -1,114 +1,38 @@
-// Hopper kernels for the VSMT-2 slice: the per-segment totals of the
-// batched frozen rounds (msm_lane), the IPP generator fold (fold_bits) and
-// the constant folds of the grid rounds (fold_c, fold_c_comb: the w4
-// ladder plus one add).  The chained w4 MSMs (msm_w4, msm_w4_pair, and
-// msm_grid / msm_grid_local over views) are windowed and live in win.cu
-// beside the walkers whose passes they share.  Plain C entry points for
-// ctypes (ops/build.py): each
-// launches on the caller's stream, never synchronises, allocates nothing,
-// and returns cudaGetLastError().
+// Hopper kernels of the IPP folds that run Straus over 8-entry niels
+// tables: the generator fold fold_bits and the constant folds of the grid
+// rounds (fold_c, fold_c_comb).  The MSMs (msm_w4, msm_w4_pair,
+// msm_lane, and msm_grid / msm_grid_local over views) are windowed and
+// live in win.cu beside the walkers whose passes they share.  Plain C
+// entry points for ctypes (ops/build.py): each launches on the caller's
+// stream, never synchronises, allocates nothing, and returns
+// cudaGetLastError().
 //
 // Layouts (row-major, int32):
 //   points  (n, 4, 8): X, Y, Z, T as eight little-endian words each, any
 //                      value below 2^256 (gens arrive canonical)
-//   words   (n, 8):    one scalar per row; signed 4-bit digits for the
-//                      ladders (nibble e, digit e - 16 when e >= 8), raw
-//                      little-endian bits for the fold
+//   words   (n, 8):    one scalar per row: raw little-endian bits
+//                      (fold_bits), or a constant's signed 4-bit digits
+//                      (fold_c*: nibble e, digit e - 16 when e >= 8)
 //   out points are stored canonical (every coordinate in [0, p)).
 //
-// What bounds the ladder kernels (msm_lane, fold_c*): integer multiply
-// throughput.  One w4 ladder is ~330 point operations of ~9 field
-// multiplies of 64 32x32->64 products each, against 128 B of point and
-// 32 B of scalar read, so they are compute bound by three orders of
-// magnitude.  Their design answer is one independent ladder per thread
-// (no cross-thread traffic until the end) and one block reduction in
-// shared memory; per-thread tables live in local memory, which the L1
-// serves.  fold_bits, whose main-path launches are too small to fill the
-// card, is latency bound and runs cooperatively (see below).
+// Every point operation is inlined from ge25519_cc.cuh (the carry-chain
+// multiply; no calls, no stack frame).  What bounds a fold on an H100
+// depends on its outputs.  At the main path's 1,024-2,048 outputs,
+// latency: one output is ~330 dependent point operations, and so few
+// outputs leave most of 132 SMs idle; there a group of 8 lanes runs each
+// output on the cooperative operations, two stages of four multiplies an
+// operation (fold_bits, and fold_c up to half the groups the card holds
+// at once).  Past that, 32-bit integer multiplies: one thread runs each
+// output and the card fills (fold_c's thread design).
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "ge25519_cc.cuh"
 
-#define MSM_THREADS 128
-#define FOLD_THREADS 128
-
 __device__ __forceinline__ void load_words(const int32_t* src, uint32_t w[8]) {
     const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
 #pragma unroll
     for (int i = 0; i < 8; ++i) w[i] = s[i];
-}
-
-// d * P for the signed-digit scalar in w (64 nibbles, most significant
-// first; msm_lane and the constant folds): an 8-entry table (k+1)P, 4
-// doublings + one table add per window.  Nibble 0 adds nothing, so the
-// ladder starts at the top nonzero digit.
-__device__ ge ladder_w4(const ge& P, const uint32_t w[8]) {
-    ge tbl[8];
-    tbl[0] = P;
-    tbl[1] = ge_double(P);
-    tbl[2] = ge_add(tbl[1], P);
-    tbl[3] = ge_double(tbl[1]);
-    tbl[4] = ge_add(tbl[3], P);
-    tbl[5] = ge_double(tbl[2]);
-    tbl[6] = ge_add(tbl[5], P);
-    tbl[7] = ge_double(tbl[3]);
-    ge acc = ge_identity();
-    bool started = false;
-#pragma unroll 1
-    for (int pos = 63; pos >= 0; --pos) {
-        if (started) {
-            acc = ge_double(acc);
-            acc = ge_double(acc);
-            acc = ge_double(acc);
-            acc = ge_double(acc);
-        }
-        uint32_t e = (w[pos >> 3] >> (4 * (pos & 7))) & 15u;
-        if (e) {
-            bool neg = e >= 8u;  // e = 8 is the digit -8: table entry 8P
-            uint32_t mag = neg ? 16u - e : e;
-            ge s = tbl[mag - 1];
-            if (neg) s = ge_neg(s);
-            acc = started ? ge_add(acc, s) : s;
-            started = true;
-        }
-    }
-    return acc;
-}
-
-// msm_lane pass 1: block (b, s) runs the ladders of points
-// [b * T, (b + 1) * T) of segment s (rows s * seg + i) and writes one
-// partial per block, segment-major.
-__global__ void __launch_bounds__(MSM_THREADS)
-msm_lane_partials(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
-                  int32_t* __restrict__ partials, int seg) {
-    __shared__ ge sh[MSM_THREADS];
-    int b = blockIdx.x;
-    int s = blockIdx.y;
-    long long i = (long long)b * blockDim.x + threadIdx.x;
-    ge v = ge_identity();
-    if (i < seg) {
-        long long row = (long long)s * seg + i;
-        uint32_t w[8];
-        load_words(words + 8 * row, w);
-        if (!fe_is_zero_words(w)) v = ladder_w4(ge_load(pts + 32 * row), w);
-    }
-    block_sum(v, sh);
-    if (threadIdx.x == 0)
-        ge_store_raw(partials + 32ll * ((long long)s * gridDim.x + b), sh[0]);
-}
-
-// msm_lane pass 2: block s sums segment s's `bps` partials into out[s].
-__global__ void __launch_bounds__(MSM_THREADS)
-msm_lane_final(const int32_t* __restrict__ partials, int32_t* __restrict__ out, int bps) {
-    __shared__ ge sh[MSM_THREADS];
-    int s = blockIdx.x;
-    ge v = ge_identity();
-#pragma unroll 1
-    for (int j = threadIdx.x; j < bps; j += blockDim.x)
-        v = ge_add(v, ge_load(partials + 32ll * ((long long)s * bps + j)));
-    block_sum(v, sh);
-    if (threadIdx.x == 0) ge_store(out + 32 * s, sh[0]);
 }
 
 // ---- fold_bits: out[i] = wl_i * L_i + wr_i * R_i for raw little-endian
@@ -134,6 +58,7 @@ msm_lane_final(const int32_t* __restrict__ partials, int32_t* __restrict__ out, 
 #define FB_THREADS 64                 // 8 outputs a block
 #define FB_CODES (16 * 32)            // a group's shared words: two tables, then
 #define FB_GROUP_WORDS (FB_CODES + 18)  // the two scalars' codes (+2: spread over banks)
+#define FC_GROUP_WORDS (8 * 32 + 2)     // fold_c: a group's table (+2: spread over banks)
 
 // 64 signed base-16 digit codes (nibble j of word j / 8: the digit d & 15,
 // d in [-8, 7], d = code - 16 for code >= 8) of bits 252..0 of the raw
@@ -188,13 +113,113 @@ __device__ __forceinline__ ge fb_get(const uint32_t* e) {
     return p;
 }
 
+// Lane q's coordinate of p in niels form: (Y-X, Y+X, 2dT, Z)[q], the
+// operand coop_add_niels takes.
+__device__ __forceinline__ fe niels_coord(const ge& p, int q) {
+    fe m = fe_select(q == 0, fe_sub(p.Y, p.X), fe_select(q == 1, fe_add(p.Y, p.X), p.Z));
+    if (q == 2) m = fe_mul_cc(p.T, fe_d2());
+    return m;
+}
+
+// A group's table of the point at `row`, entries 0..7 = (k + 1) P at
+// words 32 k, in extended form: 2P = dbl P, odd multiples t(k-1) + P,
+// even ones doubled from t(k/2) (the TPU tables' sequence).
+__device__ __forceinline__ void coop_table(uint32_t* t, const int32_t* row, int q, int h,
+                                           int j, int base) {
+    ge x = ge_load(row);
+    const fe mineP = niels_coord(x, q);
+    fb_put(t, x, j);
+#pragma unroll 1
+    for (int k = 1; k < 8; ++k) {
+        __syncwarp();
+        if (k & 1) x = coop_double(fb_get(t + 32 * ((k - 1) / 2)), q, h, base, true);
+        else x = coop_add_niels(x, mineP, q, h, base);
+        fb_put(t + 32 * k, x, j);
+    }
+}
+
+// A group's `entries` extended table entries into niels form (Y+X, Y-X,
+// 2dT, Z) in place, four a stage, lane q the 2dT multiply of entry 4m + q.
+__device__ __forceinline__ void coop_to_niels(uint32_t* tbl, int entries, int q, int h) {
+    const fe d2 = fe_d2();
+#pragma unroll 1
+    for (int m = 0; m < entries / 4; ++m) {
+        __syncwarp();
+        uint32_t* e = tbl + 32 * (4 * m + q);
+        const ge p = fb_get(e);
+        const fe t2d = fe_mul_split(p.T, d2, h);
+        __syncwarp();
+        if (h == 0) {
+            const fe ypx = fe_add(p.Y, p.X);
+            const fe ymx = fe_sub(p.Y, p.X);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                e[k] = ypx.w[k];
+                e[8 + k] = ymx.w[k];
+                e[16 + k] = t2d.w[k];
+                e[24 + k] = p.Z.w[k];
+            }
+        }
+    }
+    __syncwarp();
+}
+
+// Straus over a group's `tables` niels tables (table s at words 256 s of
+// tbl) and their scalars' signed base-16 digit codes (scalar s's digit
+// win is nibble win % 8 of code[8 s + win / 8]): 64 windows, most
+// significant first, of 4 doublings (T on the last) once an add was
+// taken, and one niels add a scalar.  The warp takes an add when any of
+// its groups has a nonzero digit (the shuffles name the full warp; a
+// group with digit 0 adds the identity), and doubles once any has added.
+// Lane q reads its coordinate (Y-X, Y+X, 2dT, Z)[q] of the selected
+// entry; for a negative digit -Q = (Y-X, Y+X, -2dT, Z) in niels form, so
+// lanes 0 and 1 swap their reads and lane 2 negates.
+__device__ __forceinline__ ge coop_straus(const uint32_t* tbl, const uint32_t* code,
+                                          int tables, int q, int h, int base) {
+    ge acc = ge_identity();
+    bool started = false;
+#pragma unroll 1
+    for (int win = 63; win >= 0; --win) {
+        if (started) {
+#pragma unroll 1
+            for (int d = 0; d < 4; ++d) acc = coop_double(acc, q, h, base, d == 3);
+        }
+#pragma unroll 1
+        for (int s = 0; s < tables; ++s) {
+            const uint32_t c = (code[8 * s + (win >> 3)] >> (4 * (win & 7))) & 15u;
+            if (!__any_sync(0xffffffffu, c != 0u)) continue;
+            fe mine = fe_zero();
+            if (q != 2) mine.w[0] = 1u;  // the identity (1, 1, 0, 1)
+            if (c != 0u) {
+                const bool neg = c >= 8u;  // code 8 is the digit -8: entry 8P negated
+                const uint32_t mag = neg ? 16u - c : c;
+                const int off = q == 0 ? (neg ? 0 : 8) : q == 1 ? (neg ? 8 : 0) : 8 * q;
+                const uint32_t* src = tbl + 32 * (8 * s + mag - 1) + off;
+#pragma unroll
+                for (int k = 0; k < 8; ++k) mine.w[k] = src[k];
+                if (q == 2 && neg) mine = fe_neg(mine);
+            }
+            acc = coop_add_niels(acc, mine, q, h, base);
+            started = true;
+        }
+    }
+    return acc;
+}
+
+// Lane j of a group stores words 4j .. 4j + 3 of the canonical point.
+__device__ __forceinline__ void coop_store(int32_t* dst, const ge& p, int j) {
+    ge c;
+    c.X = fe_canon(p.X);
+    c.Y = fe_canon(p.Y);
+    c.Z = fe_canon(p.Z);
+    c.T = fe_canon(p.T);
+    *reinterpret_cast<uint4*>(dst + 4 * j) = ge_quarter(c, j);
+}
+
 // Block b, group g (threads 8g .. 8g + 7): output 8b + g.  Groups past n
 // run lane n - 1's fold and store nothing (every lane takes part in the
 // shuffles).  The group's lane 0 recodes both scalars into its shared
-// words (codes of wl, then wr).  The tables: entries 0..7 (k + 1) L,
-// 8..15 (k + 1) R, made in extended form (2P = dbl P, odd multiples t(k-1) + P, even ones
-// doubled from t(k/2)), then turned into niels form (Y+X, Y-X, 2dT, Z)
-// four entries a stage, lane q the 2dT multiply of entry 4m + q.
+// words (codes of wl, then wr); the tables: entries 0..7 of L, 8..15 of R.
 __global__ void __launch_bounds__(FB_THREADS)
 fold_bits_kernel(const int32_t* __restrict__ left, const int32_t* __restrict__ right,
                  const int32_t* __restrict__ wl, const int32_t* __restrict__ wr,
@@ -214,116 +239,153 @@ fold_bits_kernel(const int32_t* __restrict__ left, const int32_t* __restrict__ r
         fold_recode(wl + 8 * i, code);
         fold_recode(wr + 8 * i, code + 8);
     }
+#pragma unroll 1
+    for (int s = 0; s < 2; ++s) coop_table(tbl + 256 * s, (s ? right : left) + 32 * i, q, h, j, base);
+    coop_to_niels(tbl, 16, q, h);
+    const ge acc = coop_straus(tbl, code, 2, q, h, base);
+    if (live) coop_store(out + 32 * i, acc, j);
+}
 
-#pragma unroll 1
-    for (int s = 0; s < 2; ++s) {
-        uint32_t* t = tbl + 256 * s;
-        ge x = ge_load((s ? right : left) + 32 * i);
-        // this lane's coordinate of P in niels form: (Y-X, Y+X, 2dT, Z)[q]
-        fe mineP = fe_select(q == 0, fe_sub(x.Y, x.X), fe_select(q == 1, fe_add(x.Y, x.X), x.Z));
-        if (q == 2) mineP = fe_mul_cc(x.T, fe_d2());
-        fb_put(t, x, j);
-#pragma unroll 1
-        for (int k = 1; k < 8; ++k) {
-            __syncwarp();
-            if (k & 1) x = coop_double(fb_get(t + 32 * ((k - 1) / 2)), q, h, base, true);
-            else x = coop_add_niels(x, mineP, q, h, base);
-            fb_put(t + 32 * k, x, j);
-        }
-    }
-    const fe d2 = fe_d2();
-#pragma unroll 1
-    for (int m = 0; m < 4; ++m) {
-        __syncwarp();
-        uint32_t* e = tbl + 32 * (4 * m + q);
-        const ge p = fb_get(e);
-        const fe t2d = fe_mul_split(p.T, d2, h);
-        __syncwarp();
-        if (h == 0) {
-            const fe ypx = fe_add(p.Y, p.X);
-            const fe ymx = fe_sub(p.Y, p.X);
-#pragma unroll
-            for (int k = 0; k < 8; ++k) {
-                e[k] = ypx.w[k];
-                e[8 + k] = ymx.w[k];
-                e[16 + k] = t2d.w[k];
-                e[24 + k] = p.Z.w[k];
-            }
-        }
-    }
-    __syncwarp();
+// ---- the constant folds (pallas_curve.py fold_grid_c / _donate :541 /
+// :548 and fold_grid_c_comb :733, body _fold_c_kernel :490): out[i] =
+// P[i] + c_i * P[i + v], c_i the first constant below bp and the second
+// from bp on, each given as 64 signed base-16 digits (the codes
+// fold_bits' Straus reads after its recode).  Block (x, side): side s
+// reads in + s * 2v points and its two constants' words at words + 16 *
+// s, and writes out + s * v points.  Each output's thread or group reads
+// rows i and i + v and then writes row i only, so one side may fold in
+// place (out == in): no other output reads row i (a group past v reads
+// row v - 1 and stores nothing).  Two sides must not (output row j of
+// side 1 is an input row of side 0), so in and out carry no __restrict__
+// and the wrappers never alias the combined fold.  Two designs:
+//  - group (fold_c_group): fold_bits' cooperative table and Straus over
+//    the one table of P[i + v], the constant's codes read from the words
+//    in shared memory (no recode), then P[i] added once in niels form.
+//    A constant's digits are the same across a warp but in bp's warp.
+//  - thread (fold_c_thread): fold_w3h.cu's pattern, one thread an output:
+//    a niels table of P[i + v] (2P = dbl P, then t(k-1) + P) and of P[i]
+//    in local memory, each entry copied into registers before its add,
+//    the words in shared memory, doublings with T on the 4th of a window
+//    only, and P[i] as the add of a last digit with no doublings.
+// fold_c_launch takes the group design while the launch's outputs are at
+// most 1 / FC_GROUP_SHARE of the groups the card holds at once (occupancy
+// query), else the thread design.  Measured (NVIDIA H100 80GB HBM3,
+// 700.00 W; chip_profile.py --kernels, each design forced): at 2^11
+// outputs group 0.387 ms, thread 0.84-0.88; at 2^13 0.88-0.89 against
+// 0.86-0.87 (the crossover: the group's time grows with its resident
+// groups, the thread's is one thread's latency up to 2^14); at 2^14 1.63
+// against 0.87; at 2^17 12.1-12.2 against 5.60-5.63.  The card holds
+// ~14,800 groups (70 registers, 14 blocks an SM), so the switch sits at
+// ~7,400 outputs.
+#define FC_THREADS 128     // fold_c_thread: threads a block
+#define FC_MIN_BLOCKS 3    // fold_c_thread blocks an SM holds: <= 168 registers
+#define FC_GROUP_SHARE 2   // the group design up to this share of a card of groups
 
-    // Straus: lane q reads its coordinate (Y-X, Y+X, 2dT, Z)[q] of the
-    // selected entry; for a negative digit -Q = (Y-X, Y+X, -2dT, Z) in niels
-    // form, so lanes 0 and 1 swap their reads and lane 2 negates
+__global__ void __launch_bounds__(FB_THREADS)
+fold_c_group(const int32_t* in, int32_t* out, const int32_t* __restrict__ words, int v,
+             int bp) {
+    __shared__ uint32_t tables[(FB_THREADS / 8) * FC_GROUP_WORDS];
+    __shared__ uint32_t wsh[16];
+    const int side = blockIdx.y;
+    if (threadIdx.x < 16) wsh[threadIdx.x] = (uint32_t)words[16 * side + threadIdx.x];
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int h = (lane >> 2) & 1;
+    const int j = lane & 7;
+    const int base = lane & ~7;
+    const long long i0 = (long long)blockIdx.x * (FB_THREADS / 8) + (threadIdx.x >> 3);
+    const bool live = i0 < v;
+    const long long i = live ? i0 : v - 1;
+    const int32_t* src = in + 64ll * v * side;
+    uint32_t* tbl = tables + (threadIdx.x >> 3) * FC_GROUP_WORDS;
+    coop_table(tbl, src + 32 * (i + v), q, h, j, base);
+    coop_to_niels(tbl, 8, q, h);
+    ge acc = coop_straus(tbl, wsh + (i < bp ? 0 : 8), 1, q, h, base);
+    acc = coop_add_niels(acc, niels_coord(ge_load(src + 32 * i), q), q, h, base);
+    if (live) coop_store(out + 32ll * v * side + 32 * i, acc, j);
+}
+
+__global__ void __launch_bounds__(FC_THREADS, FC_MIN_BLOCKS)
+fold_c_thread(const int32_t* in, int32_t* out, const int32_t* __restrict__ words, int v,
+              int bp) {
+    __shared__ uint32_t wsh[16];
+    const int side = blockIdx.y;
+    if (threadIdx.x < 16) wsh[threadIdx.x] = (uint32_t)words[16 * side + threadIdx.x];
+    __syncthreads();
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= v) return;
+    const int32_t* src = in + 64ll * v * side;
+    const uint32_t* w = wsh + (i < bp ? 0 : 8);
+    niels tbl[9];  // (k + 1) P[i + v] for k < 8, then P[i]: local memory (indexed by digits)
+    ge x;
+#pragma unroll 1
+    for (int k = 0; k < 9; ++k) {
+        if (k == 0) {
+            x = ge_load(src + 32 * (i + v));
+        } else if (k == 1) {
+            x = ge_double_cc(x, true);
+        } else if (k < 8) {
+            const niels nP = tbl[0];
+            x = ge_add_niels_cc(x, nP, false);
+        } else {
+            x = ge_load(src + 32 * i);
+        }
+        tbl[k] = ge_to_niels_cc(x);
+    }
     ge acc = ge_identity();
     bool started = false;
 #pragma unroll 1
-    for (int win = 63; win >= 0; --win) {
-        if (started) {
+    for (int pos = 63; pos >= -1; --pos) {  // pos -1: P[i], entry 8, no doublings
+        if (started && pos >= 0) {
 #pragma unroll 1
-            for (int d = 0; d < 4; ++d) acc = coop_double(acc, q, h, base, d == 3);
+            for (int d = 0; d < 4; ++d) acc = ge_double_cc(acc, d == 3);
         }
-#pragma unroll 1
-        for (int s = 0; s < 2; ++s) {
-            const uint32_t c = (code[8 * s + (win >> 3)] >> (4 * (win & 7))) & 15u;
-            if (!__any_sync(0xffffffffu, c != 0u)) continue;
-            fe mine = fe_zero();
-            if (q != 2) mine.w[0] = 1u;  // the identity (1, 1, 0, 1)
-            if (c != 0u) {
-                const bool neg = c >= 8u;  // code 8 is the digit -8: entry 8P negated
-                const uint32_t mag = neg ? 16u - c : c;
-                const int off = q == 0 ? (neg ? 0 : 8) : q == 1 ? (neg ? 8 : 0) : 8 * q;
-                const uint32_t* src = tbl + 32 * (8 * s + mag - 1) + off;
-#pragma unroll
-                for (int k = 0; k < 8; ++k) mine.w[k] = src[k];
-                if (q == 2 && neg) mine = fe_neg(mine);
-            }
-            acc = coop_add_niels(acc, mine, q, h, base);
+        const uint32_t code = pos < 0 ? 1u : (w[pos >> 3] >> (4 * (pos & 7))) & 15u;
+        if (code) {
+            const bool neg = code >= 8u;  // code 8 is the digit -8: entry 8P negated
+            const niels e = tbl[pos < 0 ? 8 : (neg ? 16 - code : code) - 1];  // into registers
+            acc = ge_add_niels_cc(acc, e, neg);
             started = true;
         }
     }
-    if (live) {  // lane j stores words 4j .. 4j + 3 of the canonical point
-        ge c;
-        c.X = fe_canon(acc.X);
-        c.Y = fe_canon(acc.Y);
-        c.Z = fe_canon(acc.Z);
-        c.T = fe_canon(acc.T);
-        *reinterpret_cast<uint4*>(out + 32 * i + 4 * j) = ge_quarter(c, j);
+    ge_store(out + 32ll * v * side + 32 * i, acc);
+}
+
+// The group design's outputs the current device holds at once.
+static int fold_c_group_outputs() {
+    static int held[64];  // by device (0: not asked)
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int card = dev >= 0 && dev < 64 ? held[dev] : 0;
+    if (card == 0) {
+        int sms = 1, per_sm = 1;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_c_group, FB_THREADS, 0);
+        card = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1) * (FB_THREADS / 8);
+        if (dev >= 0 && dev < 64) held[dev] = card;
     }
+    return card;
 }
 
-// The constant fold of the grid rounds (pallas_curve._fold_c_kernel):
-// out[i] = P[i] + c_i * P[i + v], c_i the first constant below bp and the
-// second from bp on, by the w4 ladder (~330 point operations per
-// output; bound: integer multiplies).  Block (x, side): side s reads
-// in + s * 2v points and its two constants' signed w4 words at
-// words + 16 * s, and writes out + s * v points.  Thread i reads P[i] and
-// P[i + v] and then writes only out[i], so one side may fold in place
-// (out == in): no other thread reads row i.  Two sides must not (output
-// row j of side 1 is an input row of side 0), so in and out carry no
-// __restrict__ and the wrappers never alias the combined fold.
-__global__ void __launch_bounds__(FOLD_THREADS)
-fold_c_kernel(const int32_t* in, int32_t* out, const int32_t* __restrict__ words,
-              int v, int bp) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= v) return;
-    const int side = blockIdx.y;
-    const int32_t* src = in + 64ll * v * side;
-    uint32_t w[8];
-    load_words(words + 16 * side + (i < bp ? 0 : 8), w);
-    ge left = ge_load(src + 32 * i);
-    ge prod = ladder_w4(ge_load(src + 32 * (i + v)), w);
-    ge_store(out + 32ll * v * side + 32 * i, ge_add(prod, left));
+// 1 for the group design, 0 for the thread design, for `outputs` outputs.
+static int fold_c_design(long long outputs) {
+    return outputs * FC_GROUP_SHARE <= (long long)fold_c_group_outputs() ? 1 : 0;
 }
 
-static int msm_blocks(int n) { return (n + MSM_THREADS - 1) / MSM_THREADS; }
-
+// design: 1 group, 0 thread, -1 by the outputs (fold_c_design).
 static int fold_c_launch(const int32_t* in, int32_t* out, const int32_t* words, int v,
-                         int bp, int sides, void* stream) {
-    if (v > 0)
-        fold_c_kernel<<<dim3((v + FOLD_THREADS - 1) / FOLD_THREADS, sides), FOLD_THREADS, 0,
-                        (cudaStream_t)stream>>>(in, out, words, v, bp);
+                         int bp, int sides, int design, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (v > 0) {
+        if (design < 0) design = fold_c_design((long long)sides * v);
+        if (design)
+            fold_c_group<<<dim3((v + FB_THREADS / 8 - 1) / (FB_THREADS / 8), sides),
+                           FB_THREADS, 0, s>>>(in, out, words, v, bp);
+        else
+            fold_c_thread<<<dim3((v + FC_THREADS - 1) / FC_THREADS, sides), FC_THREADS, 0,
+                            s>>>(in, out, words, v, bp);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -335,20 +397,6 @@ extern "C" {
 // launch (the caller may be a pool thread, or drive a second card).
 int bp_set_device(int device) { return (int)cudaSetDevice(device); }
 
-int bp_msm_threads(void) { return MSM_THREADS; }
-
-// v independent MSM totals: out[s] = sum over points [s * seg, (s + 1) * seg).
-// partials: scratch for v * max(1, ceil(seg / MSM_THREADS)) points.
-int bp_msm_lane(const int32_t* pts, const int32_t* words, int32_t* out,
-                int32_t* partials, int v, int seg, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    int bps = msm_blocks(seg);
-    if (v > 0 && bps > 0)
-        msm_lane_partials<<<dim3(bps, v), MSM_THREADS, 0, s>>>(pts, words, partials, seg);
-    if (v > 0) msm_lane_final<<<v, MSM_THREADS, 0, s>>>(partials, out, bps);
-    return (int)cudaGetLastError();
-}
-
 int bp_fold_bits(const int32_t* left, const int32_t* right, const int32_t* wl,
                  const int32_t* wr, int32_t* out, int n, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
@@ -358,20 +406,24 @@ int bp_fold_bits(const int32_t* left, const int32_t* right, const int32_t* wl,
     return (int)cudaGetLastError();
 }
 
+// The constant folds' design on the current device for `outputs`
+// outputs (sides * v): 1 group, 0 thread.
+int bp_fold_c_design(int outputs) { return fold_c_design(outputs); }
+
 // out (v, 4, 8) from points (2v, 4, 8); words (1, 2, 8): the signed w4
 // words of the constant below bp and of the one from bp on.  out may be
-// points' first v rows (in place).
+// points' first v rows (in place).  design: 1 group, 0 thread, -1 by size.
 int bp_fold_c(const int32_t* pts, int32_t* out, const int32_t* words, int v, int bp,
-              void* stream) {
-    return fold_c_launch(pts, out, words, v, bp, 1, stream);
+              int design, void* stream) {
+    return fold_c_launch(pts, out, words, v, bp, 1, design, stream);
 }
 
 // out (2v, 4, 8) = [G'(v) | H'(v)] from points (4v, 4, 8) = [G(2v) | H(2v)];
 // words (2, 2, 8), side 0 for G and 1 for H, both split at bp.  out must
 // not overlap points.
 int bp_fold_c_comb(const int32_t* pts, int32_t* out, const int32_t* words, int v, int bp,
-                   void* stream) {
-    return fold_c_launch(pts, out, words, v, bp, 2, stream);
+                   int design, void* stream) {
+    return fold_c_launch(pts, out, words, v, bp, 2, design, stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@
 // msm_win: one walk over a w4 table; msm_win_pair: a combined round's L
 // and R walks over a w4 table in one launch).  One kernel template each,
 // instantiated per digit width.  Beside them the windowed w4 MSM
-// (msm_w4, msm_w4_pair; see "the windowed w4 MSM" below), which builds
+// (msm_w4, msm_w4_pair, msm_lane; see "the windowed w4 MSM" below), which builds
 // its tables in shared memory and ends in the walkers' passes 2 and 3.
 // Plain C entry points for ctypes (ops/build.py), with the conventions of
 // msm_fold.cu: launch on the caller's stream, never synchronise, allocate
@@ -274,7 +274,8 @@ msm_win_windows(const int32_t* __restrict__ partials, int32_t* __restrict__ wtot
 // Pass 3 (warp s folds walk s): Horner over the walk's window totals,
 // most significant first, BITS doublings between windows (the first
 // BITS - 1 of them leave T out), then the walk's chain:
-// out[s] = chain[s] + sum_win 2^(BITS * win) * wtot[s][win].
+// out[s] = chain[s] + sum_win 2^(BITS * win) * wtot[s][win].  A null
+// chain is the identity (msm_lane's totals): nothing is added.
 template <int BITS>
 __global__ void __launch_bounds__(32)
 msm_win_horner(const int32_t* __restrict__ wtot, const int32_t* __restrict__ chain,
@@ -303,10 +304,12 @@ msm_win_horner(const int32_t* __restrict__ wtot, const int32_t* __restrict__ cha
         for (int i = 0; i < 8; ++i) mine.w[i] = tot[32 * win + 8 * field + i];
         acc = coop_add_niels(acc, mine, q, h, base);
     }
-    const ge c = ge_load(chain + 32 * s);
-    fe mine = fe_select(q == 0, fe_sub(c.Y, c.X), fe_select(q == 1, fe_add(c.Y, c.X), c.Z));
-    if (q == 2) mine = fe_mul_cc(c.T, fe_d2());
-    acc = coop_add_niels(acc, mine, q, h, base);
+    if (chain != nullptr) {
+        const ge c = ge_load(chain + 32 * s);
+        fe mine = fe_select(q == 0, fe_sub(c.Y, c.X), fe_select(q == 1, fe_add(c.Y, c.X), c.Z));
+        if (q == 2) mine = fe_mul_cc(c.T, fe_d2());
+        acc = coop_add_niels(acc, mine, q, h, base);
+    }
     if (threadIdx.x == 0) ge_store(out + 32 * s, acc);
 }
 
@@ -356,18 +359,16 @@ static int msm_win_launch(const int32_t* table, const int32_t* words, const int3
     return (int)cudaGetLastError();
 }
 
-// ---- the windowed w4 MSM (msm_w4, msm_w4_pair; msm_grid and
+// ---- the windowed w4 MSM (msm_w4, msm_w4_pair, msm_lane; msm_grid and
 // msm_grid_local launch msm_w4's entry over a view).  It replaces
-// pallas_curve.py's msm_chunk_acc_w4 (:369) and msm_grid_pair (:768)
-// (and msm_grid_acc :438, msm_grid_local :487: the same body): out = acc
-// + sum_i d_i P_i over signed w4 words, for the pair over two segments
-// with their own accumulators.  What bounds it on an H100: 32-bit integer
-// multiplies (per point a 7-operation table and ~60 niels adds, 160 B
-// read), and at the main path's 1,024-4,096 points the latency of the
-// passes, which cannot fill 132 SMs.  The first version ran one
-// 64-window ladder per point on one thread (~330 point operations, out
-// of line, its table in local memory): 1.446 ms at the 4,096-point frozen
-// pack against a bound of 0.093.  Design: windows, then Horner.  Pass 1
+// pallas_curve.py's msm_chunk_acc_w4 (:369), msm_grid_pair (:768) and
+// msm_lane_dyn (:1515) (and msm_grid_acc :438, msm_grid_local :487: the
+// same body): out = acc + sum_i d_i P_i over signed w4 words, for the
+// pair over two segments with their own accumulators, for msm_lane over
+// v uniform segments with none.  What bounds it on an H100: 32-bit
+// integer multiplies (per point a 7-operation table and ~60 niels adds,
+// 160 B read), and at the main path's 1,024-4,096 points the latency of
+// the passes, which cannot fill 132 SMs.  Design: windows, then Horner.  Pass 1
 // (msm_w4_tiles) gives each block tiles of 16 or 64 points (by the size
 // and the card); it builds their eight multiples in niels form in shared
 // memory (two threads a point) and then each thread sums one window's
@@ -392,13 +393,13 @@ static int msm_win_launch(const int32_t* table, const int32_t* words, const int3
 #define W4_STRIDE (32 * Win<4>::TBL + 1)    // shared words of one point's table
 #define W4_TILES 2                          // pass 1's tiles: 16 and 64 points
 
-// One segment of an MSM: points (and word rows) [off, off + n).
-struct seg {
-    int n, off;
-};
-
-struct segs2 {
-    seg s[2];
+// The segments of one launch: segment s holds n[min(s, 1)] points (and
+// word rows) from row s * stride.  One MSM (msm_w4): {n, n}, 0; the pair
+// (msm_w4_pair): {lo_n, hi_n}, half; v uniform segments (msm_lane):
+// {seg, seg}, seg.
+struct segs {
+    int n[2];
+    int stride;
 };
 
 // A point's table in shared memory: word j (8c + i: word i of niels
@@ -454,7 +455,7 @@ __device__ __forceinline__ void w4_table(const int32_t* src, uint32_t* t, int ro
 template <int TILE>
 __global__ void __launch_bounds__(W4_THREADS, W4_MIN_BLOCKS)
 msm_w4_tiles(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
-             int32_t* __restrict__ partials, segs2 g, int ppt) {
+             int32_t* __restrict__ partials, segs g, int ppt) {
     constexpr int WINDOWS = Win<4>::WINDOWS;
     constexpr int SPAN = TILE < 32 ? 32 : TILE;  // table threads of one role
     static_assert(TILE % 2 == 0 && 2 * SPAN <= W4_THREADS, "two table threads a point");
@@ -463,19 +464,19 @@ msm_w4_tiles(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
     uint32_t* wsh = smem + TILE * W4_STRIDE;
     const int b = blockIdx.x;
     const int s = blockIdx.y;
-    const seg sg = g.s[s];
+    const int n = g.n[s < 1 ? 0 : 1];
     const int t = threadIdx.x;
     const int win = t % WINDOWS;
     const int half = t / WINDOWS;
-    const int tiles = (sg.n + TILE - 1) / TILE;
+    const int tiles = (n + TILE - 1) / TILE;
     ge acc = ge_identity();
 #pragma unroll 1
     for (int k = 0; k < ppt; ++k) {
         const int tile = b + k * gridDim.x;
         if (tile >= tiles) break;
         const int base = tile * TILE;
-        const int cnt = min(TILE, sg.n - base);
-        const long long row0 = (long long)sg.off + base;
+        const int cnt = min(TILE, n - base);
+        const long long row0 = (long long)s * g.stride + base;
         __syncthreads();  // the last tile's tables are read
 #pragma unroll 1
         for (int j = t; j < 8 * TILE; j += W4_THREADS)
@@ -513,7 +514,7 @@ static size_t w4_smem(int k) {
     return sizeof(uint32_t) * W4_TILE_POINTS[k] * (W4_STRIDE + 8);
 }
 
-static void (*const W4_KERNELS[W4_TILES])(const int32_t*, const int32_t*, int32_t*, segs2,
+static void (*const W4_KERNELS[W4_TILES])(const int32_t*, const int32_t*, int32_t*, segs,
                                           int) = {msm_w4_tiles<16>, msm_w4_tiles<64>};
 
 // Pass 1's geometry for `walks` segments of at most vmax points on the
@@ -556,14 +557,15 @@ static void w4_geometry(int vmax, int walks, int* k, int* nb, int* ppt) {
     *nb = *ppt > 0 ? (tiles + *ppt - 1) / *ppt : 1;
 }
 
-// The three passes over `walks` (1 or 2) segments: out[s] = chain[s] +
-// sum over segment s.
+// The three passes over `walks` segments: out[s] = chain[s] + sum over
+// segment s (chain null: the sum alone).
 static int msm_w4_launch(const int32_t* pts, const int32_t* words, const int32_t* chain,
-                         int32_t* out, int32_t* partials, int32_t* wtot, segs2 g, int walks,
-                         cudaStream_t s) {
+                         int32_t* out, int32_t* partials, int32_t* wtot, segs g, int walks,
+                         void* stream) {
     constexpr int WINDOWS = Win<4>::WINDOWS;
-    int vmax = 0;
-    for (int k = 0; k < walks; ++k) vmax = g.s[k].n > vmax ? g.s[k].n : vmax;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (walks <= 0) return (int)cudaGetLastError();
+    const int vmax = walks > 1 && g.n[1] > g.n[0] ? g.n[1] : g.n[0];
     int k = 0, nb = 1, ppt = 0;
     w4_geometry(vmax, walks, &k, &nb, &ppt);
     W4_KERNELS[k]<<<dim3(nb, walks), W4_THREADS, w4_smem(k), s>>>(pts, words, partials, g,
@@ -629,10 +631,7 @@ int bp_w4_partials(int vmax, int walks) {
 // partials: bp_w4_partials(n, 1) points of scratch; wtot: 64 points.
 int bp_msm_w4(const int32_t* pts, const int32_t* words, const int32_t* acc, int32_t* out,
               int32_t* partials, int32_t* wtot, int n, void* stream) {
-    segs2 g;
-    g.s[0] = seg{n, 0};
-    g.s[1] = g.s[0];
-    return msm_w4_launch(pts, words, acc, out, partials, wtot, g, 1, (cudaStream_t)stream);
+    return msm_w4_launch(pts, words, acc, out, partials, wtot, segs{{n, n}, 0}, 1, stream);
 }
 
 // Two chained MSMs in one launch set: out[0] = acc2[0] + sum over points
@@ -641,10 +640,17 @@ int bp_msm_w4(const int32_t* pts, const int32_t* words, const int32_t* acc, int3
 int bp_msm_w4_pair(const int32_t* pts, const int32_t* words, const int32_t* acc2,
                    int32_t* out, int32_t* partials, int32_t* wtot, int half, int lo_n,
                    int hi_n, void* stream) {
-    segs2 g;
-    g.s[0] = seg{lo_n, 0};
-    g.s[1] = seg{hi_n, half};
-    return msm_w4_launch(pts, words, acc2, out, partials, wtot, g, 2, (cudaStream_t)stream);
+    return msm_w4_launch(pts, words, acc2, out, partials, wtot, segs{{lo_n, hi_n}, half}, 2,
+                         stream);
+}
+
+// v independent MSM totals (the flotilla's): out (v, 4, 8), row s = sum
+// over points [s * seg, (s + 1) * seg).  partials: bp_w4_partials(seg, v)
+// points of scratch; wtot: v * 64.
+int bp_msm_lane(const int32_t* pts, const int32_t* words, int32_t* out, int32_t* partials,
+                int32_t* wtot, int v, int seg, void* stream) {
+    return msm_w4_launch(pts, words, nullptr, out, partials, wtot, segs{{seg, seg}, seg}, v,
+                         stream);
 }
 
 int bp_win5_windows(void) { return Win<5>::WINDOWS; }

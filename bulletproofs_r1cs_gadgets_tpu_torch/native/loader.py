@@ -1,7 +1,9 @@
 """ctypes loader for the native helper library, built on demand.
 
 The library builds into the package's gitignored ``build/`` directory,
-named by a hash of its source and flags.  ``g++`` writes a temporary file
+named by a hash of its source, its flags and the host CPU (it is built
+with ``-march=native``, so a build from another CPU may not run here or
+may run slower).  ``g++`` writes a temporary file
 that is renamed into place under an exclusive file lock, so processes that
 load it at the same time (parallel test workers) never see a half-written
 library: the first builds it, the others wait and then load it.
@@ -13,6 +15,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import platform
 import subprocess
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -21,11 +24,29 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), "build")
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 
 
+# /proc/cpuinfo keys that name the CPU and its instruction sets (x86, Arm)
+_CPU_KEYS = ("model name", "flags", "CPU implementer", "CPU part", "Features")
+
+
+def _cpu_id() -> str:
+    """The host CPU as ``-march=native`` sees it: /proc/cpuinfo's model and
+    instruction-set lines (each distinct line once), or the platform's
+    names where there is no /proc/cpuinfo."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return f"{platform.machine()} {platform.processor()}"
+    keep = {ln.strip() for ln in lines if ln.split(":")[0].strip() in _CPU_KEYS}
+    return "\n".join(sorted(keep)) or platform.machine()
+
+
 def library_path() -> str:
     h = hashlib.sha256()
     with open(_SRC, "rb") as f:
         h.update(f.read())
     h.update(" ".join(_FLAGS).encode())
+    h.update(_cpu_id().encode())
     return os.path.join(BUILD_DIR, f"libbptpu_{h.hexdigest()[:16]}.so")
 
 

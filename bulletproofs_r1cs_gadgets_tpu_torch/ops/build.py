@@ -41,12 +41,11 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (every one returns an int)
 SIGNATURES = {
     "bp_set_device": [_I],
-    "bp_msm_threads": [],
     "bp_w4_tile": [_I, _I],
     "bp_w4_partials": [_I, _I],
     "bp_msm_w4": [_VP] * 6 + [_I, _VP],
     "bp_msm_w4_pair": [_VP] * 6 + [_I, _I, _I, _VP],
-    "bp_msm_lane": [_VP, _VP, _VP, _VP, _I, _I, _VP],
+    "bp_msm_lane": [_VP] * 5 + [_I, _I, _VP],
     "bp_fold_bits": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
     "bp_win_partials": [_I, _I, _I],
     "bp_win5_windows": [],
@@ -58,8 +57,9 @@ SIGNATURES = {
     "bp_msm_win_pair": [_VP] * 6 + [_I] * 10 + [_VP],
     "bp_fold_w3h": [_VP, _VP, _VP, _I, _I, _VP],
     "bp_fold_w3h_comb": [_VP, _VP, _VP, _I, _I, _VP],
-    "bp_fold_c": [_VP, _VP, _VP, _I, _I, _VP],
-    "bp_fold_c_comb": [_VP, _VP, _VP, _I, _I, _VP],
+    "bp_fold_c_design": [_I],
+    "bp_fold_c": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "bp_fold_c_comb": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "bp_padd": [_VP, _VP, _VP, _I, _VP],
     "bp_pdbl": [_VP, _VP, _I, _VP],
     "bp_smul_lanes": [_VP, _VP, _VP, _I, _VP],

@@ -27,9 +27,9 @@ design does about that):
 :369, the ``_ladder_w4`` signed-digit ladder + ``emit_block_reduce``)
 together with the per-chunk loop of ``chunks.msm_chain``.  Bound: 32-bit
 integer multiplies (per live point a 7-operation table and one niels add
-per nonzero digit, ~64; 160 B read per point).  Design (``csrc/win.cu``,
-the second version): windows, then Horner.  A first pass gives each block
-tiles of 16 or 64 points (the library picks by size and card); per tile
+per nonzero digit, ~64; 160 B read per point).  Design (``csrc/win.cu``):
+windows, then Horner.  A first pass gives each block tiles of 16 or 64
+points (the library picks by size and card); per tile
 the block builds every point's eight multiples in niels form in shared
 memory (two threads a point) and each thread adds, for one of the 64
 windows, the entries its digits select over half the tile into a
@@ -38,8 +38,7 @@ multiply); one partial per window and block.  The walkers' second pass
 and cooperative Horner (``msm_win_windows<4>``, ``msm_win_horner<4>``)
 finish, with the incoming accumulator as the chain.  The first pass's
 blocks come from the card's resident blocks, so the library sizes the
-scratch (``bp_w4_partials``).  The first version ran one 64-window
-ladder per point (~330 point operations) per thread.
+scratch (``bp_w4_partials``).
 
 ``msm_w4_pair`` replaces ``pallas_curve.msm_grid_pair`` (:768).  Same
 bound and design, over two segments, points [0, lo_limit) and [half,
@@ -61,12 +60,11 @@ add).
 
 ``msm_lane`` replaces ``pallas_curve.msm_lane_dyn`` (:1515,
 ``_msm_lane_kernel`` :1473): v independent MSM totals, one per segment of
-``seg`` points (the flotilla of batched frozen IPP rounds).  Bound:
-integer multiplies (the ~330 point operations of the w4 ladder per
-point).  Design: the first ``msm_w4``'s per-thread ladder
-(``csrc/msm_fold.cu``) over a 2-D grid (blocks x segments), one partial
-per block, a second launch with one block per segment; the TPU's
-lattice-position output is a (v, 4, 8) tensor.
+``seg`` points (the flotilla of batched frozen IPP rounds).  Bound and
+design: ``msm_w4``'s, over v segments (``csrc/win.cu``: the first pass's
+grid dimension, one Horner walk a segment, each walk on its own warp) and
+no chain (the Horner pass starts each total from the identity); the
+TPU's lattice-position output is a (v, 4, 8) tensor.
 
 ``table_w5`` replaces ``pallas_curve.table_grid5_full`` (:1233,
 ``_table16_body`` :1174, ``_to_niels`` :934): the 16 multiples (k+1)P of
@@ -86,8 +84,8 @@ window-accumulator MSM over a ``table_w5`` table, with the TPU's
 [v, poff, woff, split, poff2] walk in points.  Bound: integer
 multiplies (51 niels adds of 8 field multiplies per point, against ~330
 point operations per point for the w4 ladder), then the 128 B table read
-per point and window.  Design (``csrc/win.cu``, the second version): the
-windows run in parallel, a block per window and range of steps, as many
+per point and window.  Design (``csrc/win.cu``): the windows run in
+parallel, a block per window and range of steps, as many
 blocks as the card holds at once; each thread keeps its sum in registers
 through inlined niels adds on the carry-chain multiply (``fe_mul_cc``)
 and loads the next entry during the current add; a warp shuffle tree sums
@@ -124,9 +122,9 @@ per walk.  On the card: 3.22 ms at n = 2^16 (5.39 before).
 beta * P[i] + alpha * P[i + v] with two signed half-width pairs split at
 a breakpoint, one side or both sides of the combined layout.  Bound:
 integer multiplies (~226 point operations per point).  Design
-(``csrc/fold_w3h.cu``, the second version): one thread per output point,
-two 4-entry niels tables and one shared doubling chain over 44 signed w3
-digits, every point operation inlined on the carry-chain multiply
+(``csrc/fold_w3h.cu``): one thread per output point, two 4-entry niels
+tables and one shared doubling chain over 44 signed w3 digits, every
+point operation inlined on the carry-chain multiply
 (squares by ``fe_sq_cc``, the first two doublings of a window without T,
 8-multiply niels adds); the kernels take the two pairs' digit words and
 the breakpoint (the TPU passes per-lane word arrays), and write a tensor
@@ -137,20 +135,27 @@ any order cannot).
 (:541 / :548, ``_fold_c_call`` :513, ``_fold_c_kernel`` :490), and
 ``fold_c_comb`` replaces ``fold_grid_c_comb`` (:733, ``_fold_c_comb_call``
 :698): out[i] = P[i] + c_i * P[i + v] with two constants split at a
-breakpoint, one side or both sides of the combined layout.  Bound:
-integer multiplies (the ~330 point operations of the w4 ladder per
-output).  Design: ``msm_lane``'s per-thread w4 ladder plus one add, one
-thread per output; the kernels take the two constants' w4 words and the
-breakpoint (the TPU passes per-lane word arrays).  One side may fold in
-place (thread i reads rows i and i + v and writes row i only), the
-counterpart of the TPU's donated variant; the combined fold writes a new
-tensor, as ``fold_w3h_comb`` does.
+breakpoint, one side or both sides of the combined layout.  Bound: at
+2^16-2^17 outputs integer multiplies (~320 point operations per output),
+at the default route's 2,048 latency (one output's dependent chain).
+Design (``csrc/msm_fold.cu``): Straus over an 8-entry niels table of
+P[i + v] and the constant's signed base-16 digits, P[i] added last, in
+two designs that the library picks by the outputs against the card's
+resident groups (``bp_fold_c_design``): ``group``, ``fold_bits``'
+cooperative table and window loop (8 lanes an output), up to half the
+groups the card holds at once; ``thread``, one thread an output on inlined
+carry-chain operations with the table in local memory (``fold_w3h``'s
+pattern), past that.  The kernels take the two constants' w4 words and
+the breakpoint (the TPU passes per-lane word arrays).  One side may fold
+in place (an output's thread or group reads rows i and i + v and writes
+row i only), the counterpart of the TPU's donated variant; the combined
+fold writes a new tensor, as ``fold_w3h_comb`` does.
 
 ``msm_win`` replaces ``pallas_curve.msm_win_dyn`` (:1156,
 ``_msm_win_call`` :1105, ``_msm_win_kernel`` :1065): one w4 window walk
 over a ``table_w4`` table, [v, poff, woff, split, poff2] in points.  Bound
 and design: ``msm_win_pair``'s, with one walk (2.0 ms at 143,704 steps on
-the card, 3.57 with the first version).
+the card).
 
 ``msm_grid`` replaces ``pallas_curve.msm_grid_acc`` (:438,
 ``_msm_grid_kernel`` :415): a chained w4 MSM over a chunk range of the
@@ -315,12 +320,6 @@ def _launch(name: str, dev: torch.device, entry: str, *args,
         build.check(getattr(lib, entry)(*args, _stream(dev)), name)
     if count:
         _count(name)
-
-
-def _msm_partials(lib, n: int) -> int:
-    """msm_lane's first-pass partials for a segment of n points."""
-    t = lib.bp_msm_threads()
-    return -(-n // t)
 
 
 def _w4_scratch(dev: torch.device, vmax: int, walks: int):
@@ -677,13 +676,10 @@ def msm_lane(points: torch.Tensor, words: torch.Tensor, v: int
     _check(words, "words", (n, 8), dev)
     if _route(dev) == "plain":
         return msm_lane_plain(points, words, v)
-    lib = build.load()
     out = torch.empty((v, 4, 8), dtype=torch.int32, device=dev)
-    partials = torch.empty(
-        (v * _msm_partials(lib, seg), 4, 8), dtype=torch.int32, device=dev
-    )
+    partials, wtot = _w4_scratch(dev, seg, v)
     _launch("msm_lane", dev, "bp_msm_lane", _ptr(points), _ptr(words),
-            _ptr(out), _ptr(partials), v, seg)
+            _ptr(out), _ptr(partials), _ptr(wtot), v, seg)
     return out
 
 
@@ -822,9 +818,11 @@ def msm_win_pair(table: torch.Tensor, words: torch.Tensor,
     return out
 
 
-def _fold_launch(name, plain, points, words, word_shape, bp, v, sides, out):
+def _fold_launch(name, plain, points, words, word_shape, bp, v, sides, out,
+                 *design):
     """The half-width (``fold_w3h*``) and constant (``fold_c*``) folds:
-    2 * sides * v points in, sides * v out, the words' pair 0 below bp."""
+    2 * sides * v points in, sides * v out, the words' pair 0 below bp;
+    `design` the constant folds' (``_fold_c_design``)."""
     dev = points.device
     _check(points, "points", (2 * sides * v, 4, 8), dev)
     _check(words, "words", (sides, *word_shape), dev)
@@ -836,7 +834,7 @@ def _fold_launch(name, plain, points, words, word_shape, bp, v, sides, out):
     if _route(dev) == "plain":
         return out.copy_(plain(points, words, bp))
     _launch(name, dev, f"bp_{name}", _ptr(points), _ptr(out), _ptr(words), v,
-            bp)
+            bp, *design)
     return out
 
 
@@ -861,25 +859,51 @@ def fold_w3h_comb(points: torch.Tensor, words: torch.Tensor, bp: int
                         (2, 2, 8), bp, v, 2, None)
 
 
+FOLD_C_DESIGNS = ("thread", "group")  # csrc/msm_fold.cu's designs, by number
+
+
+def _fold_c_design(design: str | None) -> int:
+    """The library's design number: None lets it choose by size."""
+    if design is None:
+        return -1
+    if design not in FOLD_C_DESIGNS:
+        raise ValueError(f"fold_c: design {design!r}, expected one of "
+                         f"{FOLD_C_DESIGNS} or None")
+    return FOLD_C_DESIGNS.index(design)
+
+
+def fold_c_design(dev: torch.device, outputs: int) -> str:
+    """The design the constant folds take on card `dev` for `outputs`
+    outputs (v, or 2v for ``fold_c_comb``)."""
+    lib = build.load()
+    with torch.cuda.device(dev):
+        build.check(lib.bp_set_device(dev.index), "fold_c design (set device)")
+        return FOLD_C_DESIGNS[lib.bp_fold_c_design(outputs)]
+
+
 def fold_c(points: torch.Tensor, words: torch.Tensor, bp: int,
-           out: torch.Tensor | None = None) -> torch.Tensor:
+           out: torch.Tensor | None = None, design: str | None = None
+           ) -> torch.Tensor:
     """(v, 4, 8) from points (2v, 4, 8): out[i] = P[i] + c_i * P[i + v],
     c_i the constant of words[0, 0] below bp and of words[0, 1] from bp
     on (``ck.c_fold_words``).  `out` (v, 4, 8) takes the result instead of
-    a new tensor; it may be ``points[:v]`` (in place)."""
+    a new tensor; it may be ``points[:v]`` (in place).  `design`
+    (``"thread"`` / ``"group"``, for measurements) overrides the
+    library's choice by size; the point is the same either way."""
     v = points.shape[0] // 2
     return _fold_launch("fold_c", fold_c_plain, points, words, (2, 8), bp, v,
-                        1, out)
+                        1, out, _fold_c_design(design))
 
 
-def fold_c_comb(points: torch.Tensor, words: torch.Tensor, bp: int
-                ) -> torch.Tensor:
+def fold_c_comb(points: torch.Tensor, words: torch.Tensor, bp: int,
+                design: str | None = None) -> torch.Tensor:
     """(2v, 4, 8) = [G'(v) | H'(v)] from points (4v, 4, 8) = [G(2v) |
     H(2v)] in one launch, side s folded with words[s] (both sides split
-    at bp).  Always a new tensor: never in place."""
+    at bp).  Always a new tensor: never in place.  `design` as in
+    ``fold_c``."""
     v = points.shape[0] // 4
     return _fold_launch("fold_c_comb", fold_c_comb_plain, points, words,
-                        (2, 8), bp, v, 2, None)
+                        (2, 8), bp, v, 2, None, _fold_c_design(design))
 
 
 # ------------------------------------------- the device-oracle path's kernels

@@ -54,6 +54,10 @@ prove's device time by kernel without the rest.  Part 2 also lists a
 warm prove's host-to-device copies by the port's function that asks for
 each, with their bytes (``copies``).
 
+    python3 chip_profile.py --batch [--out batch.json]
+
+runs part 4 alone (the batch of 8), for its device time by kernel.
+
     python3 chip_profile.py --kernels [--out kernels.json]
 
 times the windowed w4 MSM, the half-width fold, fold_bits and the tables
@@ -65,9 +69,13 @@ only (so a copy of the script times an older tree's kernels too):
 2^17 and 8192 -> 4096, ``fold_bits`` at 1024 and 2048 lanes (the main
 path) and 2^17 (the chunk-list route's first fold; ones on the left),
 ``table_w4`` at 2^18 down to 2^13 points and ``table_w5`` at
-2^18; and, on the frozen pack, the composition ``table_w4`` +
-``msm_win_pair``, which computes ``msm_w4_pair``'s function, in turns
-with it (pair, composition, composition, pair; equal results).
+2^18, ``msm_lane`` over 16 segments of 2048 points (the batch of 8's
+flotilla), ``fold_c`` at 2^11, 2^13, 2^14, 2^15 and 2^17 outputs and
+``fold_c_comb`` 2^18 -> 2^17 (by the library's choice, and under each
+design where the wrappers take ``design``); and, on the frozen pack, the
+composition ``table_w4`` + ``msm_win_pair``, which computes
+``msm_w4_pair``'s function, in turns with it (pair, composition,
+composition, pair; equal results).
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import inspect
 import json
 import os
 import re
@@ -88,6 +97,7 @@ ROUTES = ["w4", "w5", "comb", "winmsm_off", "w3h_off", "w5_off"]
 ROUTE_ORDER = (ROUTES + ROUTES[::-1]) * 2
 BATCH = 8
 FOLD_WIDE = 1 << 17  # the chunk-list route's first fold_bits round
+FOLD_C_OUTPUTS = tuple(1 << k for k in (11, 13, 14, 15, 17))  # fold_c shapes
 
 
 def device_time_ms(prof, torch) -> tuple[float, dict]:
@@ -204,7 +214,7 @@ def sass(build) -> dict:
     for body in re.split(r"\n\s+Function : ", text)[1:]:
         name = body.split("\n", 1)[0].strip()
         if not any(k in name for k in ("msm_win", "msm_w4", "fold_w3h",
-                                       "fold_bits", "table_kernel",
+                                       "fold_bits", "fold_c", "table_kernel",
                                        "fe_mul_test")):
             continue
         ops = re.findall(
@@ -312,6 +322,31 @@ def kernels(bp, torch, cs, cc, ck, F, gens) -> dict:
         Gk = G[:k]
         timed(f"table_w4 {k}", lambda: cc.table_w4(Gk))
     timed(f"table_w5 {N}", lambda: cc.table_w5(G), 5)
+    lane_n = cs.LANE_V * cs.LANE_SEG
+    Hl, wl4 = H[:lane_n], w4[:lane_n]
+    timed(f"msm_lane {cs.LANE_V} x {cs.LANE_SEG}",
+          lambda: cc.msm_lane(Hl, wl4, cs.LANE_V))
+
+    def rand_const():
+        return bp.Scalar(int.from_bytes(rng.bytes(32), "little") % L)
+
+    designs = [None]  # the library's choice; then each design, where taken
+    if "design" in inspect.signature(cc.fold_c).parameters:
+        designs += list(cc.FOLD_C_DESIGNS)
+    for v in FOLD_C_OUTPUTS:
+        Gv = G[: 2 * v]
+        cw = ck.c_fold_words([(rand_const(), rand_const())], dev)
+        for d in designs:
+            kw = {} if d is None else dict(design=d)
+            timed(f"fold_c {v} {d or 'auto'}",
+                  lambda: cc.fold_c(Gv, cw, v // 2 + 3, **kw), 5)
+    m = N // 4
+    C = torch.cat([G[: 2 * m], H[: 2 * m]])
+    cw = ck.c_fold_words([(rand_const(), rand_const())] * 2, dev)
+    for d in designs:
+        kw = {} if d is None else dict(design=d)
+        timed(f"fold_c_comb {4 * m} -> {2 * m} {d or 'auto'}",
+              lambda: cc.fold_c_comb(C, cw, m // 5, **kw), 5)
     return dict(kernels_ms=ms)
 
 
@@ -326,9 +361,10 @@ def main() -> int:
                     help="time the redesigned kernels only")
     ap.add_argument("--routes",
                     help="profile these routes only (comma-separated), no batch")
+    ap.add_argument("--batch", action="store_true",
+                    help="run part 4 (the batch of 8) only")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -362,6 +398,21 @@ def main() -> int:
                 json.dump(out, f, indent=1)
         return 0
     params, tree = cs.build_tree(bp, cs.DEPTH)
+    if not args.batch:
+        out.update(single(bp, torch, cs, cc, ck, F, gens, params, tree, args))
+    if not args.routes:
+        out.update(batch8(bp, torch, cs, gens, params, tree))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+def single(bp, torch, cs, cc, ck, F, gens, params, tree, args) -> dict:
+    """Parts 1-3 (part 3 unless `args.routes`)."""
+    import numpy as np
+
+    out = {}
     comp, tape, comms, prover = cs.synthesize(
         bp, params, tree, cs.DEPTH, cs.SEED
     )
@@ -434,10 +485,7 @@ def main() -> int:
               json.dumps(out[f"profile_verify_{name}"]), flush=True)
 
     if args.routes:
-        if args.out:
-            with open(args.out, "w") as f:
-                json.dump(out, f, indent=1)
-        return 0
+        return out
 
     # 3. the walker against the w4 ladder over the same generators
     dev = torch.device("cuda", 0)
@@ -471,7 +519,11 @@ def main() -> int:
     out.update(kern)
     print(json.dumps(kern), flush=True)
     be.evict_gens()
+    return out
 
+
+def batch8(bp, torch, cs, gens, params, tree) -> dict:
+    """Part 4: the batch of 8 on the w5 and the combined route."""
     # 4. the batch of 8
     comp8 = bp.CompiledVSMT2(params, cs.DEPTH, constrain_index_bits=False)
     circuit = (comp8, comp8.tape(tree.root))
@@ -506,12 +558,8 @@ def main() -> int:
         res[f"profile_batch8_workers1_{route}"] = profiled(
             torch, batch(1, route)
         )
-    out.update(res)
     print(json.dumps(res), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-    return 0
+    return res
 
 
 if __name__ == "__main__":

@@ -33,7 +33,9 @@ non-zero and prints no result):
    at the main path's walks (phase 1's 143,704 points, IPP round 1's
    2^17 at offset 2^17 and its 12,632-step a_R walk, the verifier's 2^18)
    plus a poff / split / poff2 walk, msm_lane over 16 segments of 2048
-   points with an all-zero one, fold_w3h over the 2^18 generators into
+   points (rows 0, 1, L - 1, all -8 digits, an all-zero segment, a last
+   segment identity-padded as the flotilla pads) and over 24, fold_w3h
+   over the 2^18 generators into
    2^17 (random half-gcd pairs split at round 1's breakpoint, and the
    edge pairs (0, 1) / (1, -1)), fold_w3h_comb over a 2^18-point
    combined tensor (round 2) and an 8192-point one (round 7, one side on
@@ -41,8 +43,10 @@ non-zero and prints no result):
    points, msm_win_pair at IPP
    rounds 2 (n = 2^16) and 7 (n = 2048); the route flags' kernels:
    fold_c over the 2^18 generators into 2^17 (random constants split at
-   round 1's breakpoint, the edge constants 0, 1, L - 1, in place) and
-   over 4096 into 2048, fold_c_comb over a 2^18-point combined tensor,
+   round 1's breakpoint, the edge constants 0, 1, L - 1) and over 4096
+   into 2048 (breakpoints on and inside a warp), each in place, each
+   under both designs (thread, group), fold_c_comb over a 2^18-point
+   combined tensor under both,
    msm_win at round 2's L walk and R wrap walk and over the table_w4 of
    the shared generators at phase 1's 143,704 points, msm_grid over
    143,704 generators at offset 0 and 2048; msm_grid_local over one
@@ -56,7 +60,8 @@ non-zero and prints no result):
    word for word), and on a subset against the host MSM, scalar
    multiplication or Python ints.  Tolerance: exact (the same group
    elements, ``point_err`` 0: the windowed MSM and the niels fold add in
-   another order than their plain versions; equal table words; equal
+   another order than their plain versions, and so do msm_lane and
+   fold_c*; equal table words; equal
    words for the device-oracle kernels).  Every walk of the window
    walkers (msm_win5, msm_win_pair, msm_win) and of the windowed w4 MSM
    (msm_w4, msm_w4_pair, msm_grid, msm_grid_local, which end in the
@@ -67,7 +72,8 @@ non-zero and prints no result):
    operand pairs and timed (``fe_mul_test``); table_w4 is timed at the
    main path's six sizes (2^18 down to 2^13 points); phase 1 logs
    ptxas's registers, stack and spills of the walkers, the windowed MSM,
-   the half-width fold, fold_bits and the tables (``ptxas``).
+   the half-width fold, fold_bits, the constant folds and the tables
+   (``ptxas``).
 3. a VSMT-2 depth-4 proof through the port (padded to 4096: round 1
    folds with fold_c), byte-identical to the host
    path with the same prover randomness, its digest equal to the JAX
@@ -151,10 +157,15 @@ every kernel at least once;
 ``bound_ms``
 the larger of the work's 32-bit multiplies over the card's multiply rate
 and its bytes over 3.35 TB/s, counted from this run's inputs; the
-redesigned w4 MSMs, half-width folds, fold_bits and tables also give
-``bound_ladder_ms``, the bound their first versions' work was held to;
-fold_bits and the tables give ``kernel_int_muls``, the multiplies the
-kernel runs with its repeated steps, beside ``int_muls``, the work's;
+redesigned w4 MSMs (msm_lane among them), half-width folds, constant
+folds, fold_bits and tables also give ``bound_ladder_ms``, the bound
+their first versions' work was held to; fold_bits, the constant folds
+and the tables give ``kernel_int_muls``, the multiplies the kernel runs
+with its repeated steps, beside ``int_muls``, the work's; msm_lane
+also gives its time over 24 segments (``ms_24``), and fold_c its
+design and its record at 2048 outputs (``*_2048``: padded n = 4096's
+round 1 on the default route) and each design's time at both shapes
+(``design_ms``);
 fold_bits gives its chain floor, ``chain_ops`` dependent cooperative
 operations, and ``chain_ms``, computed, not timed: ``chain_ops`` times
 one cooperative operation's latency as this run measured it in the w4
@@ -179,7 +190,7 @@ _WIN = f"{PKG}/csrc/win.cu"
 _W3H = f"{PKG}/csrc/fold_w3h.cu"
 _OR = f"{PKG}/csrc/oracle.cu"
 SOURCES = {
-    "msm_w4": _WIN, "msm_w4_pair": _WIN, "fold_bits": _W4, "msm_lane": _W4,
+    "msm_w4": _WIN, "msm_w4_pair": _WIN, "fold_bits": _W4, "msm_lane": _WIN,
     "table_w5": _WIN, "msm_win5": _WIN, "table_w4": _WIN,
     "msm_win_pair": _WIN, "fold_w3h": _W3H, "fold_w3h_comb": _W3H,
     "fold_c": _W4, "fold_c_comb": _W4, "msm_win": _WIN,
@@ -234,7 +245,9 @@ PAIR_S = 1024  # frozen side (the pair walks 4 * PAIR_S points),
 FOLD_SIZES = (1024, 2048)  # fold_bits lanes: IPP round 8's (the main path's), and 2048,
 FOLD_M = max(FOLD_SIZES)  # fold_grid lanes (phase 10's kernels),
 TABLE_SIZES = tuple(1 << k for k in range(18, 12, -1))  # table_w4 per round
-LANE_V, LANE_SEG = 16, 2048  # msm_lane segments x points
+LANE_V, LANE_SEG = 16, 2048  # msm_lane segments x points (the batch of 8's flotilla)
+LANE_V12 = 24  # msm_lane segments of the reference's batch of 12
+FOLD_C_V = 2048  # fold_c outputs of padded n = 4096's round 1 (the default route)
 COMB_N = (1 << 16, 2048)  # msm_win_pair: IPP rounds 2 and 7 (side n)
 COMB7_M = 2048  # fold_w3h_comb at IPP round 7: 2 x 2^12 -> 2 x 2^11
 SHARDS, SHARD_CHUNKS = 4, 32  # phase 8: 4 shards x 32 chunks = 2^18 points
@@ -371,7 +384,7 @@ def ladder_ops(codes, step_dbl: int) -> dict:
 
 
 def ladder_w4_ops(words, blocks: int, finals: int = 1) -> dict:
-    """The w4 ladder MSMs (msm_lane; msm_w4 / _pair before their
+    """The w4 ladder MSMs' work (msm_w4 / _pair / msm_lane before their
     redesign): 7-operation tables and the ladder per live row, each
     block's 127-add tree, the second pass's sums."""
     ops, live = ladder_ops(_codes(words, 4, 64), 4)
@@ -388,20 +401,22 @@ def w4_blocks(n: int, walks: int = 1) -> int:
     return build.load().bp_w4_partials(n, walks) // (64 * walks)
 
 
-def msm_w4_ops(words, blocks: int, walks: int = 1) -> dict:
-    """The windowed w4 MSM (msm_w4, _pair, msm_grid, msm_grid_local;
-    csrc/win.cu): per live row its table (4 doublings with T, 3 niels adds,
-    8 2dT multiplies) and one niels add per nonzero digit; per walk and
-    first-pass block 64 adds of the two halves' sums, and per window pass
-    2's sum of the blocks' partials and its 2dT; per walk Horner's 252
-    doublings (T on 63), 64 niels adds and the chain's (niels form)."""
+def msm_w4_ops(words, blocks: int, walks: int = 1, chained: bool = True) -> dict:
+    """The windowed w4 MSM (msm_w4, _pair, msm_lane, msm_grid,
+    msm_grid_local; csrc/win.cu): per live row its table (4 doublings with
+    T, 3 niels adds, 8 2dT multiplies) and one niels add per nonzero digit;
+    per walk and first-pass block 64 adds of the two halves' sums, and per
+    window pass 2's sum of the blocks' partials and its 2dT; per walk
+    Horner's 252 doublings (T on 63), 64 niels adds and, if `chained`, the
+    chain's (niels form; msm_lane has none)."""
     codes = _codes(words, 4, 64)
     live = int((codes != 0).any(axis=1).sum())
     horner_dbl = 4 * 63
+    chain = 1 if chained else 0
     return dict(
         sq=4 * (4 * live + walks * horner_dbl),
-        fe=4 * 4 * live + 8 * live + walks * (3 * horner_dbl + 63 + 64 + 1),
-        nadd=3 * live + int((codes != 0).sum()) + walks * 65,
+        fe=4 * 4 * live + 8 * live + walks * (3 * horner_dbl + 63 + 64 + chain),
+        nadd=3 * live + int((codes != 0).sum()) + walks * (64 + chain),
         add=walks * 64 * 2 * blocks,
     )
 
@@ -1046,24 +1061,46 @@ def phase_fe_mul(bp, torch, cc, F, dev, rng) -> dict:
 
 
 def phase_kernel_lane(bp, torch, cc, F, gens, dev, rng):
-    """msm_lane over 16 segments of 2048 points, one of them all zero."""
+    """msm_lane over 16 segments of 2048 points (the batch of 8's
+    flotilla) with rows 0, 1, L - 1 and all -8 digits, an all-zero
+    segment and a last segment identity-padded past two thirds as
+    ``ck.flotilla_pack`` pads (zero words); over 24 segments (the
+    reference's batch of 12); three small segments against the host MSM.
+    Exact by group element (``point_err``): the windowed order gives other
+    projective coordinates than the plain ladder."""
+    import numpy as np
+
     from bulletproofs_r1cs_gadgets_tpu_torch.ops.chunks import (
         signed_digit_words,
     )
 
     P, L = bp.P, bp.L
-    n = LANE_V * LANE_SEG
+    seg = LANE_SEG
+    n = LANE_V12 * seg
     pts = F.from_raw(gens.H_raw(n), dev)
     rows = random_scalar_rows(bp, n, rng)
     rows[:3] = bp.scvec.from_ints([0, 1, L - 1])
-    words = torch.from_numpy(signed_digit_words(rows)).to(dev)
+    wn = signed_digit_words(rows)
+    wn[3] = np.int32(-0x77777778)  # 0x88888888: every digit -8
     zseg = LANE_V // 3
-    words[zseg * LANE_SEG : (zseg + 1) * LANE_SEG] = 0
-    got = F.to_points(cc.msm_lane(pts, words, LANE_V))
-    plain = F.to_points(cc.msm_lane_plain(pts, words, LANE_V))
-    err = max_abs_err(got, plain, P)
+    wn[zseg * seg : (zseg + 1) * seg] = 0
+    tail = (LANE_V - 1) * seg + 2 * seg // 3  # identity padding, zero words
+    pts[tail : LANE_V * seg] = F.identity_points(LANE_V * seg - tail, dev)
+    wn[tail : LANE_V * seg] = 0
+    words = torch.from_numpy(wn).to(dev)
+    err, ms, plain_ms = 0, {}, {}
+    for v in (LANE_V, LANE_V12):
+        pv, wv = pts[: v * seg], words[: v * seg]
+        got = cc.msm_lane(pv, wv, v)
+        plain, plain_ms[v] = timed_once(torch, lambda: cc.msm_lane_plain(pv, wv, v))
+        e = point_err(F, got, plain, P)
+        log(f"  msm_lane {v} x {seg}: plain {plain_ms[v]:.1f} ms, max_abs_err {e}")
+        err = max(err, e)
+        assert F.to_points(got[zseg : zseg + 1])[0].is_identity(), \
+            "all-zero segment is not the identity"
+        ms[v] = time_walk(torch, "msm_lane", f"{v} x {seg}",
+                          lambda: cc.msm_lane(pv, wv, v))
     assert err == 0, f"msm_lane != plain (err {err})"
-    assert got[zseg].is_identity(), "all-zero segment is not the identity"
     sub = 24  # three small segments against the host MSM
     small = F.to_points(cc.msm_lane(pts[: 3 * sub].contiguous(),
                                     words[: 3 * sub].contiguous(), 3))
@@ -1073,15 +1110,13 @@ def phase_kernel_lane(bp, torch, cc, F, gens, dev, rng):
         want = bp.multiscalar_mul(sc[s * sub : (s + 1) * sub],
                                   host_pts[s * sub : (s + 1) * sub])
         assert small[s] == want, f"msm_lane segment {s} != host MSM"
+    w16 = wn[: LANE_V * seg]
     return dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cc.msm_lane(pts, words, LANE_V), 5),
-        plain_ms=time_ms(
-            torch, lambda: cc.msm_lane_plain(pts, words, LANE_V), 1
-        ),
-        **bound(ladder_w4_ops(words.cpu().numpy(),
-                              LANE_V * -(-LANE_SEG // 128), LANE_V),
-                n * 160 + LANE_V * 128),
+        max_abs_err=err, ms=ms[LANE_V], plain_ms=plain_ms[LANE_V],
+        ms_24=ms[LANE_V12], plain_ms_24=plain_ms[LANE_V12],
+        **bounds(msm_w4_ops(w16, w4_blocks(seg, LANE_V), LANE_V, chained=False),
+                 ladder_w4_ops(w16, LANE_V * -(-seg // 128), LANE_V),
+                 LANE_V * seg * 160 + LANE_V * 128),
     )
 
 
@@ -1292,16 +1327,34 @@ def phase_kernels_comb(bp, torch, cc, F, gens, dev, rng):
     return records
 
 
-def fold_c_ops(codes_pairs, brk: int, v: int) -> dict:
-    """fold_c point operations for v outputs, constant 0 below brk: the
-    w4 ladder's 7-operation table (built for every output), its ladder
-    over the constant's digits, and the final add of P[i]."""
-    ops = dict(dbl=0, add=0)
+def fold_c_ops(codes_pairs, brk: int, v: int) -> tuple[dict, dict, dict]:
+    """(the function's work, the thread design's own work, the first
+    version's ladder work) of fold_c for v outputs, constant 0 below brk
+    (csrc/msm_fold.cu).  The function, per output of a nonzero constant:
+    an 8-entry niels table by the TPU tables' sequence (4 doublings with
+    T, 3 niels adds, 8 2dT multiplies), 4 doublings a window below the
+    top nonzero digit (T on the 4th), a niels add per nonzero digit after
+    the first, and P[i] in niels form (its 2dT and an add); for a zero
+    constant nothing (out = P[i]).  The thread design, per output: its
+    table (a doubling with T, 6 niels adds, 9 2dT with P[i]'s), the same
+    doublings, and an add per nonzero digit and for P[i].  The ladder: the
+    first version's w4 ladder from the top digit with its 7-operation
+    table, and the final add."""
+    ops, kernel = dict(sq=0, fe=0, nadd=0), dict(sq=0, fe=0, nadd=0)
+    ladder = dict(dbl=0, add=0)
     for codes, count in zip(codes_pairs, (brk, v - brk)):
-        lad, _ = ladder_ops(codes[None], 4)
-        ops["dbl"] += count * (lad["dbl"] + 4)
-        ops["add"] += count * (lad["add"] + 3 + 1)
-    return ops
+        lad, live = ladder_ops(codes[None], 4)
+        dbl, nnz = lad["dbl"], lad["add"] + live
+        if live:
+            ops["sq"] += count * 4 * (dbl + 4)
+            ops["fe"] += count * (3 * dbl + dbl // 4 + 4 * 4 + 8 + 1)
+            ops["nadd"] += count * (3 + nnz - 1 + 1)
+        kernel["sq"] += count * 4 * (dbl + 1)
+        kernel["fe"] += count * (3 * dbl + dbl // 4 + 4 + 9)
+        kernel["nadd"] += count * (6 + nnz + 1)
+        ladder["dbl"] += count * (dbl + 4)
+        ladder["add"] += count * (lad["add"] + 3 + 1)
+    return ops, kernel, ladder
 
 
 def phase_kernels_flags(bp, torch, cc, F, gens, dev, rng):
@@ -1341,41 +1394,71 @@ def phase_kernels_flags(bp, torch, cc, F, gens, dev, rng):
         return _codes(words.reshape(-1, 8).cpu().numpy(), 4, 64)
 
     # ---- fold_c: G(2^18) -> 2^17 at round 1's breakpoint; edges; 4096
+    # (padded n = 4096's round 1, the default route: its own record);
+    # each case in place too, the two shapes under both designs
     v = N // 2
     main = ((rand_const(), rand_const()), N1 - v)
+    small = ((rand_const(), rand_const()), 1500)
     cases = [
         ("random", G, main),
         ("edge 0 / 1", G, ((bp.Scalar(0), bp.Scalar(1)), v // 3)),
         ("edge L-1 / 1", G, ((bp.Scalar(L - 1), bp.Scalar(1)), 2 * v // 3)),
-        ("padded 4096", G[:4096], ((rand_const(), rand_const()), 1500)),
+        ("padded 4096", G[: 2 * FOLD_C_V], small),
+        ("padded 4096, bp in a warp", G[: 2 * FOLD_C_V], (small[0], 1501)),
     ]
-    err = 0
+    err, shape = 0, {}
     for name, src, (consts, brk) in cases:
         words = ck.c_fold_words([consts], dev)
+        half = src.shape[0] // 2
         got = cc.fold_c(src, words, brk)
         plain, ms = timed_once(torch, lambda: cc.fold_c_plain(src, words, brk))
         e = point_err(F, got, plain, P)
         kms = time_ms(torch, lambda: cc.fold_c(src, words, brk), 5)
-        log(f"  fold_c {name} ({src.shape[0]} -> {src.shape[0] // 2}), "
-            f"bp {brk}: kernel {kms:.3f} ms, plain {ms:.1f} ms, "
-            f"max_abs_err {e}")
+        design = cc.fold_c_design(dev, half)
+        log(f"  fold_c {name} ({src.shape[0]} -> {half}), bp {brk}, {design}: "
+            f"kernel {kms:.3f} ms, plain {ms:.1f} ms, max_abs_err {e}")
         err = max(err, e)
-        half = src.shape[0] // 2
         host_fold(got, src, consts, brk, [0, 1, brk - 1, brk, half - 1])
-        if name == "random":
-            fw, fms, fkms = words, ms, kms
+        for d in cc.FOLD_C_DESIGNS:
             own = src.clone()  # in place: out = the input's first half
-            cc.fold_c(own, words, brk, out=own[:v])
-            assert torch.equal(own[:v], got), "fold_c in place differs"
+            cc.fold_c(own, words, brk, out=own[:half], design=d)
+            want = got if d == design else cc.fold_c(src, words, brk, design=d)
+            assert torch.equal(own[:half], want), f"fold_c {d} in place differs"
+            e = point_err(F, want, plain, P)
+            assert e == 0, f"fold_c {name} {d} != plain (err {e})"
+        del own
+        if name in ("random", "padded 4096"):
+            shape[half] = dict(
+                words=words, brk=brk, ms=kms, plain_ms=ms, design=design,
+                design_ms={d: time_ms(torch, lambda: cc.fold_c(
+                    src, words, brk, design=d), 5) for d in cc.FOLD_C_DESIGNS})
+            log(f"    by design: {shape[half]['design_ms']}")
     assert err == 0, f"fold_c != plain (err {err})"
-    del plain, own
+    del plain
+
+    def fold_c_bounds(words, brk, v, sides=1):
+        codes = words_codes(words)
+        ops, kernel, ladder = fold_c_ops(codes[:2], brk, v)
+        for side in range(1, sides):
+            more = fold_c_ops(codes[2 * side : 2 * side + 2], brk, v)
+            for mine, add in zip((ops, kernel, ladder), more):
+                for k, val in add.items():
+                    mine[k] += val
+        return bounds(ops, ladder, sides * v * 3 * 128 + words.numel() * 4, kernel)
+
+    big, pad = shape[v], shape[FOLD_C_V]
+    small_bounds = fold_c_bounds(pad["words"], pad["brk"], FOLD_C_V)
     records["fold_c"] = dict(
-        max_abs_err=err, ms=fkms, plain_ms=fms,
-        **bound(fold_c_ops(words_codes(fw), main[1], v),
-                v * 3 * 128 + fw.numel() * 4),
+        max_abs_err=err, ms=big["ms"], plain_ms=big["plain_ms"],
+        design=big["design"], design_ms=big["design_ms"],
+        ms_2048=pad["ms"], plain_ms_2048=pad["plain_ms"], design_2048=pad["design"],
+        design_ms_2048=pad["design_ms"], bound_ms_2048=small_bounds["bound_ms"],
+        bound_ladder_ms_2048=small_bounds["bound_ladder_ms"],
+        **fold_c_bounds(big["words"], big["brk"], v),
     )
 
-    # ---- fold_c_comb: [G(2^17) | H(2^17)] -> [G'(2^16) | H'(2^16)]
+    # ---- fold_c_comb: [G(2^17) | H(2^17)] -> [G'(2^16) | H'(2^16)], both
+    # designs; each side equals fold_c of that side under the same design
     m = N // 4
     C = torch.cat([G[: 2 * m], H[: 2 * m]])
     sides = [(rand_const(), rand_const()), (rand_const(), rand_const())]
@@ -1384,25 +1467,26 @@ def phase_kernels_flags(bp, torch, cc, F, gens, dev, rng):
     got = cc.fold_c_comb(C, words, brk)
     plain, ms = timed_once(torch, lambda: cc.fold_c_comb_plain(C, words, brk))
     err = point_err(F, got, plain, P)
-    log(f"  fold_c_comb: plain {ms:.1f} ms, max_abs_err {err}")
+    design = cc.fold_c_design(dev, 2 * m)
+    log(f"  fold_c_comb ({design}): plain {ms:.1f} ms, max_abs_err {err}")
     assert err == 0, f"fold_c_comb != plain (err {err})"
-    for s_ in (0, 1):  # each side equals fold_c of that side, word for word
-        one = cc.fold_c(C[2 * m * s_ : 2 * m * (s_ + 1)],
-                        words[s_ : s_ + 1].contiguous(), brk)
-        assert torch.equal(got[m * s_ : m * (s_ + 1)], one), \
-            f"fold_c_comb side {s_} != fold_c"
+    for d in cc.FOLD_C_DESIGNS:
+        both = got if d == design else cc.fold_c_comb(C, words, brk, design=d)
+        e = point_err(F, both, plain, P)
+        assert e == 0, f"fold_c_comb {d} != plain (err {e})"
+        for s_ in (0, 1):  # each side equals fold_c of that side, word for word
+            one = cc.fold_c(C[2 * m * s_ : 2 * m * (s_ + 1)],
+                            words[s_ : s_ + 1].contiguous(), brk, design=d)
+            assert torch.equal(both[m * s_ : m * (s_ + 1)], one), \
+                f"fold_c_comb {d} side {s_} != fold_c"
     host_fold(got[m:], C[2 * m :], sides[1], brk, [0, brk, m - 1])
-    codes = words_codes(words)
-    cops = fold_c_ops(codes[:2], brk, m)
-    for k, val in fold_c_ops(codes[2:], brk, m).items():
-        cops[k] += val
     records["fold_c_comb"] = dict(
         max_abs_err=err,
         ms=time_ms(torch, lambda: cc.fold_c_comb(C, words, brk), 5),
-        plain_ms=ms,
-        **bound(cops, 2 * m * 3 * 128 + words.numel() * 4),
+        plain_ms=ms, design=design,
+        **fold_c_bounds(words, brk, m, sides=2),
     )
-    del plain, got, C
+    del plain, got, C, both
 
     # ---- msm_win: round 2's walks over the combined table, phase 1's
     # walk over the w4 table of the shared generators
@@ -2579,8 +2663,10 @@ def main() -> int:
         log(f"  kernels built and loaded in {time.time() - t0:.2f} s")
         redesigned = {k: v for k, v in build.report().items()
                       if any(s in k for s in ("win", "msm_w4", "fold_w3h",
-                                              "fold_bits", "table_kernel"))}
-        for part in ("msm_w4_tiles", "fold_w3h", "fold_bits", "table_kernel"):
+                                              "fold_bits", "table_kernel",
+                                              "fold_c"))}
+        for part in ("msm_w4_tiles", "fold_w3h", "fold_bits", "table_kernel",
+                     "fold_c_group", "fold_c_thread"):
             assert any(part in k for k in redesigned), f"no ptxas report for {part}"
         log("ptxas " + json.dumps(redesigned))
     with Phase("gens"):

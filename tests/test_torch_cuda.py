@@ -580,6 +580,75 @@ def test_niels_fold_matches_plain_on_card(cuda_device, v):
     assert cc.LAUNCHES["fold_w3h_comb"] - before["fold_w3h_comb"] == runs
 
 
+@pytest.mark.parametrize("v", [16, 24])
+def test_windowed_msm_lane_matches_plain_on_card(cuda_device, v):
+    """msm_lane over v segments of 2,048 points (the batch of 8's
+    flotilla; the reference's batch of 12): rows 0, 1, L - 1, all -8
+    digits and zero rows, an all-zero segment, and the last segment
+    identity-padded past two thirds with zero words as ck.flotilla_pack
+    pads; then 3 segments of T + 1 points (T the tile the library picks),
+    each ending one point into a tile."""
+    dev = cuda_device
+    lib = build.load()
+    build.check(lib.bp_set_device(dev.index), "set device")
+    seg = 2048
+    pts, words = _w4_inputs(dev, v * seg, 170 + v)
+    words[seg : 2 * seg] = 0
+    tail = (v - 1) * seg + 2 * seg // 3
+    pts[tail:] = F.identity_points(v * seg - tail, dev)
+    words[tail:] = 0
+    before = cc.LAUNCHES["msm_lane"]
+    got = cc.msm_lane(pts, words, v)
+    assert _same_points(got, cc.msm_lane_plain(pts, words, v))
+    assert F.to_points(got[1:2])[0].is_identity()
+    T = lib.bp_w4_tile(1, 3)
+    p3, w3 = _w4_inputs(dev, 3 * (T + 1), 171)
+    assert _same_points(cc.msm_lane(p3, w3, 3), cc.msm_lane_plain(p3, w3, 3))
+    assert cc.LAUNCHES["msm_lane"] - before == 2
+
+
+@pytest.mark.parametrize("v", [2048, 1 << 17])
+def test_constant_fold_designs_match_plain_on_card(cuda_device, v):
+    """fold_c at the default route's 2,048 outputs (padded n = 4096's
+    round 1) and at 2^17 (round 1 of the winmsm-off and w3h-off routes),
+    by the library's choice (group, then thread) and under each design:
+    random constants split inside a warp, the edge constants (0, 1) split
+    at 0, and (L - 1, all -8 digits) split at v; each in place; then
+    fold_c_comb at v / 2 a side under each design, each side word for word
+    fold_c's under the same design."""
+    dev = cuda_device
+    rng = np.random.RandomState(180)
+
+    def rand():
+        return Scalar(int.from_bytes(rng.bytes(32), "little") % L)
+
+    pts = F.from_raw(BulletproofGens(2 * v).G_raw(2 * v), dev)
+    edge = ck.c_fold_words([(Scalar(L - 1), Scalar(1))], dev)
+    edge[0, 1] = ALL_M8
+    cases = ((ck.c_fold_words([(rand(), rand())], dev), v // 2 + 1),
+             (ck.c_fold_words([(Scalar(0), Scalar(1))], dev), 0), (edge, v))
+    assert cc.fold_c_design(dev, v) == ("group" if v == 2048 else "thread")
+    before = cc.LAUNCHES["fold_c"]
+    for words, bp_ in cases:
+        plain = cc.fold_c_plain(pts, words, bp_)
+        for d in (None, *cc.FOLD_C_DESIGNS):
+            got = cc.fold_c(pts, words, bp_, design=d)
+            assert _same_points(got, plain), (bp_, d)
+            own = pts.clone()
+            assert torch.equal(cc.fold_c(own, words, bp_, out=own[:v], design=d), got)
+    assert cc.LAUNCHES["fold_c"] - before == 2 * 3 * len(cases)
+    m = v // 2
+    words = ck.c_fold_words([(rand(), rand()), (Scalar(0), Scalar(1))], dev)
+    plain = cc.fold_c_comb_plain(pts, words, m // 3)
+    for d in cc.FOLD_C_DESIGNS:
+        got = cc.fold_c_comb(pts, words, m // 3, design=d)
+        assert _same_points(got, plain), d
+        for s_ in (0, 1):
+            one = cc.fold_c(pts[2 * m * s_ : 2 * m * (s_ + 1)],
+                            words[s_ : s_ + 1].contiguous(), m // 3, design=d)
+            assert torch.equal(got[m * s_ : m * (s_ + 1)], one), (d, s_)
+
+
 @pytest.mark.parametrize("n", [1000, 1024, 2048])
 def test_cooperative_fold_bits_matches_plain_on_card(cuda_device, n):
     """fold_bits at the main path's 1,024 lanes, phase 2's 2,048 and at
