@@ -76,8 +76,9 @@ Batched proving and verification are the engine's own
 ``batch_verify(verifiers, proofs, pc_gens, gens, backend=...)``,
 re-exported here.
 """
-from .core import scvec
+from .core import errors, scvec
 from .core.errors import VerificationError
+from .core.linear_combination import LinearCombination, Variable
 from .core.pedersen import (
     BulletproofGens,
     PedersenGens,
@@ -114,5 +115,7 @@ __all__ = [
     "VerificationError", "multiscalar_mul", "scvec", "PoseidonParams",
     "CompiledVSMT2", "VanillaSparseMerkleTree", "leaf_index_bit_scalars",
     "D2", "L", "P", "NATIVE_LOADED", "prove_provers", "batch_verify",
-    "prove_provers_devices", "prove_stream", "DeviceBackend",
+    "prove_provers_devices", "prove_stream", "DeviceBackend", "Variable",
+    "LinearCombination", "errors",
 ]
+__version__ = "0.1.0"

@@ -59,13 +59,6 @@ static __device__ __noinline__ ge ge_double(const ge& p) {
     return r;
 }
 
-__device__ __forceinline__ ge ge_neg(const ge& p) {
-    ge r = p;
-    r.X = fe_neg(p.X);
-    r.T = fe_neg(p.T);
-    return r;
-}
-
 // 32 int32 words: X, Y, Z, T, eight little-endian words each
 __device__ __forceinline__ ge ge_load(const int32_t* src) {
     ge r;
@@ -100,18 +93,4 @@ __device__ __forceinline__ void ge_store(int32_t* dst, const ge& p) {
     c.Z = fe_canon(p.Z);
     c.T = fe_canon(p.T);
     ge_store_raw(dst, c);
-}
-
-// Sum of one value per thread (blockDim.x a power of two, sh holding
-// blockDim.x points); the total lands in sh[0].  The group law is exact,
-// so the tree's order does not change the sum.
-static __device__ void block_sum(ge v, ge* sh) {
-    int tid = threadIdx.x;
-    sh[tid] = v;
-    __syncthreads();
-#pragma unroll 1
-    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-        if (tid < s) sh[tid] = ge_add(sh[tid], sh[tid + s]);
-        __syncthreads();
-    }
 }

@@ -1,8 +1,9 @@
 // Point operations on the carry-chain multiply (fe_mul_cc / fe_sq_cc),
 // inlined where they are called: register-resident, no stack frame.  The
 // window walkers, the windowed w4 MSM, the niels tables (win.cu), the
-// half-width fold (fold_w3h.cu) and fold_bits (msm_fold.cu; the
-// cooperative operations at the end) build on them; the formulas are
+// half-width fold (fold_w3h.cu) and the folds of msm_fold.cu (the
+// cooperative operations at the end) build on them, and on the two scalar
+// recodes into signed base-16 digits (fold_recode, w2_recode); the formulas are
 // ge25519.cuh's, so every operation gives the same residues as its
 // out-of-line counterpart (and so the same canonical words).  A kernel
 // keeps one call site of each operation, or its code (and build time)
@@ -14,6 +15,68 @@
 struct niels {
     fe ypx, ymx, t2d, z;
 };
+
+__device__ __forceinline__ void load_words(const int32_t* src, uint32_t w[8]) {
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = s[i];
+}
+
+// ---- scalar recodes into signed base-16 digit codes (nibble j of word
+// j / 8: the digit d & 15, d in [-8, 7], d = code - 16 for code >= 8), the
+// digits the Straus folds (msm_fold.cu) and the windowed w4 MSM's tiles
+// (win.cu) read.
+
+// 64 codes of bits 252..0 of the raw little-endian bit words at src, into
+// code[0..7]; the top digit takes the carry (<= 2).
+__device__ __forceinline__ void fold_recode(const int32_t* src, uint32_t* code) {
+    uint32_t w[8];
+    load_words(src, w);
+    w[7] &= 0x1fffffffu;  // bits 253..255 are not read
+    uint32_t carry = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        uint32_t c = 0u;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+            const uint32_t e = ((w[j] >> (4 * t)) & 15u) + carry;
+            carry = e >= 8u ? 1u : 0u;
+            c |= (e & 15u) << (4 * t);
+        }
+        code[j] = c;
+    }
+}
+
+// 65 codes of a w2 word row at src (128 signed base-4 digits d_i in [-2,
+// 1], coded d & 3, digit i at bits 2 (i % 16) of word i / 16), into
+// code[0..8].  Window j pairs digits 2j and 2j + 1, which are nibble j of
+// the row: e_j = d_2j + 4 d_2j+1 in [-10, 5], plus the borrow from window
+// j - 1, and below -8 it takes 16 and lends -1 to window j + 1, so every
+// digit lies in [-8, 7].  The last borrow is window 64 (code[8]: 15 for
+// -1, else 0), so the digits hold the row's value exactly whatever the
+// row; the words of a canonical scalar (< 2^253) leave window 64 at 0 and
+// window 63 at most 2.
+__device__ __forceinline__ void w2_recode(const int32_t* src, uint32_t* code) {
+    uint32_t w[8];
+    load_words(src, w);
+    int borrow = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        uint32_t c = 0u;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+            const uint32_t nib = (w[j] >> (4 * t)) & 15u;
+            const int lo = (int)(nib & 3u) - ((nib & 2u) ? 4 : 0);
+            const int hi = (int)(nib >> 2) - ((nib & 8u) ? 4 : 0);
+            int e = lo + 4 * hi + borrow;
+            borrow = e < -8 ? -1 : 0;
+            e += e < -8 ? 16 : 0;
+            c |= ((uint32_t)e & 15u) << (4 * t);
+        }
+        code[j] = c;
+    }
+    code[8] = borrow ? 15u : 0u;
+}
 
 __device__ __forceinline__ fe fe_load_vec(const int32_t* src) {
     const uint4* s = reinterpret_cast<const uint4*>(src);

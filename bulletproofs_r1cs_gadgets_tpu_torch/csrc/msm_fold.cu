@@ -1,6 +1,7 @@
 // Hopper kernels of the IPP folds that run Straus over 8-entry niels
-// tables: the generator fold fold_bits and the constant folds of the grid
-// rounds (fold_c, fold_c_comb).  The MSMs (msm_w4, msm_w4_pair,
+// tables: the generator fold fold_bits, the constant folds of the grid
+// rounds (fold_c, fold_c_comb) and the device-oracle path's fold
+// (fold_grid, over w2 words).  The MSMs (msm_w4, msm_w4_pair,
 // msm_lane, and msm_grid / msm_grid_local over views) are windowed and
 // live in win.cu beside the walkers whose passes they share.  Plain C
 // entry points for ctypes (ops/build.py): each launches on the caller's
@@ -11,8 +12,10 @@
 //   points  (n, 4, 8): X, Y, Z, T as eight little-endian words each, any
 //                      value below 2^256 (gens arrive canonical)
 //   words   (n, 8):    one scalar per row: raw little-endian bits
-//                      (fold_bits), or a constant's signed 4-bit digits
-//                      (fold_c*: nibble e, digit e - 16 when e >= 8)
+//                      (fold_bits), a constant's signed 4-bit digits
+//                      (fold_c*: nibble e, digit e - 16 when e >= 8), or
+//                      128 signed base-4 digits (fold_grid: w2 words,
+//                      digit d in [-2, 1] coded d & 3, two bits each)
 //   out points are stored canonical (every coordinate in [0, p)).
 //
 // Every point operation is inlined from ge25519_cc.cuh (the carry-chain
@@ -21,19 +24,13 @@
 // latency: one output is ~330 dependent point operations, and so few
 // outputs leave most of 132 SMs idle; there a group of 8 lanes runs each
 // output on the cooperative operations, two stages of four multiplies an
-// operation (fold_bits, and fold_c up to half the groups the card holds
-// at once).  Past that, 32-bit integer multiplies: one thread runs each
-// output and the card fills (fold_c's thread design).
+// operation (fold_bits, and fold_c and fold_grid up to half the groups the
+// card holds at once).  Past that, 32-bit integer multiplies: one thread
+// runs each output and the card fills (the thread designs).
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "ge25519_cc.cuh"
-
-__device__ __forceinline__ void load_words(const int32_t* src, uint32_t w[8]) {
-    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) w[i] = s[i];
-}
 
 // ---- fold_bits: out[i] = wl_i * L_i + wr_i * R_i for raw little-endian
 // bit words, of which bits 252..0 are read (pallas_curve.py fold_chunk
@@ -59,27 +56,6 @@ __device__ __forceinline__ void load_words(const int32_t* src, uint32_t w[8]) {
 #define FB_CODES (16 * 32)            // a group's shared words: two tables, then
 #define FB_GROUP_WORDS (FB_CODES + 18)  // the two scalars' codes (+2: spread over banks)
 #define FC_GROUP_WORDS (8 * 32 + 2)     // fold_c: a group's table (+2: spread over banks)
-
-// 64 signed base-16 digit codes (nibble j of word j / 8: the digit d & 15,
-// d in [-8, 7], d = code - 16 for code >= 8) of bits 252..0 of the raw
-// words at src, into code[0..7].
-__device__ __forceinline__ void fold_recode(const int32_t* src, uint32_t* code) {
-    uint32_t w[8];
-    load_words(src, w);
-    w[7] &= 0x1fffffffu;  // bits 253..255 are not read
-    uint32_t carry = 0u;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        uint32_t c = 0u;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-            const uint32_t e = ((w[j] >> (4 * t)) & 15u) + carry;
-            carry = e >= 8u ? 1u : 0u;
-            c |= (e & 15u) << (4 * t);
-        }
-        code[j] = c;
-    }
-}
 
 // Words 4j .. 4j + 3 of p's (X, Y, Z, T), chosen by selects (an index
 // into registers would put the point in local memory).
@@ -166,7 +142,8 @@ __device__ __forceinline__ void coop_to_niels(uint32_t* tbl, int entries, int q,
 
 // Straus over a group's `tables` niels tables (table s at words 256 s of
 // tbl) and their scalars' signed base-16 digit codes (scalar s's digit
-// win is nibble win % 8 of code[8 s + win / 8]): 64 windows, most
+// win is nibble win % 8 of code[K s + win / 8], K = (WINS + 7) / 8 words a
+// scalar): WINS windows (64, or 65 for w2_recode's codes), most
 // significant first, of 4 doublings (T on the last) once an add was
 // taken, and one niels add a scalar.  The warp takes an add when any of
 // its groups has a nonzero digit (the shuffles name the full warp; a
@@ -174,19 +151,21 @@ __device__ __forceinline__ void coop_to_niels(uint32_t* tbl, int entries, int q,
 // Lane q reads its coordinate (Y-X, Y+X, 2dT, Z)[q] of the selected
 // entry; for a negative digit -Q = (Y-X, Y+X, -2dT, Z) in niels form, so
 // lanes 0 and 1 swap their reads and lane 2 negates.
+template <int WINS = 64>
 __device__ __forceinline__ ge coop_straus(const uint32_t* tbl, const uint32_t* code,
                                           int tables, int q, int h, int base) {
+    constexpr int K = (WINS + 7) / 8;
     ge acc = ge_identity();
     bool started = false;
 #pragma unroll 1
-    for (int win = 63; win >= 0; --win) {
+    for (int win = WINS - 1; win >= 0; --win) {
         if (started) {
 #pragma unroll 1
             for (int d = 0; d < 4; ++d) acc = coop_double(acc, q, h, base, d == 3);
         }
 #pragma unroll 1
         for (int s = 0; s < tables; ++s) {
-            const uint32_t c = (code[8 * s + (win >> 3)] >> (4 * (win & 7))) & 15u;
+            const uint32_t c = (code[K * s + (win >> 3)] >> (4 * (win & 7))) & 15u;
             if (!__any_sync(0xffffffffu, c != 0u)) continue;
             fe mine = fe_zero();
             if (q != 2) mine.w[0] = 1u;  // the identity (1, 1, 0, 1)
@@ -352,16 +331,17 @@ fold_c_thread(const int32_t* in, int32_t* out, const int32_t* __restrict__ words
     ge_store(out + 32ll * v * side + 32 * i, acc);
 }
 
-// The group design's outputs the current device holds at once.
-static int fold_c_group_outputs() {
-    static int held[64];  // by device (0: not asked)
+// The outputs a group design's kernel (FB_THREADS threads a block, 8
+// lanes an output) holds at once on the current device; held caches it
+// by device (0: not asked).
+static int group_outputs(const void* kernel, int* held) {
     int dev = 0;
     cudaGetDevice(&dev);
     int card = dev >= 0 && dev < 64 ? held[dev] : 0;
     if (card == 0) {
         int sms = 1, per_sm = 1;
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_c_group, FB_THREADS, 0);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FB_THREADS, 0);
         card = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1) * (FB_THREADS / 8);
         if (dev >= 0 && dev < 64) held[dev] = card;
     }
@@ -370,7 +350,11 @@ static int fold_c_group_outputs() {
 
 // 1 for the group design, 0 for the thread design, for `outputs` outputs.
 static int fold_c_design(long long outputs) {
-    return outputs * FC_GROUP_SHARE <= (long long)fold_c_group_outputs() ? 1 : 0;
+    static int held[64];
+    return outputs * FC_GROUP_SHARE <=
+                   (long long)group_outputs((const void*)fold_c_group, held)
+               ? 1
+               : 0;
 }
 
 // design: 1 group, 0 thread, -1 by the outputs (fold_c_design).
@@ -387,6 +371,133 @@ static int fold_c_launch(const int32_t* in, int32_t* out, const int32_t* words, 
                             s>>>(in, out, words, v, bp);
     }
     return (int)cudaGetLastError();
+}
+
+// ---- fold_grid (pallas_curve.py fold_grid :865, _fold_grid_kernel :850,
+// _emit_fold_w2 :823): out[i] = wl_i * P[i] + wr_i * P[i + v] for i < v,
+// into a tensor apart from the points, each scalar a w2 word row (per
+// lane, or one row read by every lane: word stride 0).  The device-oracle
+// path's IPP folds run it at v = 2^17 with per-lane words (round 1) and
+// then with the constants u^-1, u at v = 2^16 down to 1.  What bounds it
+// on an H100: at 2^17 outputs 32-bit integer multiplies (two 8-entry
+// tables, 256 doublings and ~120 niels adds an output); at the later
+// rounds' few outputs, latency.  Design: each row recoded in the kernel
+// (w2_recode) into 64 signed base-16 digits and a borrow window, so the
+// TPU's dual w2 ladder (128 windows of 2 doublings and 2 selected adds
+// from {P, 2P}) becomes Straus over two 8-entry niels tables, 65 windows
+// of 4 doublings (T on the 4th) and up to two niels adds: half the adds
+// and the measured tables and window loops of fold_bits and fold_c.  Two
+// designs, picked by size as fold_c's (fold_grid_design):
+//  - group (fold_grid_group): fold_bits' body, 8 lanes an output, the
+//    tables of P[i] and P[i + v] in shared memory and coop_straus over 65
+//    windows; the group's lane 0 recodes both rows;
+//  - thread (fold_grid_thread): one thread an output, both tables (16
+//    niels entries, 2 KB) in local memory, each entry copied into
+//    registers before its add, its rows' codes in shared memory, one
+//    doubling chain for both scalars.
+// fold_grid_design takes the group design while the outputs are at most
+// 2/3 of the groups the card holds at once (occupancy query), else the
+// thread design.  Measured (NVIDIA H100 80GB HBM3, 700.00 W;
+// chip_profile.py --oracle, each design forced, per-lane words): at 2,048
+// outputs group 0.387 ms, thread 1.08; at 2^13 1.07 against 1.17; at
+// 12,288 1.57 against 1.18; at 2^14 2.08 against 1.22; at 2^17 16.1
+// against 8.0.  The card holds ~12,700 groups (79 registers, 12 blocks an
+// SM), so the switch sits at ~8,400 outputs, between the measured 2^13
+// and 12,288 (the crossover, ~9,000; fold_c's, with one table, is at
+// half a card).
+#define FG_WINDOWS 65                                       // w2_recode's windows
+#define FG_CODE_WORDS 9                                     // its words a row
+#define FG_GROUP_WORDS (FB_CODES + 2 * FG_CODE_WORDS + 2)   // (+2: spread over banks)
+#define FG_THREAD_WORDS (2 * FG_CODE_WORDS + 1)             // odd: distinct banks
+// the group design up to FG_GROUP_NUM / FG_GROUP_DEN of a card of groups
+#define FG_GROUP_NUM 2
+#define FG_GROUP_DEN 3
+
+// Block b, group g: output 8b + g (groups past v run output v - 1 and
+// store nothing); tables: entries 0..7 of P[i], 8..15 of P[i + v].
+__global__ void __launch_bounds__(FB_THREADS)
+fold_grid_group(const int32_t* __restrict__ pts, const int32_t* __restrict__ wl,
+                const int32_t* __restrict__ wr, int32_t* __restrict__ out, int v,
+                int wl_stride, int wr_stride) {
+    __shared__ uint32_t tables[(FB_THREADS / 8) * FG_GROUP_WORDS];
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int h = (lane >> 2) & 1;
+    const int j = lane & 7;
+    const int base = lane & ~7;
+    const long long i0 = (long long)blockIdx.x * (FB_THREADS / 8) + (threadIdx.x >> 3);
+    const bool live = i0 < v;
+    const long long i = live ? i0 : v - 1;
+    uint32_t* tbl = tables + (threadIdx.x >> 3) * FG_GROUP_WORDS;
+    uint32_t* code = tbl + FB_CODES;
+    if (j == 0) {
+        w2_recode(wl + wl_stride * i, code);
+        w2_recode(wr + wr_stride * i, code + FG_CODE_WORDS);
+    }
+#pragma unroll 1
+    for (int s = 0; s < 2; ++s) coop_table(tbl + 256 * s, pts + 32 * (i + s * v), q, h, j, base);
+    coop_to_niels(tbl, 16, q, h);
+    const ge acc = coop_straus<FG_WINDOWS>(tbl, code, 2, q, h, base);
+    if (live) coop_store(out + 32 * i, acc, j);
+}
+
+// Thread i: output i.  tbl[8 s + k] = (k + 1) P[i + s v] (2P = dbl P, then
+// t(k-1) + P); windows 64..0 of 4 doublings (T on the 4th) once a digit
+// was added, and each scalar's niels add (code 0 adds nothing).
+__global__ void __launch_bounds__(FC_THREADS, FC_MIN_BLOCKS)
+fold_grid_thread(const int32_t* __restrict__ pts, const int32_t* __restrict__ wl,
+                 const int32_t* __restrict__ wr, int32_t* __restrict__ out, int v,
+                 int wl_stride, int wr_stride) {
+    __shared__ uint32_t csh[FC_THREADS * FG_THREAD_WORDS];
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= v) return;
+    uint32_t* code = csh + threadIdx.x * FG_THREAD_WORDS;
+    w2_recode(wl + wl_stride * i, code);
+    w2_recode(wr + wr_stride * i, code + FG_CODE_WORDS);
+    niels tbl[16];  // local memory (indexed by digits)
+    ge x;
+#pragma unroll 1
+    for (int k = 0; k < 16; ++k) {
+        const int e = k & 7;
+        if (e == 0) {
+            x = ge_load(pts + 32 * (i + (k ? v : 0)));
+        } else if (e == 1) {
+            x = ge_double_cc(x, true);
+        } else {
+            const niels nP = tbl[k - e];
+            x = ge_add_niels_cc(x, nP, false);
+        }
+        tbl[k] = ge_to_niels_cc(x);
+    }
+    ge acc = ge_identity();
+    bool started = false;
+#pragma unroll 1
+    for (int pos = FG_WINDOWS - 1; pos >= 0; --pos) {
+        if (started) {
+#pragma unroll 1
+            for (int d = 0; d < 4; ++d) acc = ge_double_cc(acc, d == 3);
+        }
+#pragma unroll 1
+        for (int s = 0; s < 2; ++s) {
+            const uint32_t c = (code[FG_CODE_WORDS * s + (pos >> 3)] >> (4 * (pos & 7))) & 15u;
+            if (c) {
+                const bool neg = c >= 8u;  // code 8 is the digit -8: entry 8P negated
+                const niels e = tbl[8 * s + (neg ? 16 - c : c) - 1];  // into registers
+                acc = ge_add_niels_cc(acc, e, neg);
+                started = true;
+            }
+        }
+    }
+    ge_store(out + 32 * i, acc);
+}
+
+// 1 for the group design, 0 for the thread design, for `outputs` outputs.
+static int fold_grid_design(long long outputs) {
+    static int held[64];
+    return outputs * FG_GROUP_DEN <=
+                   (long long)group_outputs((const void*)fold_grid_group, held) * FG_GROUP_NUM
+               ? 1
+               : 0;
 }
 
 extern "C" {
@@ -424,6 +535,28 @@ int bp_fold_c(const int32_t* pts, int32_t* out, const int32_t* words, int v, int
 int bp_fold_c_comb(const int32_t* pts, int32_t* out, const int32_t* words, int v, int bp,
                    int design, void* stream) {
     return fold_c_launch(pts, out, words, v, bp, 2, design, stream);
+}
+
+// fold_grid's design on the current device for v outputs: 1 group, 0 thread.
+int bp_fold_grid_design(int v) { return fold_grid_design(v); }
+
+// out (v, 4, 8): out[i] = wl_i * P[i] + wr_i * P[i + v] over points (>= 2v,
+// 4, 8); w2 word rows at stride wl_stride / wr_stride words (8 per lane,
+// or 0 for one row read by every lane).  out must not overlap pts.
+// design: 1 group, 0 thread, -1 by size.
+int bp_fold_grid(const int32_t* pts, const int32_t* wl, const int32_t* wr, int32_t* out,
+                 int v, int wl_stride, int wr_stride, int design, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (v > 0) {
+        if (design < 0) design = fold_grid_design(v);
+        if (design)
+            fold_grid_group<<<(v + FB_THREADS / 8 - 1) / (FB_THREADS / 8), FB_THREADS, 0, s>>>(
+                pts, wl, wr, out, v, wl_stride, wr_stride);
+        else
+            fold_grid_thread<<<(v + FC_THREADS - 1) / FC_THREADS, FC_THREADS, 0, s>>>(
+                pts, wl, wr, out, v, wl_stride, wr_stride);
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

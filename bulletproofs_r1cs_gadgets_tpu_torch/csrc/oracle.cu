@@ -1,40 +1,32 @@
 // Hopper kernels for the device-oracle path (ops/{field,curve,msm,backend,
 // poseidon}.py, parallel/pipeline.py): the pointwise group operations
-// (padd, pdbl), the bit-serial scalar ladder with its three epilogues
-// (smul_lanes: one point per lane; msm_block_totals: one total per 2048
-// input points; msm_chunk_acc: one total plus an incoming accumulator),
-// the signed 2-bit dual fold (fold_grid) and the elementwise field
-// multiplies mod p and mod l (mul_fp, mul_fq).  Plain C entry points for
-// ctypes (ops/build.py): each launches on the caller's stream, never
-// synchronises, allocates nothing, and returns cudaGetLastError().
+// (padd, pdbl), the bit-serial scalar ladder (smul_lanes: one point per
+// lane) and the elementwise field multiplies mod p and mod l (mul_fp,
+// mul_fq).  The path's MSMs (msm_chunk_acc, msm_block_totals) run the
+// windowed w4 MSM of win.cu, and its fold (fold_grid) the Straus designs
+// of msm_fold.cu.  Plain C entry points for ctypes (ops/build.py): each
+// launches on the caller's stream, never synchronises, allocates nothing,
+// and returns cudaGetLastError().
 //
 // Layouts (row-major, int32): points (n, 4, 8), X, Y, Z, T as eight
 // little-endian words, any value below 2^256; scalar bit words (n, 8), bit
 // b of the scalar in bit b % 32 of word b / 32 (bits 253..255 are not
-// read); w2 fold words (n, 8) or one row for every lane, 128 signed
-// base-4 digits d in [-2, 1] coded d & 3, two bits each, digit i in bits
-// 2(i % 16) of word i / 16; field elements (n, 8), any value below 2^256.
-// Every output is canonical: coordinates in [0, p), field values in
-// [0, m).
+// read); field elements (n, 8), any value below 2^256.  Every output is
+// canonical: coordinates in [0, p), field values in [0, m).
 //
-// What bounds them: 32-bit integer multiplies (a bit ladder is 253
+// What bounds them: 32-bit integer multiplies for the ladder (253
 // doublings and 253 adds of ~9 field multiplies each per point, against
-// 160 B read), except padd / pdbl / mul_*, which read and write a few
-// hundred bytes per ~9 (or one) field multiplies and are bound by memory.
-// The design answer is the simplest exact one: one thread per output, the
-// TPU kernels' own operation sequence (the identity is doubled and added
-// like any point, so the outputs equal the plain versions word for word),
-// block sums by the shared-memory tree of ge25519.cuh.
+// 160 B read); padd / pdbl / mul_* read and write a few hundred bytes per
+// ~9 (or one) field multiplies and are bound by memory.  The design answer
+// is the simplest exact one: one thread per output, the TPU kernels' own
+// operation sequence (the identity is doubled and added like any point,
+// so the outputs equal the plain versions word for word).
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "ge25519.cuh"
 
-// the plain versions (ops/cuda_curve.py ORACLE_THREADS, BLOCK_PTS) sum in
-// the same order, so these two must match them
-#define OR_THREADS 128                      // threads per block, one partial each
-#define OR_BLOCK_PTS 2048                   // msm_block_totals: input points per total
-#define OR_PARTS (OR_BLOCK_PTS / OR_THREADS)  // partials per total
+#define OR_THREADS 128  // threads per block
 
 // l = 2^252 + 27742317777372353535851937790883648493, little-endian words
 static __device__ __constant__ uint32_t SC_L[8] = {
@@ -99,90 +91,6 @@ smul_lanes_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ w
     uint32_t w[8];
     or_load8(words + 8 * i, w);
     ge_store(out + 32 * i, ladder_bits(ge_load(pts + 32 * i), w));
-}
-
-// The MSM's first pass: block b runs the ladders of points
-// [b * T, (b + 1) * T) (the identity past n) and writes their sum, by the
-// shared-memory tree, to partials[b].
-__global__ void __launch_bounds__(OR_THREADS)
-ladder_partials_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
-                       int32_t* __restrict__ partials, int n) {
-    __shared__ ge sh[OR_THREADS];
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    ge v = ge_identity();
-    if (i < n) {
-        uint32_t w[8];
-        or_load8(words + 8 * i, w);
-        v = ladder_bits(ge_load(pts + 32 * i), w);
-    }
-    block_sum(v, sh);
-    if (threadIdx.x == 0) ge_store_raw(partials + 32ll * blockIdx.x, sh[0]);
-}
-
-// msm_block_totals' second pass: block b sums the OR_PARTS partials of
-// input points [2048 b, 2048 (b + 1)) by the tree (one thread each).
-__global__ void __launch_bounds__(OR_PARTS)
-block_totals_kernel(const int32_t* __restrict__ partials, int32_t* __restrict__ out) {
-    __shared__ ge sh[OR_PARTS];
-    block_sum(ge_load(partials + 32ll * (blockIdx.x * OR_PARTS + threadIdx.x)), sh);
-    if (threadIdx.x == 0) ge_store(out + 32ll * blockIdx.x, sh[0]);
-}
-
-// msm_chunk_acc's second pass (one block): thread t adds partials
-// t, t + T, ... to the identity, the tree sums the threads, and the
-// incoming accumulator is added last.
-__global__ void __launch_bounds__(OR_THREADS)
-chunk_acc_final_kernel(const int32_t* __restrict__ partials, const int32_t* __restrict__ acc,
-                       int32_t* __restrict__ out, int nparts) {
-    __shared__ ge sh[OR_THREADS];
-    ge v = ge_identity();
-#pragma unroll 1
-    for (int j = threadIdx.x; j < nparts; j += blockDim.x)
-        v = ge_add(v, ge_load(partials + 32ll * j));
-    block_sum(v, sh);
-    if (threadIdx.x == 0) ge_store(out, ge_add(sh[0], ge_load(acc)));
-}
-
-// d * P for the signed base-4 digit at `pos` (code e = d & 3: e = 2 is
-// d = -2, e = 3 is d = -1) from the table {P, 2P} (pallas_curve
-// ._w2_digit_select): the identity for d = 0, negated for d < 0.
-__device__ __forceinline__ ge w2_select(const uint32_t w[8], int pos, const ge& P1,
-                                        const ge& P2, const ge& I) {
-    uint32_t e = (w[pos >> 4] >> (2 * (pos & 15))) & 3u;
-    bool neg = e >= 2u;
-    uint32_t mag = neg ? 4u - e : e;
-    ge s = mag == 1u ? P1 : (mag == 2u ? P2 : I);
-    return neg ? ge_neg(s) : s;
-}
-
-// fold_grid: out[i] = wl_i * P[i] + wr_i * P[i + v] by the TPU's dual w2
-// ladder (pallas_curve._emit_fold_w2): 128 windows, most significant
-// first, each two doublings and one selected add per side.  A word stride
-// of 0 reads one row for every lane (a constant scalar).  Thread i reads
-// rows i and i + v and writes out[i] of a tensor apart from the input.
-__global__ void __launch_bounds__(OR_THREADS)
-fold_grid_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ wl,
-                 const int32_t* __restrict__ wr, int32_t* __restrict__ out, int v,
-                 int wl_stride, int wr_stride) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= v) return;
-    uint32_t a[8], b[8];
-    or_load8(wl + (long long)wl_stride * i, a);
-    or_load8(wr + (long long)wr_stride * i, b);
-    const ge I = ge_identity();
-    ge L1 = ge_load(pts + 32 * i);
-    ge R1 = ge_load(pts + 32 * (i + v));
-    ge L2 = ge_double(L1);
-    ge R2 = ge_double(R1);
-    ge acc = I;
-#pragma unroll 1
-    for (int pos = 127; pos >= 0; --pos) {
-        acc = ge_double(acc);
-        acc = ge_double(acc);
-        acc = ge_add(acc, w2_select(a, pos, L1, L2, I));
-        acc = ge_add(acc, w2_select(b, pos, R1, R2, I));
-    }
-    ge_store(out + 32 * i, acc);
 }
 
 __global__ void __launch_bounds__(OR_THREADS)
@@ -310,42 +218,6 @@ int bp_smul_lanes(const int32_t* pts, const int32_t* words, int32_t* out, int n,
     if (n > 0)
         smul_lanes_kernel<<<or_blocks(n), OR_THREADS, 0, (cudaStream_t)stream>>>(
             pts, words, out, n);
-    return (int)cudaGetLastError();
-}
-
-// out (ceil(n / 2048), 4, 8): out[b] = sum of s_i * P_i over input points
-// [2048 b, 2048 (b + 1)); partials: scratch for ceil(n / 2048) * 16 points.
-int bp_msm_block_totals(const int32_t* pts, const int32_t* words, int32_t* out,
-                        int32_t* partials, int n, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    int nb = (n + OR_BLOCK_PTS - 1) / OR_BLOCK_PTS;
-    if (nb > 0) {
-        ladder_partials_kernel<<<nb * OR_PARTS, OR_THREADS, 0, s>>>(pts, words, partials, n);
-        block_totals_kernel<<<nb, OR_PARTS, 0, s>>>(partials, out);
-    }
-    return (int)cudaGetLastError();
-}
-
-// out (1, 4, 8) = acc + sum_i s_i * P_i over n points; partials: scratch
-// for max(1, ceil(n / 128)) points.
-int bp_msm_chunk_acc(const int32_t* pts, const int32_t* words, const int32_t* acc,
-                     int32_t* out, int32_t* partials, int n, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    int nparts = or_blocks(n);
-    if (nparts > 0)
-        ladder_partials_kernel<<<nparts, OR_THREADS, 0, s>>>(pts, words, partials, n);
-    chunk_acc_final_kernel<<<1, OR_THREADS, 0, s>>>(partials, acc, out, nparts);
-    return (int)cudaGetLastError();
-}
-
-// out (v, 4, 8): out[i] = wl_i * P[i] + wr_i * P[i + v] over points
-// (>= 2v, 4, 8); w2 word rows at stride wl_stride / wr_stride words (8 per
-// lane, or 0 for one row read by every lane).  out must not overlap pts.
-int bp_fold_grid(const int32_t* pts, const int32_t* wl, const int32_t* wr, int32_t* out,
-                 int v, int wl_stride, int wr_stride, void* stream) {
-    if (v > 0)
-        fold_grid_kernel<<<or_blocks(v), OR_THREADS, 0, (cudaStream_t)stream>>>(
-            pts, wl, wr, out, v, wl_stride, wr_stride);
     return (int)cudaGetLastError();
 }
 

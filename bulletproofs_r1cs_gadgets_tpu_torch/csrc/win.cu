@@ -5,8 +5,10 @@
 // msm_win: one walk over a w4 table; msm_win_pair: a combined round's L
 // and R walks over a w4 table in one launch).  One kernel template each,
 // instantiated per digit width.  Beside them the windowed w4 MSM
-// (msm_w4, msm_w4_pair, msm_lane; see "the windowed w4 MSM" below), which builds
-// its tables in shared memory and ends in the walkers' passes 2 and 3.
+// (msm_w4, msm_w4_pair, msm_lane, and over bit words the device-oracle
+// path's msm_chunk_acc and msm_block_totals; see "the windowed w4 MSM"
+// below), which builds its tables in shared memory and ends in the
+// walkers' passes 2 and 3.
 // Plain C entry points for ctypes (ops/build.py), with the conventions of
 // msm_fold.cu: launch on the caller's stream, never synchronise, allocate
 // nothing, return cudaGetLastError().
@@ -393,13 +395,16 @@ static int msm_win_launch(const int32_t* table, const int32_t* words, const int3
 #define W4_STRIDE (32 * Win<4>::TBL + 1)    // shared words of one point's table
 #define W4_TILES 2                          // pass 1's tiles: 16 and 64 points
 
-// The segments of one launch: segment s holds n[min(s, 1)] points (and
-// word rows) from row s * stride.  One MSM (msm_w4): {n, n}, 0; the pair
-// (msm_w4_pair): {lo_n, hi_n}, half; v uniform segments (msm_lane):
-// {seg, seg}, seg.
+// The segments of one launch: segment s holds min(n[min(s, 1)], total -
+// s * stride) points (and word rows) from row s * stride.  One MSM
+// (msm_w4, msm_chunk_acc): {n, n}, 0, n; the pair (msm_w4_pair): {lo_n,
+// hi_n}, half, 2 half; v uniform segments (msm_lane): {seg, seg}, seg,
+// v seg; the block totals (msm_block_totals): {2048, 2048}, 2048, n, the
+// last segment ragged.
 struct segs {
     int n[2];
     int stride;
+    int total;
 };
 
 // A point's table in shared memory: word j (8c + i: word i of niels
@@ -442,8 +447,11 @@ __device__ __forceinline__ void w4_table(const int32_t* src, uint32_t* t, int ro
 }
 
 // Pass 1: block (b, s) takes tiles b, b + nb, ... (at most ppt) of
-// segment s, TILE points each.  Per tile it loads the word rows and
-// builds every live point's eight multiples into shared memory (two
+// segment s, TILE points each.  Per tile it loads the word rows (signed
+// w4 words; with BITS, raw bit words, which one thread a row recodes into
+// w4 digit codes as it loads them: fold_recode, a zero row stays zero; a
+// template flag, so the w4 words' kernels stay as they were) and builds
+// every live point's eight multiples into shared memory (two
 // threads a point: roles in different warps); then thread t adds, for
 // window t % 64, the entries its digits select over its half of the
 // tile's points (digit code e, e >= 8 the digit e - 16: entry 16 - e
@@ -452,7 +460,7 @@ __device__ __forceinline__ void w4_table(const int32_t* src, uint32_t* t, int ro
 // are added, and the block stores one partial per window, walk- then
 // window-major: partials[(s * 64 + win) * nb + b], the layout
 // msm_win_windows<4> reads.  A block with no tile stores the identity.
-template <int TILE>
+template <int TILE, bool BITS>
 __global__ void __launch_bounds__(W4_THREADS, W4_MIN_BLOCKS)
 msm_w4_tiles(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
              int32_t* __restrict__ partials, segs g, int ppt) {
@@ -464,7 +472,8 @@ msm_w4_tiles(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
     uint32_t* wsh = smem + TILE * W4_STRIDE;
     const int b = blockIdx.x;
     const int s = blockIdx.y;
-    const int n = g.n[s < 1 ? 0 : 1];
+    const int n = (int)min((long long)g.n[s < 1 ? 0 : 1],
+                           max(0ll, (long long)g.total - (long long)s * g.stride));
     const int t = threadIdx.x;
     const int win = t % WINDOWS;
     const int half = t / WINDOWS;
@@ -478,9 +487,20 @@ msm_w4_tiles(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
         const int cnt = min(TILE, n - base);
         const long long row0 = (long long)s * g.stride + base;
         __syncthreads();  // the last tile's tables are read
+        if (BITS) {
+            if (t < TILE) {
+                if (t < cnt) {
+                    fold_recode(words + 8 * (row0 + t), wsh + 8 * t);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) wsh[8 * t + j] = 0u;
+                }
+            }
+        } else {
 #pragma unroll 1
-        for (int j = t; j < 8 * TILE; j += W4_THREADS)
-            wsh[j] = (j >> 3) < cnt ? (uint32_t)__ldg(words + 8 * row0 + j) : 0u;
+            for (int j = t; j < 8 * TILE; j += W4_THREADS)
+                wsh[j] = (j >> 3) < cnt ? (uint32_t)__ldg(words + 8 * row0 + j) : 0u;
+        }
         __syncthreads();
         const int p = t % SPAN;
         if (t < 2 * SPAN && p < cnt && !fe_is_zero_words(wsh + 8 * p))
@@ -507,15 +527,18 @@ msm_w4_tiles(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
 }
 
 // Pass 1's tile k: its points, its shared memory (tables and words) and
-// its kernel.
+// its kernels (over w4 words, over bit words).
 static const int W4_TILE_POINTS[W4_TILES] = {16, 64};
 
 static size_t w4_smem(int k) {
     return sizeof(uint32_t) * W4_TILE_POINTS[k] * (W4_STRIDE + 8);
 }
 
-static void (*const W4_KERNELS[W4_TILES])(const int32_t*, const int32_t*, int32_t*, segs,
-                                          int) = {msm_w4_tiles<16>, msm_w4_tiles<64>};
+static void (*const W4_KERNELS[W4_TILES][2])(const int32_t*, const int32_t*, int32_t*,
+                                             segs, int) = {
+    {msm_w4_tiles<16, false>, msm_w4_tiles<16, true>},
+    {msm_w4_tiles<64, false>, msm_w4_tiles<64, true>},
+};
 
 // Pass 1's geometry for `walks` segments of at most vmax points on the
 // current device: the tile (W4_TILE_POINTS[*k]), nb blocks a segment and ppt
@@ -537,13 +560,16 @@ static void w4_geometry(int vmax, int walks, int* k, int* nb, int* ppt) {
         card[j] = cached ? held[dev][j] : 0;
         if (card[j] == 0) {
             const size_t smem = w4_smem(j);
-            if (smem > 48 * 1024)
-                cudaFuncSetAttribute(W4_KERNELS[j],
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (smem > 48 * 1024) {
+                for (int b = 0; b < 2; ++b)
+                    cudaFuncSetAttribute(W4_KERNELS[j][b],
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+            }
             int sms = 1, per_sm = 1;
             cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, W4_KERNELS[j], W4_THREADS,
-                                                          smem);
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, W4_KERNELS[j][0],
+                                                          W4_THREADS, smem);
             card[j] = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
             if (cached) held[dev][j] = card[j];
         }
@@ -558,22 +584,43 @@ static void w4_geometry(int vmax, int walks, int* k, int* nb, int* ppt) {
 }
 
 // The three passes over `walks` segments: out[s] = chain[s] + sum over
-// segment s (chain null: the sum alone).
+// segment s (chain null: the sum alone); `bits`: the words are raw bit
+// words (recoded by the tiles).
 static int msm_w4_launch(const int32_t* pts, const int32_t* words, const int32_t* chain,
                          int32_t* out, int32_t* partials, int32_t* wtot, segs g, int walks,
-                         void* stream) {
+                         int bits, void* stream) {
     constexpr int WINDOWS = Win<4>::WINDOWS;
     cudaStream_t s = (cudaStream_t)stream;
     if (walks <= 0) return (int)cudaGetLastError();
     const int vmax = walks > 1 && g.n[1] > g.n[0] ? g.n[1] : g.n[0];
     int k = 0, nb = 1, ppt = 0;
     w4_geometry(vmax, walks, &k, &nb, &ppt);
-    W4_KERNELS[k]<<<dim3(nb, walks), W4_THREADS, w4_smem(k), s>>>(pts, words, partials, g,
-                                                                   ppt);
+    W4_KERNELS[k][bits ? 1 : 0]<<<dim3(nb, walks), W4_THREADS, w4_smem(k), s>>>(
+        pts, words, partials, g, ppt);
     msm_win_windows<4><<<dim3(WINDOWS, walks), 32, 0, s>>>(partials, wtot, nb);
     msm_win_horner<4><<<walks, 32, 0, s>>>(wtot, chain, out);
     return (int)cudaGetLastError();
 }
+
+// ---- the device-oracle path's MSMs over bit words (pallas_curve.py
+// msm_chunk_acc :279 and msm_block_totals :252, _smul_acc_kernel :269 /
+// _smul_reduce_kernel :239 over the bit ladder _ladder :219): acc + sum
+// s_i P_i over one chunk, and one total a block of MSM_BLOCK_PTS input
+// points, of scalars given as raw bit words (bits 252..0 read).  What
+// bounds them on an H100: the windowed w4 MSM's multiplies, as above.
+// Design: the windowed w4 MSM itself, its tiles recoding each bit word
+// row into signed w4 digits as they load it (fold_recode); msm_chunk_acc
+// is one segment chained on acc (msm_w4's shape), the block totals
+// ceil(n / MSM_BLOCK_PTS) segments with no chain (msm_lane's), the last
+// one ragged.  They replace the first versions' bit ladder a thread (253
+// doublings and 253 adds a point, out of line).  Measured (NVIDIA H100
+// 80GB HBM3, 700.00 W; chip_profile.py --oracle): msm_chunk_acc at the
+// path's 2^14 points 2.22 -> 0.59 ms, at 143,704 14.05 -> 2.43-2.45;
+// msm_block_totals at 2^16 + 1,000 6.58 -> 1.39-1.41.  A pre-pass of one
+// thread a row recoding into scratch timed the same within 0.03 ms (at
+// 2^14 0.587-0.603 against the tiles' 0.584-0.595), so the tiles recode:
+// no scratch, one launch fewer.
+#define MSM_BLOCK_PTS 2048  // msm_block_totals: input points a total (the TPU's block)
 
 template <int TBL>
 static int table_launch(const int32_t* pts, int32_t* table, int n, cudaStream_t s) {
@@ -622,6 +669,7 @@ int bp_w4_tile(int vmax, int walks) {
 }
 
 int bp_w4_partials(int vmax, int walks) {
+    if (walks <= 0) return 0;
     int k = 0, nb = 1, ppt = 0;
     w4_geometry(vmax, walks, &k, &nb, &ppt);
     return walks * Win<4>::WINDOWS * nb;
@@ -631,7 +679,8 @@ int bp_w4_partials(int vmax, int walks) {
 // partials: bp_w4_partials(n, 1) points of scratch; wtot: 64 points.
 int bp_msm_w4(const int32_t* pts, const int32_t* words, const int32_t* acc, int32_t* out,
               int32_t* partials, int32_t* wtot, int n, void* stream) {
-    return msm_w4_launch(pts, words, acc, out, partials, wtot, segs{{n, n}, 0}, 1, stream);
+    return msm_w4_launch(pts, words, acc, out, partials, wtot, segs{{n, n}, 0, n}, 1, 0,
+                         stream);
 }
 
 // Two chained MSMs in one launch set: out[0] = acc2[0] + sum over points
@@ -640,8 +689,8 @@ int bp_msm_w4(const int32_t* pts, const int32_t* words, const int32_t* acc, int3
 int bp_msm_w4_pair(const int32_t* pts, const int32_t* words, const int32_t* acc2,
                    int32_t* out, int32_t* partials, int32_t* wtot, int half, int lo_n,
                    int hi_n, void* stream) {
-    return msm_w4_launch(pts, words, acc2, out, partials, wtot, segs{{lo_n, hi_n}, half}, 2,
-                         stream);
+    return msm_w4_launch(pts, words, acc2, out, partials, wtot,
+                         segs{{lo_n, hi_n}, half, 2 * half}, 2, 0, stream);
 }
 
 // v independent MSM totals (the flotilla's): out (v, 4, 8), row s = sum
@@ -649,8 +698,30 @@ int bp_msm_w4_pair(const int32_t* pts, const int32_t* words, const int32_t* acc2
 // points of scratch; wtot: v * 64.
 int bp_msm_lane(const int32_t* pts, const int32_t* words, int32_t* out, int32_t* partials,
                 int32_t* wtot, int v, int seg, void* stream) {
-    return msm_w4_launch(pts, words, nullptr, out, partials, wtot, segs{{seg, seg}, seg}, v,
+    return msm_w4_launch(pts, words, nullptr, out, partials, wtot,
+                         segs{{seg, seg}, seg, v * seg}, v, 0, stream);
+}
+
+// Chained MSM over bit words (msm_chunk_acc): out (1, 4, 8) = acc + sum_{i
+// < n} s_i * P_i, s_i bits 252..0 of word row i.  partials:
+// bp_w4_partials(n, 1) points of scratch; wtot: 64 points.
+int bp_msm_chunk_acc(const int32_t* pts, const int32_t* words, const int32_t* acc,
+                     int32_t* out, int32_t* partials, int32_t* wtot, int n, void* stream) {
+    return msm_w4_launch(pts, words, acc, out, partials, wtot, segs{{n, n}, 0, n}, 1, 1,
                          stream);
+}
+
+// One total per MSM_BLOCK_PTS input points over bit words
+// (msm_block_totals): out (ceil(n / 2048), 4, 8), row b = sum of s_i * P_i
+// over points [2048 b, min(2048 (b + 1), n)).  partials:
+// bp_w4_partials(min(n, 2048), ceil(n / 2048)) points of scratch; wtot:
+// 64 a total.
+int bp_msm_block_totals(const int32_t* pts, const int32_t* words, int32_t* out,
+                        int32_t* partials, int32_t* wtot, int n, void* stream) {
+    const int v = (n + MSM_BLOCK_PTS - 1) / MSM_BLOCK_PTS;
+    const int seg = n < MSM_BLOCK_PTS ? n : MSM_BLOCK_PTS;
+    return msm_w4_launch(pts, words, nullptr, out, partials, wtot,
+                         segs{{seg, seg}, MSM_BLOCK_PTS, n}, v, 1, stream);
 }
 
 int bp_win5_windows(void) { return Win<5>::WINDOWS; }

@@ -9,7 +9,7 @@ kernels:
 
 * every MSM (the phase-1 commitments, each IPP round's L and R, the
   verifier's mega-MSM) is :func:`.msm.msm_device`: ``msm_chunk_acc``
-  launch pairs chained through the accumulator;
+  calls chained through the accumulator;
 * the IPP's generator folds are ``fold_grid`` launches
   (:func:`fold_points` with the round's constants u^-1 and u, one word row
   for every lane; :func:`_fold_with_scalars` in round 1, where the outer

@@ -63,9 +63,10 @@ SIGNATURES = {
     "bp_padd": [_VP, _VP, _VP, _I, _VP],
     "bp_pdbl": [_VP, _VP, _I, _VP],
     "bp_smul_lanes": [_VP, _VP, _VP, _I, _VP],
-    "bp_msm_block_totals": [_VP, _VP, _VP, _VP, _I, _VP],
-    "bp_msm_chunk_acc": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
-    "bp_fold_grid": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "bp_msm_block_totals": [_VP] * 5 + [_I, _VP],
+    "bp_msm_chunk_acc": [_VP] * 6 + [_I, _VP],
+    "bp_fold_grid_design": [_I],
+    "bp_fold_grid": [_VP] * 4 + [_I] * 4 + [_VP],
     "bp_mul_fp": [_VP, _VP, _VP, _I, _VP],
     "bp_mul_fq": [_VP, _VP, _VP, _I, _VP],
     "bp_fe_mul_test": [_VP, _VP, _VP, _I, _I, _I, _VP],

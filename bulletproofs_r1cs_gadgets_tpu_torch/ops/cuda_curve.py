@@ -174,11 +174,12 @@ a shard with no valid chunk over one zero-word chunk; here it launches
 over no points (the passes return the accumulator), so the result does
 not rest on the words past the valid span being zero.
 
-The device-oracle path's kernels (``csrc/oracle.cu``; callers in
+The device-oracle path's kernels (callers in
 ``ops/{field,curve,msm,backend,poseidon}.py`` and ``parallel/pipeline.py``)
-take any n, not only the TPU's multiples of 2048, and run the TPU kernels'
-own operation sequence, the identity doubled and added like any point, so
-the kernel and its plain version agree word for word:
+take any n, not only the TPU's multiples of 2048.  Those of
+``csrc/oracle.cu`` run the TPU kernels' own operation sequence, the
+identity doubled and added like any point, so the kernel and its plain
+version agree word for word; the MSMs and the fold are redesigned:
 
 ``padd`` / ``pdbl`` replace ``pallas_curve.padd`` / ``pdbl`` (:176 / :190,
 ``_padd_kernel`` :163, ``_pdbl_kernel`` :167): pointwise add and doubling.
@@ -193,27 +194,34 @@ point; the bound counts the ones the data needs, from each scalar's top
 bit).  Design: one thread per point runs the ladder (``ladder_bits``, the
 template of the next two) and stores its point.
 
-``msm_block_totals`` replaces ``pallas_curve.msm_block_totals`` (:252,
-``_smul_reduce_kernel`` :239, ``emit_block_reduce`` :203): one total per
-2048 input points, (ceil(n / 2048), 4, 8), which the host sums.  Same
-bound.  Design: the ladder per thread, the shared-memory tree
-(``block_sum``) to one partial per 128 points, and a second launch with
-one 16-thread block per 2048 points, so the blocks are the TPU's whatever
-the CUDA block size.
-
 ``msm_chunk_acc`` replaces ``pallas_curve.msm_chunk_acc`` (:279,
-``_smul_acc_kernel`` :269): acc + the ladder MSM over any n.  Same bound.
-Design: the same first pass, then one block adds the partials and the
-accumulator (as ``msm_w4``'s second pass does): one launch pair per call.
+``_smul_acc_kernel`` :269): acc + sum_i s_i * P_i over any n, the scalars
+bit words (bits 252..0).  ``msm_block_totals`` replaces
+``pallas_curve.msm_block_totals`` (:252, ``_smul_reduce_kernel`` :239):
+one such sum per 2048 input points, (ceil(n / 2048), 4, 8), the last one
+ragged, which the host adds up.  Bound: ``msm_w4``'s (the TPU's bit
+ladder, 253 doublings and 253 adds a point, is the first versions' work).
+Design (``csrc/win.cu``): ``msm_w4``'s windowed passes, the tiles
+recoding each bit word row into signed w4 digits as they load it
+(``fold_recode``); ``msm_chunk_acc`` one segment chained on acc,
+``msm_block_totals`` one segment a block with no chain (as ``msm_lane``).  They add in another order than their plain versions, which
+keep the first kernels' ladder and trees: equal as group elements.
 
 ``fold_grid`` replaces ``pallas_curve.fold_grid`` (:865, ``_fold_grid_kernel``
 :850, ``_emit_fold_w2`` :823, ``_w2_digit_select`` :811): out[i] = wl_i *
 P[i] + wr_i * P[i + v] with 128 signed 2-bit digits per scalar.  Bound:
-integer multiplies (256 doublings and 256 adds per output).  Design: one
-thread per output with the {P, 2P} tables of both sides, two doublings and
-two selected (negated for d < 0) adds per window; a constant scalar is one
-``(1, 8)`` row read by every lane (word stride 0) instead of the TPU's
-capacity array of copies; the output is a new ``(v, 4, 8)`` tensor.
+at 2^17 outputs integer multiplies (two tables, 256 doublings and ~120
+adds an output), at the later rounds' few outputs latency.  Design
+(``csrc/msm_fold.cu``): each w2 row recoded in the kernel into 64 signed
+base-16 digits and a borrow window (``w2_recode``), then Straus over an
+8-entry niels table of P[i] and one of P[i + v], half the w2 ladder's
+adds, in ``fold_c``'s two designs picked by size
+(``bp_fold_grid_design``; ``design=`` forces one): ``group``, 8 lanes an
+output (``fold_bits``' body), and ``thread``, one thread an output with
+its tables in local memory; a constant scalar is one ``(1, 8)`` row read
+by every lane (word stride 0) instead of the TPU's capacity array of
+copies; the output is a new ``(v, 4, 8)`` tensor, equal to the plain
+version's (the TPU's ladder) as a group element.
 
 ``mul_fp`` / ``mul_fq`` replace ``pallas_field.mul_fp`` / ``mul_fq``
 (ops/pallas_field.py:200-201, ``_make_mul`` :173, ``emit_mul`` :144):
@@ -257,8 +265,8 @@ W4_WINDOWS = 64
 W3H_DIGITS = 44
 W2_WINDOWS = 128
 LADDER_BITS = 253
-# csrc/oracle.cu's OR_THREADS / OR_BLOCK_PTS: the plain versions sum in
-# the kernels' order
+# The device-oracle MSMs' plain versions sum in their first kernels' order:
+# a tree of ORACLE_THREADS ladders, then the partials
 ORACLE_THREADS = 128  # points per first-pass partial
 BLOCK_PTS = 2048  # msm_block_totals: input points per total (the TPU's block)
 
@@ -860,16 +868,22 @@ def fold_w3h_comb(points: torch.Tensor, words: torch.Tensor, bp: int
 
 
 FOLD_C_DESIGNS = ("thread", "group")  # csrc/msm_fold.cu's designs, by number
+FOLD_GRID_DESIGNS = FOLD_C_DESIGNS  # fold_grid's: the same two, numbered alike
+
+
+def _design_number(name: str, designs: tuple, design: str | None) -> int:
+    """The library's number of `design` among `designs`: None (-1) lets it
+    choose by size."""
+    if design is None:
+        return -1
+    if design not in designs:
+        raise ValueError(f"{name}: design {design!r}, expected one of "
+                         f"{designs} or None")
+    return designs.index(design)
 
 
 def _fold_c_design(design: str | None) -> int:
-    """The library's design number: None lets it choose by size."""
-    if design is None:
-        return -1
-    if design not in FOLD_C_DESIGNS:
-        raise ValueError(f"fold_c: design {design!r}, expected one of "
-                         f"{FOLD_C_DESIGNS} or None")
-    return FOLD_C_DESIGNS.index(design)
+    return _design_number("fold_c", FOLD_C_DESIGNS, design)
 
 
 def fold_c_design(dev: torch.device, outputs: int) -> str:
@@ -1070,10 +1084,9 @@ def msm_block_totals(points: torch.Tensor, words: torch.Tensor
         return msm_block_totals_plain(points, words)
     nb = -(-n // BLOCK_PTS)
     out = torch.empty((nb, 4, 8), dtype=torch.int32, device=dev)
-    partials = torch.empty((max(1, nb * (BLOCK_PTS // ORACLE_THREADS)), 4, 8),
-                           dtype=torch.int32, device=dev)
+    partials, wtot = _w4_scratch(dev, min(n, BLOCK_PTS), nb)
     _launch("msm_block_totals", dev, "bp_msm_block_totals", _ptr(points),
-            _ptr(words), _ptr(out), _ptr(partials), n)
+            _ptr(words), _ptr(out), _ptr(partials), _ptr(wtot), n)
     return out
 
 
@@ -1088,19 +1101,28 @@ def msm_chunk_acc(points: torch.Tensor, words: torch.Tensor,
     if _route(dev) == "plain":
         return msm_chunk_acc_plain(points, words, acc)
     out = torch.empty((1, 4, 8), dtype=torch.int32, device=dev)
-    partials = torch.empty((max(1, -(-n // ORACLE_THREADS)), 4, 8),
-                           dtype=torch.int32, device=dev)
+    partials, wtot = _w4_scratch(dev, n, 1)
     _launch("msm_chunk_acc", dev, "bp_msm_chunk_acc", _ptr(points),
-            _ptr(words), _ptr(acc), _ptr(out), _ptr(partials), n)
+            _ptr(words), _ptr(acc), _ptr(out), _ptr(partials), _ptr(wtot), n)
     return out
 
 
+def fold_grid_design(dev: torch.device, v: int) -> str:
+    """The design ``fold_grid`` takes on card `dev` for v outputs."""
+    lib = build.load()
+    with torch.cuda.device(dev):
+        build.check(lib.bp_set_device(dev.index), "fold_grid design (set device)")
+        return FOLD_GRID_DESIGNS[lib.bp_fold_grid_design(v)]
+
+
 def fold_grid(points: torch.Tensor, wl: torch.Tensor, wr: torch.Tensor,
-              v: int) -> torch.Tensor:
+              v: int, design: str | None = None) -> torch.Tensor:
     """(v, 4, 8) new tensor: out[i] = wl_i * points[i] + wr_i * points[i +
     v] for i < v, from w2 words (``ck.signed_digit2_words``): per lane
     ``(v, 8)``, or one ``(1, 8)`` row for every lane
-    (``ck.const_grid_words``)."""
+    (``ck.const_grid_words``).  `design` (``"thread"`` / ``"group"``, for
+    measurements) overrides the library's choice by size; the points are
+    the same either way."""
     dev = points.device
     N = points.shape[0]
     if not 0 <= 2 * v <= N:
@@ -1108,12 +1130,13 @@ def fold_grid(points: torch.Tensor, wl: torch.Tensor, wr: torch.Tensor,
     _check(points, "points", (N, 4, 8), dev)
     for name, w in (("wl", wl), ("wr", wr)):
         _check(w, name, (1 if w.shape[0] == 1 else v, 8), dev)
+    number = _design_number("fold_grid", FOLD_GRID_DESIGNS, design)
     if _route(dev) == "plain":
         return fold_grid_plain(points, wl, wr, v)
     out = torch.empty((v, 4, 8), dtype=torch.int32, device=dev)
     strides = [0 if w.shape[0] == 1 else 8 for w in (wl, wr)]
     _launch("fold_grid", dev, "bp_fold_grid", _ptr(points), _ptr(wl),
-            _ptr(wr), _ptr(out), v, *strides)
+            _ptr(wr), _ptr(out), v, *strides, number)
     return out
 
 

@@ -2,12 +2,12 @@
 
 The JAX package's ``ops/msm.py`` runs a windowed double-and-add in XLA
 over fixed 2^14-point chunks and adds the chunk partials with
-``point_add``.  Here each chunk is one ``msm_chunk_acc`` launch pair (the
-bit ladder per point, block sums, and the incoming accumulator added), so
-the chunk loop chains through the accumulator on the device with no sync
-(:func:`msm_device`).  :class:`MsmEngine` caches generator tensors and runs
-an MSM as ONE ``msm_block_totals`` launch, then adds the few 2048-point
-block totals on the host (pallas_curve.py:254).  Scalars are bit words
+``point_add``.  Here each chunk is one ``msm_chunk_acc`` call (the
+windowed w4 MSM over the chunk's bit words, chained on the incoming
+accumulator), so the chunk loop chains through the accumulator on the
+device with no sync (:func:`msm_device`).  :class:`MsmEngine` caches
+generator tensors and runs an MSM as ONE ``msm_block_totals`` call, then
+adds the few 2048-point block totals on the host (pallas_curve.py:254).  Scalars are bit words
 (``ck.bit_words``), zero-copy from ``core/scvec`` rows.
 
 Correctness oracle: ``core.ristretto.multiscalar_mul`` (host Pippenger).
@@ -25,7 +25,7 @@ from . import chunks as ck
 from . import cuda_curve as cc
 from .curve import identity_points, points_from_device, points_to_device
 
-CHUNK = 1 << 14  # points per chained launch pair (the JAX package's chunk)
+CHUNK = 1 << 14  # points per chained call (the JAX package's chunk)
 
 
 def scalar_rows(scalars) -> np.ndarray:
@@ -38,7 +38,7 @@ def scalar_rows(scalars) -> np.ndarray:
 
 def msm_device(scalars, points_dev: torch.Tensor, acc=None) -> torch.Tensor:
     """sum_i s_i * P_i (+ acc) -> (4, 8) on the points' device, no sync:
-    one ``msm_chunk_acc`` launch pair per CHUNK points, chained through the
+    one ``msm_chunk_acc`` call per CHUNK points, chained through the
     accumulator."""
     n = points_dev.shape[0]
     rows = scalar_rows(scalars)

@@ -75,7 +75,22 @@ flotilla), ``fold_c`` at 2^11, 2^13, 2^14, 2^15 and 2^17 outputs and
 design where the wrappers take ``design``); and, on the frozen pack, the
 composition ``table_w4`` + ``msm_win_pair``, which computes
 ``msm_w4_pair``'s function, in turns with it (pair, composition,
-composition, pair; equal results).
+composition, pair; equal results); then the device-oracle kernels as
+``--oracle`` times them.
+
+    python3 chip_profile.py --oracle [--out oracle.json]
+
+times the device-oracle path's redesigned kernels through their wrappers
+only: ``msm_chunk_acc`` at 2^14 (the path's chunk) and 143,704 points,
+``msm_block_totals`` at 2^16 + 1,000 points, ``fold_grid`` at 2^17,
+2^14, 12,288, 2^13 and 2,048 outputs with per-lane words and with
+constant rows (by the library's choice, and under each design where the
+wrapper takes ``design``); then the depth-253 proof of
+``chip_smoke.py`` phase 10 (a) through ``DeviceBackend("cuda")``: one
+cold prove and three warm proves and verifies (wall ms, synchronised;
+the proof checked byte for byte against ``TorchBackend``'s and by the
+verifier), and ``MsmEngine.msm`` at 2^16 (phase 10 (d)), five calls.  A
+copy of the script times an older tree the same way.
 """
 
 from __future__ import annotations
@@ -98,6 +113,9 @@ ROUTE_ORDER = (ROUTES + ROUTES[::-1]) * 2
 BATCH = 8
 FOLD_WIDE = 1 << 17  # the chunk-list route's first fold_bits round
 FOLD_C_OUTPUTS = tuple(1 << k for k in (11, 13, 14, 15, 17))  # fold_c shapes
+# fold_grid outputs: the oracle IPP's rounds 1, 4, 5 and 7, and 12,288 (the
+# designs' crossover)
+GRID_OUTPUTS = (1 << 17, 1 << 14, 12288, 1 << 13, 2048)
 
 
 def device_time_ms(prof, torch) -> tuple[float, dict]:
@@ -215,6 +233,7 @@ def sass(build) -> dict:
         name = body.split("\n", 1)[0].strip()
         if not any(k in name for k in ("msm_win", "msm_w4", "fold_w3h",
                                        "fold_bits", "fold_c", "table_kernel",
+                                       "fold_grid",
                                        "fe_mul_test")):
             continue
         ops = re.findall(
@@ -347,7 +366,99 @@ def kernels(bp, torch, cs, cc, ck, F, gens) -> dict:
         kw = {} if d is None else dict(design=d)
         timed(f"fold_c_comb {4 * m} -> {2 * m} {d or 'auto'}",
               lambda: cc.fold_c_comb(C, cw, m // 5, **kw), 5)
+    ms.update(oracle_kernels(bp, torch, cs, cc, ck, F, gens))
     return dict(kernels_ms=ms)
+
+
+def oracle_kernels(bp, torch, cs, cc, ck, F, gens) -> dict:
+    """The device-oracle path's MSMs and fold at their path's shapes over
+    random scalars (cs.time_ms, ms a call), fold_grid by the library's
+    choice and under each design where the wrapper takes one."""
+    import numpy as np
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(cs.SEED + 11)
+    N, L = cs.GENS_N, bp.L
+    G = F.from_raw(gens.G_raw(N), dev)
+    ms = {}
+
+    def timed(name, fn, reps=10):
+        ms[name] = cs.time_ms(torch, fn, reps)
+        print(f"  {name}: {ms[name]:.3f} ms", flush=True)
+
+    acc = F.from_points([bp.PedersenGens.default().B], dev)
+    rows = cs.random_scalar_rows(bp, N, rng)
+    bits = torch.from_numpy(ck.bit_words(rows)).to(dev)
+    for n in (cs.MSM_N, cs.N1):
+        Gn, wn = G[:n], bits[:n]
+        timed(f"msm_chunk_acc {n}", lambda: cc.msm_chunk_acc(Gn, wn, acc), 5)
+    n = cs.TOTALS_N
+    Gn, wn = G[:n], bits[:n]
+    timed(f"msm_block_totals {n}", lambda: cc.msm_block_totals(Gn, wn), 5)
+    sl = cs.random_scalar_rows(bp, N // 2, rng)
+    sr = cs.random_scalar_rows(bp, N // 2, rng)
+    wl_all, wr_all = ck.w2_words(sl, dev), ck.w2_words(sr, dev)
+    u = bp.Scalar(int.from_bytes(rng.bytes(32), "little") % L)
+    ci, cu = ck.const_grid_words(u.invert(), dev), ck.const_grid_words(u, dev)
+    designs = [None]  # the library's choice; then each design, where taken
+    if "design" in inspect.signature(cc.fold_grid).parameters:
+        designs += list(cc.FOLD_GRID_DESIGNS)
+    for v in GRID_OUTPUTS:
+        Gv = G[: 2 * v]
+        wl, wr = wl_all[:v], wr_all[:v]
+        for tag, a, b in (("lanes", wl, wr), ("const", ci, cu)):
+            for d in designs:
+                kw = {} if d is None else dict(design=d)
+                timed(f"fold_grid {v} {tag} {d or 'auto'}",
+                      lambda: cc.fold_grid(Gv, a, b, v, **kw), 5 if v > 8192 else 10)
+    return ms
+
+
+def oracle_path(bp, torch, cs, cc, ck, F, gens) -> dict:
+    """chip_smoke.py phase 10 (a) and (d) alone: the depth-253 proof
+    through DeviceBackend("cuda") (cold, then three warm proves and
+    verifies; the bytes TorchBackend's) and MsmEngine.msm at 2^16."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.msm import MsmEngine
+
+    params, tree = cs.build_tree(bp, cs.DEPTH)
+    comp, tape, comms, prover = cs.synthesize(bp, params, tree, cs.DEPTH, cs.SEED)
+    snap = prover.snapshot()
+
+    def fresh():
+        prover.restore(snap)
+        prover.rng = np.random.RandomState(cs.SEED)
+
+    fresh()
+    want = prover.prove(gens, backend=bp.TorchBackend("cuda")).to_bytes()
+    backend = bp.DeviceBackend(torch.device("cuda", 0))
+    out = dict(prove_ms=[], verify_ms=[])
+    for k in range(4):
+        fresh()
+        proof = [None]
+
+        def prove():
+            proof[0] = prover.prove(gens, backend=backend)
+
+        t = 1000 * wall_s(torch, prove)
+        assert proof[0].to_bytes() == want, "DeviceBackend proof != TorchBackend's"
+        v = 1000 * wall_s(torch, lambda: cs.verify(bp, comp, tape, comms, proof[0],
+                                                   gens, backend))
+        if k == 0:
+            out["cold_prove_ms"], out["cold_verify_ms"] = t, v
+        else:
+            out["prove_ms"].append(t)
+            out["verify_ms"].append(v)
+    rows = cs.random_scalar_rows(bp, cs.ORACLE_MSM_N, np.random.RandomState(cs.SEED))
+    hostG = gens.G(cs.ORACLE_MSM_N)
+    eng = MsmEngine(torch.device("cuda", 0))
+    eng.device_points(hostG)
+    eng.msm(rows, hostG)
+    out["msm_engine_ms"] = [1000 * wall_s(torch, lambda: eng.msm(rows, hostG))
+                            for _ in range(5)]
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def main() -> int:
@@ -359,6 +470,8 @@ def main() -> int:
                     help="count the redesigned kernels' instructions")
     ap.add_argument("--kernels", action="store_true",
                     help="time the redesigned kernels only")
+    ap.add_argument("--oracle", action="store_true",
+                    help="time the device-oracle kernels and path only")
     ap.add_argument("--routes",
                     help="profile these routes only (comma-separated), no batch")
     ap.add_argument("--batch", action="store_true",
@@ -389,9 +502,13 @@ def main() -> int:
         print(json.dumps(sass(build)), flush=True)
         return 0
     gens = bp.BulletproofGens(cs.GENS_N)
-    if args.walkers or args.kernels:
-        part = walkers if args.walkers else kernels
-        out.update(part(bp, torch, cs, cc, ck, F, gens))
+    if args.walkers or args.kernels or args.oracle:
+        if args.oracle:
+            out["kernels_ms"] = oracle_kernels(bp, torch, cs, cc, ck, F, gens)
+            out["oracle"] = oracle_path(bp, torch, cs, cc, ck, F, gens)
+        else:
+            part = walkers if args.walkers else kernels
+            out.update(part(bp, torch, cs, cc, ck, F, gens))
         print(json.dumps(out), flush=True)
         if args.out:
             with open(args.out, "w") as f:

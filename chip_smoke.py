@@ -53,16 +53,17 @@ non-zero and prints no result):
    phase-8 shard, 32 chunks = 65,536 generators, at 32, 7 and 0 valid
    chunks; the device-oracle path's kernels: padd / pdbl over 2^18
    points, smul_lanes over 2^14 points x 253 bits, msm_block_totals over
-   2^16 + 1000 points (a ragged last block), msm_chunk_acc over 143,704
-   points with a nonzero acc, fold_grid from 2^18 into 2^17 with per-lane
-   words (the edge scalars 0, 1, L - 1) and with constant rows, mul_fq /
-   mul_fp over 2^20 elements with the edges 0, 1, m - 1, 2^256 - 1, each
-   word for word), and on a subset against the host MSM, scalar
+   2^16 + 1000 points (a ragged last block, an all-zero block),
+   msm_chunk_acc over 143,704 points and over the path's 2^14 with a
+   nonzero acc, fold_grid from 2^18 into 2^17 with per-lane words (the edge scalars 0,
+   1, L - 1) and with constant rows, and at 2,048 and 2^13 outputs under
+   both designs, mul_fq / mul_fp over 2^20 elements with the edges 0, 1,
+   m - 1, 2^256 - 1), and on a subset against the host MSM, scalar
    multiplication or Python ints.  Tolerance: exact (the same group
    elements, ``point_err`` 0: the windowed MSM and the niels fold add in
-   another order than their plain versions, and so do msm_lane and
-   fold_c*; equal table words; equal
-   words for the device-oracle kernels).  Every walk of the window
+   another order than their plain versions, and so do msm_lane, fold_c*,
+   the oracle MSMs and fold_grid; equal table words; equal words for the
+   other device-oracle kernels).  Every walk of the window
    walkers (msm_win5, msm_win_pair, msm_win) and of the windowed w4 MSM
    (msm_w4, msm_w4_pair, msm_grid, msm_grid_local, which end in the
    walkers' Horner) is timed, and split into its Horner tail (the
@@ -71,9 +72,9 @@ non-zero and prints no result):
    held word for word against fe_mul / fe_sq over 2^20 random and edge
    operand pairs and timed (``fe_mul_test``); table_w4 is timed at the
    main path's six sizes (2^18 down to 2^13 points); phase 1 logs
-   ptxas's registers, stack and spills of the walkers, the windowed MSM,
-   the half-width fold, fold_bits, the constant folds and the tables
-   (``ptxas``).
+   ptxas's registers, stack and spills of the walkers, the windowed MSM
+   (both word forms), the half-width fold,
+   fold_bits, the constant folds, fold_grid and the tables (``ptxas``).
 3. a VSMT-2 depth-4 proof through the port (padded to 4096: round 1
    folds with fold_c), byte-identical to the host
    path with the same prover randomness, its digest equal to the JAX
@@ -157,15 +158,19 @@ every kernel at least once;
 ``bound_ms``
 the larger of the work's 32-bit multiplies over the card's multiply rate
 and its bytes over 3.35 TB/s, counted from this run's inputs; the
-redesigned w4 MSMs (msm_lane among them), half-width folds, constant
-folds, fold_bits and tables also give ``bound_ladder_ms``, the bound
+redesigned w4 MSMs (msm_lane and the oracle MSMs among them), half-width
+folds, constant folds, fold_grid, fold_bits and tables also give
+``bound_ladder_ms``, the bound
 their first versions' work was held to; fold_bits, the constant folds
 and the tables give ``kernel_int_muls``, the multiplies the kernel runs
 with its repeated steps, beside ``int_muls``, the work's; msm_lane
 also gives its time over 24 segments (``ms_24``), and fold_c its
 design and its record at 2048 outputs (``*_2048``: padded n = 4096's
 round 1 on the default route) and each design's time at both shapes
-(``design_ms``);
+(``design_ms``); msm_chunk_acc its record at the path's 2^14 points
+(``*_16384``); fold_grid its design, constant rows' times
+(``const_ms``), each design's time and its records at 2,048 and 2^13
+outputs (``design_ms``, ``*_2048``, ``*_8192``);
 fold_bits gives its chain floor, ``chain_ops`` dependent cooperative
 operations, and ``chain_ms``, computed, not timed: ``chain_ops`` times
 one cooperative operation's latency as this run measured it in the w4
@@ -196,8 +201,9 @@ SOURCES = {
     "fold_c": _W4, "fold_c_comb": _W4, "msm_win": _WIN,
     "msm_grid": _WIN,  # launches msm_w4's kernels over a view
     "msm_grid_local": _WIN,  # msm_w4's kernels over one shard's live prefix
-    "padd": _OR, "pdbl": _OR, "smul_lanes": _OR, "msm_block_totals": _OR,
-    "msm_chunk_acc": _OR, "fold_grid": _OR, "mul_fp": _OR, "mul_fq": _OR,
+    "padd": _OR, "pdbl": _OR, "smul_lanes": _OR,
+    "msm_block_totals": _WIN,  # the windowed w4 MSM over bit words
+    "msm_chunk_acc": _WIN, "fold_grid": _W4, "mul_fp": _OR, "mul_fq": _OR,
 }
 _PC = "bulletproofs_r1cs_gadgets_tpu/ops/pallas_curve.py"
 REPLACES = {
@@ -2315,6 +2321,7 @@ def phase_stream(bp, torch, cc, gens, params, tree, circuit):
 ORACLE_PTS = 1 << 18  # padd / pdbl points
 SMUL_N = 1 << 14  # smul_lanes points (x 253 bits)
 TOTALS_N = (1 << 16) + 1000  # msm_block_totals: 33 blocks, the last ragged
+GRID_V = (2048, 1 << 13)  # fold_grid outputs of the device-oracle IPP's rounds 7 and 5
 FIELD_N = 1 << 20  # mul_fq / mul_fp elements
 SC_PRODUCTS = 64 + 81 + 45  # mul_fq's 32 x 32 -> 64 products (Barrett)
 
@@ -2337,10 +2344,21 @@ def bit_ladder_ops(words, count: int = 253) -> tuple[dict, int]:
     return ladder_ops(_codes(words, 1, count), 1)
 
 
+def bit_w4_words(words):
+    """(n, 8) raw bit words -> the signed w4 words the bit-word MSMs' tiles
+    recode them into (fold_codes, packed a nibble a digit)."""
+    import numpy as np
+
+    codes = fold_codes(words).astype(np.uint32).reshape(-1, 8, 8)
+    shifts = (4 * np.arange(8)).astype(np.uint32)
+    return (codes << shifts).sum(axis=2, dtype=np.uint32).view(np.int32)
+
+
 def fold_w2_ops(wl, wr) -> dict:
-    """fold_grid's work that the data needs: two table doublings per
-    output, from the top nonzero window of either scalar two doublings per
-    window, and one add per nonzero digit past the first."""
+    """fold_grid's first version's work that the data needs (the TPU's
+    dual w2 ladder): two table doublings per output, from the top nonzero
+    window of either scalar two doublings per window, and one add per
+    nonzero digit past the first."""
     import numpy as np
 
     codes = np.concatenate([_codes(wl, 2, 128), _codes(wr, 2, 128)], axis=1)
@@ -2355,13 +2373,16 @@ def fold_w2_ops(wl, wr) -> dict:
 
 def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
     """The device-oracle path's eight kernels at its shapes, each exactly
-    (equal words) against its plain version, and on subsets against the
-    host group law, MSM or Python ints: padd / pdbl over 2^18 points,
-    smul_lanes over 2^14 points x 253 bits, msm_block_totals over 2^16 +
-    1000 points (a ragged last block), msm_chunk_acc over 143,704 points
-    with a nonzero acc, fold_grid from 2^18 into 2^17 (per-lane words with
-    the edge scalars 0, 1, L - 1; then constant rows), mul_fq / mul_fp over
-    2^20 elements with the edges 0, 1, m - 1, 2^256 - 1."""
+    against its plain version (equal words; the redesigned
+    msm_block_totals, msm_chunk_acc and fold_grid by group element,
+    ``point_err``), and on subsets against the host group law, MSM or
+    Python ints: padd / pdbl over 2^18 points, smul_lanes over 2^14 points
+    x 253 bits, msm_block_totals over 2^16 + 1000 points (a ragged last
+    block, an all-zero block), msm_chunk_acc over 143,704 points and over
+    the path's 2^14 with a nonzero acc, fold_grid from 2^18 into 2^17 (per-lane words with the
+    edge scalars 0, 1, L - 1; then constant rows) and at 2,048 and 2^13
+    outputs (rounds 7 and 5) under both designs, mul_fq / mul_fp over 2^20
+    elements with the edges 0, 1, m - 1, 2^256 - 1."""
     import numpy as np
 
     from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
@@ -2379,6 +2400,13 @@ def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
         assert err == 0, f"{name} != plain (err {err})"
         records[name] = dict(max_abs_err=err, ms=time_ms(torch, fn, reps),
                              plain_ms=plain_ms, **bound(ops, nbytes))
+
+    def by_point(name, got, plain_fn):
+        """(point_err, the plain version's ms) of a redesigned kernel."""
+        plain, plain_ms = timed_once(torch, plain_fn)
+        err = point_err(F, got, plain, P)
+        assert err == 0, f"{name} != plain (err {err})"
+        return err, plain_ms
 
     # ---- padd / pdbl over 2^18 points
     n = ORACLE_PTS
@@ -2407,11 +2435,13 @@ def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
     record("smul_lanes", got, lambda: cc.smul_lanes_plain(pts, w),
            lambda: cc.smul_lanes(pts, w), 5, ops, n * (2 * 128 + 32))
 
-    # ---- msm_block_totals over 2^16 + 1000 points: 33 blocks
+    # ---- msm_block_totals over 2^16 + 1000 points: 33 blocks, the last
+    # ragged, block 1 all zero
     n = TOTALS_N
     rows = random_scalar_rows(bp, n, rng)
     rows[:2] = bp.scvec.from_ints([0, L - 1])
     rows[n - 300 : n - 200] = 0
+    rows[cc.BLOCK_PTS : 2 * cc.BLOCK_PTS] = 0
     words = ck.bit_words(rows)
     w = torch.from_numpy(words).to(dev)
     pts = G[:n]
@@ -2422,32 +2452,62 @@ def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
     host = bp.multiscalar_mul(bp.scvec.to_scalars(rows[last:]),
                               F.to_points(pts[last:]))
     assert F.to_points(got[-1:])[0] == host, "ragged block total != host MSM"
-    ops, live = bit_ladder_ops(words)
-    ops["add"] += nb * cc.BLOCK_PTS - nb  # block trees
-    record("msm_block_totals", got, lambda: cc.msm_block_totals_plain(pts, w),
-           lambda: cc.msm_block_totals(pts, w), 5, ops,
-           n * (128 + 32) + nb * 128)
+    assert F.to_points(got[1:2])[0].is_identity(), "all-zero block total"
+    err, plain_ms = by_point("msm_block_totals", got,
+                             lambda: cc.msm_block_totals_plain(pts, w))
+    ladder, live = bit_ladder_ops(words)
+    ladder["add"] += nb * cc.BLOCK_PTS - nb  # block trees
+    seg = min(n, cc.BLOCK_PTS)
+    records["msm_block_totals"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: cc.msm_block_totals(pts, w), 5),
+        plain_ms=plain_ms,
+        **bounds(msm_w4_ops(bit_w4_words(words), w4_blocks(seg, nb), nb,
+                            chained=False),
+                 ladder, n * (128 + 32) + nb * 128),
+    )
 
-    # ---- msm_chunk_acc over 143,704 points, a nonzero acc
-    n = N1
-    rows = random_scalar_rows(bp, n, rng)
-    rows[:2] = bp.scvec.from_ints([0, L - 1])
-    words = ck.bit_words(rows)
-    w = torch.from_numpy(words).to(dev)
-    pts = G[:n]
+    # ---- msm_chunk_acc over 143,704 points and over the path's 2^14 (one
+    # chunk of msm_device), a nonzero acc
     acc = F.from_points([bp.PedersenGens.default().B], dev)
-    got = cc.msm_chunk_acc(pts, w, acc)
-    sub = cc.msm_chunk_acc(pts[:64], w[:64].contiguous(), acc)
+    chunk = {}
+    for n in (N1, MSM_N):
+        rows = random_scalar_rows(bp, n, rng)
+        rows[:2] = bp.scvec.from_ints([0, L - 1])
+        words = ck.bit_words(rows).copy()  # bit_words is a view of rows
+        words[2, 7] |= np.int32(-0x20000000)  # bits 253..255: not read
+        w = torch.from_numpy(words).to(dev)
+        pts = G[:n]
+        got = cc.msm_chunk_acc(pts, w, acc)
+        err, plain_ms = by_point("msm_chunk_acc", got,
+                                 lambda: cc.msm_chunk_acc_plain(pts, w, acc))
+        ms = time_ms(torch, lambda: cc.msm_chunk_acc(pts, w, acc), 5)
+        ladder, live = bit_ladder_ops(words)
+        ladder["add"] += n
+        chunk[n] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **bounds(msm_w4_ops(bit_w4_words(words), w4_blocks(n)), ladder,
+                     n * (128 + 32) + 256))
+        log(f"  msm_chunk_acc {n} points: {ms:.3f} ms, plain {plain_ms:.1f} ms")
+    sub = cc.msm_chunk_acc(G[:64], w[:64].contiguous(), acc)
     host = bp.multiscalar_mul(bp.scvec.to_scalars(rows[:64]), hostG) \
         + bp.PedersenGens.default().B
     assert F.to_points(sub)[0] == host, "msm_chunk_acc != host MSM"
-    ops, live = bit_ladder_ops(words)
-    ops["add"] += n
-    record("msm_chunk_acc", got, lambda: cc.msm_chunk_acc_plain(pts, w, acc),
-           lambda: cc.msm_chunk_acc(pts, w, acc), 5, ops, n * (128 + 32) + 256)
+    records["msm_chunk_acc"] = dict(
+        chunk[N1], **{f"{k}_{MSM_N}": v for k, v in chunk[MSM_N].items()
+                      if k in ("ms", "plain_ms", "bound_ms", "bound_ladder_ms")})
 
     # ---- fold_grid from 2^18 into 2^17: per-lane words with edges, then
-    # the constants u^-1, u of a round as one row each
+    # the constants u^-1, u of a round as one row each; both at 2,048 and
+    # 2^13 outputs under each design
+    def grid_bounds(sl, sr, v, nbytes):
+        """The function's work (fold_bits_ops on the scalars' bit words:
+        w2_recode's digits are fold_recode's for a canonical scalar), the w2
+        ladder's count beside it."""
+        bl, br = ck.bit_words(sl), ck.bit_words(sr)
+        ops, _, _ = fold_bits_ops(bl, br)
+        return bounds(ops, fold_w2_ops(ck.signed_digit2_words(sl),
+                                       ck.signed_digit2_words(sr)), nbytes)
+
     v = ORACLE_PTS // 2
     sl = random_scalar_rows(bp, v, rng)
     sr = random_scalar_rows(bp, v, rng)
@@ -2460,16 +2520,17 @@ def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
         hostG[:8], hostR, bp.scvec.to_scalars(sl[:8]),
         bp.scvec.to_scalars(sr[:8]))]
     assert F.to_points(got[:8]) == want, "fold_grid != host"
-    record("fold_grid", got, lambda: cc.fold_grid_plain(G, wl, wr, v),
-           lambda: cc.fold_grid(G, wl, wr, v), 5,
-           fold_w2_ops(wl.cpu().numpy(), wr.cpu().numpy()),
-           v * (3 * 128 + 2 * 32))
+    err, plain_ms = by_point("fold_grid", got,
+                             lambda: cc.fold_grid_plain(G, wl, wr, v))
+    records["fold_grid"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: cc.fold_grid(G, wl, wr, v), 5),
+        plain_ms=plain_ms, design=cc.fold_grid_design(dev, v),
+        **grid_bounds(sl, sr, v, v * (3 * 128 + 2 * 32)))
     u = bp.scvec.to_scalars(sr[5:6])[0]
     cu, ci = ck.const_grid_words(u, dev), ck.const_grid_words(u.invert(), dev)
     got = cc.fold_grid(G, ci, cu, v)
-    plain, const_plain_ms = timed_once(
-        torch, lambda: cc.fold_grid_plain(G, ci, cu, v))
-    assert exact_err(F, got, plain, P) == 0, "constant fold_grid != plain"
+    e, const_plain_ms = by_point("constant fold_grid", got,
+                                 lambda: cc.fold_grid_plain(G, ci, cu, v))
     want = [a.scalar_mul(u.invert()) + b.scalar_mul(u)
             for a, b in zip(hostG[:8], hostR)]
     assert F.to_points(got[:8]) == want, "constant fold_grid != host"
@@ -2477,11 +2538,32 @@ def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
         e0 = ck.const_grid_words(bp.Scalar(c0), dev)
         e1 = ck.const_grid_words(bp.Scalar(c1), dev)
         sub = G[: 2 * FOLD_M].contiguous()
-        assert torch.equal(cc.fold_grid(sub, e0, e1, FOLD_M),
-                           cc.fold_grid_plain(sub, e0, e1, FOLD_M))
-    records["fold_grid"]["const_ms"] = time_ms(
-        torch, lambda: cc.fold_grid(G, ci, cu, v), 5)
-    records["fold_grid"]["const_plain_ms"] = const_plain_ms
+        for d in cc.FOLD_GRID_DESIGNS:
+            assert point_err(F, cc.fold_grid(sub, e0, e1, FOLD_M, design=d),
+                             cc.fold_grid_plain(sub, e0, e1, FOLD_M), P) == 0, \
+                f"edge constant fold_grid {d} != plain"
+    rec = records["fold_grid"]
+    rec["const_ms"] = time_ms(torch, lambda: cc.fold_grid(G, ci, cu, v), 5)
+    rec["const_plain_ms"] = const_plain_ms
+    rec["design_ms"] = {d: time_ms(torch, lambda: cc.fold_grid(
+        G, wl, wr, v, design=d), 3) for d in cc.FOLD_GRID_DESIGNS}
+    for m in GRID_V:  # rounds 7 and 5: constant rows, both designs
+        sub = G[: 2 * m].contiguous()
+        plain = cc.fold_grid_plain(sub, ci, cu, m)
+        for d in cc.FOLD_GRID_DESIGNS:
+            e = point_err(F, cc.fold_grid(sub, ci, cu, m, design=d), plain, P)
+            assert e == 0, f"fold_grid {m} {d} != plain (err {e})"
+        rec[f"design_{m}"] = cc.fold_grid_design(dev, m)
+        rec[f"ms_{m}"] = time_ms(torch, lambda: cc.fold_grid(sub, ci, cu, m), 10)
+        rec[f"design_ms_{m}"] = {d: time_ms(torch, lambda: cc.fold_grid(
+            sub, ci, cu, m, design=d), 10) for d in cc.FOLD_GRID_DESIGNS}
+        cs_rows = bp.scvec.from_ints([u.invert().v, u.v])
+        b = grid_bounds(np.repeat(cs_rows[:1], m, axis=0),
+                        np.repeat(cs_rows[1:], m, axis=0), m, m * 3 * 128 + 64)
+        rec[f"bound_ms_{m}"] = b["bound_ms"]
+        rec[f"bound_ladder_ms_{m}"] = b["bound_ladder_ms"]
+        log(f"  fold_grid {m} (constant rows, {rec[f'design_{m}']}): "
+            f"{rec[f'design_ms_{m}']} ms")
 
     # ---- mul_fq / mul_fp over 2^20 elements with edges
     n = FIELD_N
@@ -2664,9 +2746,10 @@ def main() -> int:
         redesigned = {k: v for k, v in build.report().items()
                       if any(s in k for s in ("win", "msm_w4", "fold_w3h",
                                               "fold_bits", "table_kernel",
-                                              "fold_c"))}
+                                              "fold_c", "fold_grid"))}
         for part in ("msm_w4_tiles", "fold_w3h", "fold_bits", "table_kernel",
-                     "fold_c_group", "fold_c_thread"):
+                     "fold_c_group", "fold_c_thread", "fold_grid_group",
+                     "fold_grid_thread"):
             assert any(part in k for k in redesigned), f"no ptxas report for {part}"
         log("ptxas " + json.dumps(redesigned))
     with Phase("gens"):

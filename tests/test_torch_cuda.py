@@ -34,6 +34,7 @@ from bulletproofs_r1cs_gadgets_tpu_torch import (
     VerificationError,
     Verifier,
     batch_verify,
+    multiscalar_mul,
     prove_provers,
     prove_provers_devices,
     scvec,
@@ -580,10 +581,11 @@ def test_niels_fold_matches_plain_on_card(cuda_device, v):
     assert cc.LAUNCHES["fold_w3h_comb"] - before["fold_w3h_comb"] == runs
 
 
-@pytest.mark.parametrize("v", [16, 24])
+@pytest.mark.parametrize("v", [16, 24, 64, 128])
 def test_windowed_msm_lane_matches_plain_on_card(cuda_device, v):
     """msm_lane over v segments of 2,048 points (the batch of 8's
-    flotilla; the reference's batch of 12): rows 0, 1, L - 1, all -8
+    flotilla; the reference's batch of 12; 64 and 128, the most a batch of
+    up to 64 provers gives): rows 0, 1, L - 1, all -8
     digits and zero rows, an all-zero segment, and the last segment
     identity-padded past two thirds with zero words as ck.flotilla_pack
     pads; then 3 segments of T + 1 points (T the tile the library picks),
@@ -699,7 +701,8 @@ def test_two_role_tables_match_plain_on_card(cuda_device):
 def test_oracle_kernels_match_plain_on_card(cuda_device):
     """The device-oracle path's eight kernels at ragged sizes (n not a
     multiple of 128 or 2048), each against its plain version on the same
-    CUDA tensors, word for word; one launch each."""
+    CUDA tensors: word for word, but the redesigned msm_block_totals,
+    msm_chunk_acc and fold_grid by group element; one launch each."""
     dev = cuda_device
     n = 2048 + 45
     pts = F.from_raw(BulletproofGens(2 * n).G_raw(2 * n), dev)
@@ -714,15 +717,15 @@ def test_oracle_kernels_match_plain_on_card(cuda_device):
     m = 300
     assert torch.equal(cc.smul_lanes(a[:m], words[:m]),
                        cc.smul_lanes_plain(a[:m], words[:m]))
-    assert torch.equal(cc.msm_block_totals(a, words),
-                       cc.msm_block_totals_plain(a, words))
-    assert torch.equal(cc.msm_chunk_acc(a, words, acc),
-                       cc.msm_chunk_acc_plain(a, words, acc))
+    assert _same_points(cc.msm_block_totals(a, words),
+                        cc.msm_block_totals_plain(a, words))
+    assert _same_points(cc.msm_chunk_acc(a, words, acc),
+                        cc.msm_chunk_acc_plain(a, words, acc))
     v = 200
     wl = ck.w2_words(_scalar_rows(v, 122), dev)
     wr = ck.const_grid_words(Scalar(L - 1), dev)
-    assert torch.equal(cc.fold_grid(pts, wl, wr, v),
-                       cc.fold_grid_plain(pts, wl, wr, v))
+    assert _same_points(cc.fold_grid(pts, wl, wr, v),
+                        cc.fold_grid_plain(pts, wl, wr, v))
     x = F.ints_to_words([0, 1, L - 1, (1 << 256) - 1] * 64)
     fa = torch.from_numpy(x.copy()).to(dev)
     fb = fa.flip(0).contiguous()
@@ -733,6 +736,114 @@ def test_oracle_kernels_match_plain_on_card(cuda_device):
         "padd": 1, "pdbl": 1, "smul_lanes": 1, "msm_block_totals": 1,
         "msm_chunk_acc": 1, "fold_grid": 1, "mul_fp": 1, "mul_fq": 1,
     }
+
+
+def _bits_value(row) -> int:
+    """Bits 252..0 of a bit word row (the bit-word MSMs read no more)."""
+    v = sum((int(w) & 0xFFFFFFFF) << (32 * j) for j, w in enumerate(row))
+    return v % (1 << 253)
+
+
+def _bit_inputs(dev, n: int, seed: int):
+    """n generators and bit words: 0, 1, L - 1 in rows 0-2, bits 253..255
+    set (not read) every 13th row from 4 and zero rows every 11th from 6."""
+    pts = F.from_raw(BulletproofGens(max(n, 1)).G_raw(max(n, 1)), dev)[:n]
+    words = ck.bit_words(_scalar_rows(max(n, 3), seed)[:n])
+    words[4::13, 7] |= -0x20000000
+    words[6::11] = 0
+    return pts.contiguous(), torch.from_numpy(words).to(dev)
+
+
+def test_bit_word_msms_match_plain_on_card(cuda_device):
+    """msm_chunk_acc (the windowed w4 MSM over bit words, recoded at the
+    tiles' load) at 0, 1, T + 1 and 3T + 5 points (T
+    the library's small tile), 8,209 and 2^14 (the path's chunk: the
+    large tile), chained on a non-identity point; msm_block_totals at 100,
+    2,048 and 2^16 + 1,000 points (one short block, one full block, 33
+    blocks with a ragged last one and an all-zero block): each by group
+    element against its plain version, and on a subset against the host
+    MSM."""
+    dev = cuda_device
+    T = build.load().bp_w4_tile(1, 1)
+    acc = F.from_points(_points(1, 190), dev)
+    before = dict(cc.LAUNCHES)
+    sizes = (0, 1, T + 1, 3 * T + 5, 8192 + 17, 1 << 14)
+    for n in sizes:
+        pts, words = _bit_inputs(dev, n, 191 + n % 1000)
+        got = cc.msm_chunk_acc(pts, words, acc)
+        assert _same_points(got, cc.msm_chunk_acc_plain(pts, words, acc)), n
+    pts, words = _bit_inputs(dev, 40, 192)
+    host = multiscalar_mul(
+        [Scalar(_bits_value(r) % L) for r in words.tolist()]
+        + [Scalar(1)], F.to_points(pts) + F.to_points(acc))
+    assert F.to_points(cc.msm_chunk_acc(pts, words, acc))[0] == host
+    totals = (100, 2048, (1 << 16) + 1000)
+    for n in totals:
+        pts, words = _bit_inputs(dev, n, 193 + n % 1000)
+        if n > 4096:
+            words[2048:4096] = 0
+        got = cc.msm_block_totals(pts, words)
+        assert got.shape == (-(-n // 2048), 4, 8)
+        assert _same_points(got, cc.msm_block_totals_plain(pts, words)), n
+        if n > 4096:
+            assert F.to_points(got[1:2])[0].is_identity()
+    ran = {k: cc.LAUNCHES[k] - before[k] for k in before}
+    assert ran["msm_chunk_acc"] == len(sizes) + 1
+    assert ran["msm_block_totals"] == len(totals)
+
+
+@pytest.mark.parametrize("blocks", [64, 128])
+def test_block_totals_over_many_blocks_on_card(cuda_device, blocks):
+    """msm_block_totals over 64 and 128 blocks of 2,048 points (128: a
+    2^18-point generator set through MsmEngine.msm), the last block
+    ragged by 7 points: by group element against its plain version, and
+    its last two totals against the host MSM."""
+    dev = cuda_device
+    n = blocks * 2048 - 7
+    pts, words = _bit_inputs(dev, n, 200 + blocks)
+    got = cc.msm_block_totals(pts, words)
+    assert _same_points(got, cc.msm_block_totals_plain(pts, words))
+    lo = (blocks - 2) * 2048
+    rows = words[lo:].tolist()
+    host = F.to_points(pts[lo:])
+    sc = [Scalar(_bits_value(r) % L) for r in rows]
+    assert F.to_points(got[-2:]) == [multiscalar_mul(sc[:2048], host[:2048]),
+                                     multiscalar_mul(sc[2048:], host[2048:])]
+
+
+@pytest.mark.parametrize("v", [1, 2048 + 3, 1 << 13, 1 << 17])
+def test_fold_grid_designs_match_plain_on_card(cuda_device, v):
+    """fold_grid at v = 1, 2,051 (a ragged last warp), 2^13 and 2^17
+    (the device-oracle path's round 1) outputs, by the library's choice
+    (group up to half a card of groups, thread past it: group at 1 and
+    2,051, thread at 2^17) and under each
+    design: per-lane words with 0, 1, L - 1 and all -2 digits (window 64's
+    borrow) in front, and the constant rows (u^-1, u); by group element
+    against the plain version, and the first lanes against the host
+    group law."""
+    dev = cuda_device
+    rng = np.random.RandomState(210)
+    pts = F.from_raw(BulletproofGens(2 * v + 1).G_raw(2 * v + 1), dev)
+    wl = ck.w2_words(_scalar_rows(max(v, 3), 211)[:v], dev)
+    wr = ck.w2_words(_scalar_rows(max(v, 3), 212)[::-1][:v].copy(), dev)
+    if v > 3:
+        wl[3] = wr[3] = -0x55555556  # 0xaaaaaaaa: every w2 digit -2
+    u = Scalar(int.from_bytes(rng.bytes(32), "little") % L)
+    const = (ck.const_grid_words(u.invert(), dev), ck.const_grid_words(u, dev))
+    design = cc.fold_grid_design(dev, v)
+    if v <= 2048 + 3 or v == 1 << 17:
+        assert design == ("thread" if v == 1 << 17 else "group"), design
+    before = cc.LAUNCHES["fold_grid"]
+    for a, b in ((wl, wr), const):
+        plain = cc.fold_grid_plain(pts, a, b, v)
+        for d in (None, *cc.FOLD_GRID_DESIGNS):
+            got = cc.fold_grid(pts, a, b, v, design=d)
+            assert _same_points(got, plain), (v, d)
+    assert cc.LAUNCHES["fold_grid"] - before == 2 * 3
+    got = F.to_points(cc.fold_grid(pts, *const, v)[:3])
+    host = F.to_points(pts[:3]) + F.to_points(pts[v : v + 3])
+    assert got == [host[i].scalar_mul(u.invert()) + host[3 + i].scalar_mul(u)
+                   for i in range(min(3, v))]
 
 
 def test_device_backend_on_card_matches_host(cuda_device):

@@ -141,6 +141,36 @@ def test_device_backend_defaults_to_the_card():
     assert DeviceBackend("cpu").device == torch.device("cpu")
 
 
+def _jax_package_exports() -> tuple[list[str], str]:
+    """The JAX package's ``__all__`` and ``__version__``, read from its
+    ``__init__.py`` with ``ast`` (nothing of it is imported)."""
+    import ast
+
+    tree = ast.parse((ROOT / "bulletproofs_r1cs_gadgets_tpu" / "__init__.py").read_text())
+    found = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1:
+            name = getattr(node.targets[0], "id", None)
+            if name in ("__all__", "__version__"):
+                found[name] = ast.literal_eval(node.value)
+    return found["__all__"], found["__version__"]
+
+
+def test_port_exports_every_top_level_name_of_the_jax_package():
+    """Every name in the JAX package's ``__all__`` is an attribute of the
+    port and in the port's ``__all__``, and ``__version__`` is the same."""
+    import bulletproofs_r1cs_gadgets_tpu_torch as bp
+
+    names, version = _jax_package_exports()
+    assert {"Variable", "LinearCombination", "errors"} <= set(names)
+    assert [n for n in names if not hasattr(bp, n)] == []
+    assert [n for n in names if n not in bp.__all__] == []
+    assert bp.__version__ == version
+    assert bp.errors.VerificationError is bp.VerificationError
+    assert bp.Variable.__module__ == \
+        "bulletproofs_r1cs_gadgets_tpu_torch.core.linear_combination"
+
+
 def test_chip_smoke_refuses_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

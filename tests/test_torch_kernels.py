@@ -249,8 +249,11 @@ def _cuh_words(name: str) -> int:
 def test_cuda_constants_match_engine():
     assert _cuh_words("FE_D2") == D2
     assert _cuh_words("FE_P") == P
-    text = (CSRC / "msm_fold.cu").read_text()
-    # fold_bits reads bits 252..0 as the TPU fold does (the top word masked
-    # to its low 29 bits before the recoding); scalars are < L
-    assert "w[7] &= 0x1fffffffu" in text and L < 1 << 253
+    # fold_bits (and the bit-word MSMs' tiles) read bits 252..0 as the TPU
+    # fold does: fold_recode, shared from ge25519_cc.cuh, masks the top word
+    # to its low 29 bits before the recoding; scalars are < L
+    recode = (CSRC / "ge25519_cc.cuh").read_text()
+    assert "w[7] &= 0x1fffffffu" in recode and L < 1 << 253
+    assert "fold_recode(wl + 8 * i" in (CSRC / "msm_fold.cu").read_text()
+    assert "fold_recode(words" in (CSRC / "win.cu").read_text()
 
