@@ -140,8 +140,9 @@ __device__ __forceinline__ fe fe_sq(const fe& a) { return fe_mul(a, a); }
 // chain (mad.lo.cc / madc.lo.cc, then madc.hi.cc), so no 64-bit adds or
 // separate carry words.  One instruction per asm statement, as carry
 // chains are written in PTX libraries: the compiler places nothing that
-// writes the carry flag between the statements of one chain.  The window
-// walkers (win.cu) use them; the other kernels keep fe_mul.
+// writes the carry flag between the statements of one chain.  Every point
+// operation (ge25519_cc.cuh) uses them; mul_fp and the multiply test entry
+// (win.cu fe_mul_test) keep fe_mul.
 namespace ptx {
 __device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
     uint32_t r;

@@ -4,12 +4,34 @@
 // half-width fold (fold_w3h.cu) and the folds of msm_fold.cu (the
 // cooperative operations at the end) build on them, and on the two scalar
 // recodes into signed base-16 digits (fold_recode, w2_recode); the formulas are
-// ge25519.cuh's, so every operation gives the same residues as its
-// out-of-line counterpart (and so the same canonical words).  A kernel
+// the JAX package's point emitters (ops/pallas_curve.py emit_point_add /
+// emit_point_double) and the host reference core/ristretto.py, operation
+// for operation, and fe_mul_cc / fe_sq_cc give fe_mul's residues, so
+// every operation gives the same canonical words as the plain versions'
+// limb arithmetic (padd / pdbl in oracle.cu rest on it).  A kernel
 // keeps one call site of each operation, or its code (and build time)
 // grows by ~1k instructions of unrolled multiplies a site.
 #pragma once
+#include <cuda_runtime.h>
+
 #include "ge25519.cuh"
+
+// The blocks of `threads` threads of `kernel` the current device holds at
+// once (occupancy query), for the kernels that size their grids from the
+// card; held caches it by device (0: not asked).
+static inline int card_blocks(const void* kernel, int threads, int* held) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int card = dev >= 0 && dev < 64 ? held[dev] : 0;
+    if (card == 0) {
+        int sms = 1, per_sm = 1;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+        card = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+        if (dev >= 0 && dev < 64) held[dev] = card;
+    }
+    return card;
+}
 
 // A point in niels form: (Y+X, Y-X, 2d*T, Z).
 struct niels {
@@ -170,7 +192,8 @@ __device__ __forceinline__ ge ge_add_niels_cc(const ge& p, const niels& q, bool 
     return r;
 }
 
-// p + q, both extended: ge_add on the carry-chain multiply (9 multiplies)
+// p + q, both extended: add-2008-hwcd-3 (unified, a = -1, with the 2d
+// constant), 9 multiplies
 __device__ __forceinline__ ge ge_add_cc(const ge& p, const ge& q) {
     fe A = fe_mul_cc(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
     fe B = fe_mul_cc(fe_add(p.Y, p.X), fe_add(q.Y, q.X));

@@ -1,19 +1,20 @@
-// Hopper kernels of the IPP folds that run Straus over 8-entry niels
-// tables: the generator fold fold_bits, the constant folds of the grid
-// rounds (fold_c, fold_c_comb) and the device-oracle path's fold
-// (fold_grid, over w2 words).  The MSMs (msm_w4, msm_w4_pair,
-// msm_lane, and msm_grid / msm_grid_local over views) are windowed and
-// live in win.cu beside the walkers whose passes they share.  Plain C
-// entry points for ctypes (ops/build.py): each launches on the caller's
-// stream, never synchronises, allocates nothing, and returns
-// cudaGetLastError().
+// Hopper kernels that run Straus over 8-entry niels tables: the generator
+// fold fold_bits, the constant folds of the grid rounds (fold_c,
+// fold_c_comb), and the device-oracle path's fold (fold_grid, over w2
+// words) and per-lane scalar multiply (smul_lanes, over bit words).  The
+// MSMs (msm_w4, msm_w4_pair, msm_lane, and msm_grid / msm_grid_local over
+// views) are windowed and live in win.cu beside the walkers whose passes
+// they share.  Plain C entry points for ctypes (ops/build.py): each
+// launches on the caller's stream, never synchronises, allocates nothing,
+// and returns cudaGetLastError().
 //
 // Layouts (row-major, int32):
 //   points  (n, 4, 8): X, Y, Z, T as eight little-endian words each, any
 //                      value below 2^256 (gens arrive canonical)
 //   words   (n, 8):    one scalar per row: raw little-endian bits
-//                      (fold_bits), a constant's signed 4-bit digits
-//                      (fold_c*: nibble e, digit e - 16 when e >= 8), or
+//                      (fold_bits, smul_lanes), a constant's signed
+//                      4-bit digits (fold_c*: nibble e, digit e - 16
+//                      when e >= 8), or
 //                      128 signed base-4 digits (fold_grid: w2 words,
 //                      digit d in [-2, 1] coded d & 3, two bits each)
 //   out points are stored canonical (every coordinate in [0, p)).
@@ -332,20 +333,10 @@ fold_c_thread(const int32_t* in, int32_t* out, const int32_t* __restrict__ words
 }
 
 // The outputs a group design's kernel (FB_THREADS threads a block, 8
-// lanes an output) holds at once on the current device; held caches it
-// by device (0: not asked).
+// lanes an output) holds at once on the current device; held caches its
+// blocks by device (0: not asked).
 static int group_outputs(const void* kernel, int* held) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    int card = dev >= 0 && dev < 64 ? held[dev] : 0;
-    if (card == 0) {
-        int sms = 1, per_sm = 1;
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FB_THREADS, 0);
-        card = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1) * (FB_THREADS / 8);
-        if (dev >= 0 && dev < 64) held[dev] = card;
-    }
-    return card;
+    return card_blocks(kernel, FB_THREADS, held) * (FB_THREADS / 8);
 }
 
 // 1 for the group design, 0 for the thread design, for `outputs` outputs.
@@ -500,6 +491,113 @@ static int fold_grid_design(long long outputs) {
                : 0;
 }
 
+// ---- smul_lanes (pallas_curve.py smul_lanes :1519, _smul_kernel :243,
+// _ladder :219): out[i] = s_i * P_i for each lane, s_i a raw bit word row
+// of which bits 252..0 are read.  The device-oracle path's proving_step
+// runs it at 2^16 lanes.  What bounds it on an H100: at 2^16 lanes 32-bit
+// integer multiplies (a table and ~250 doublings and ~60 niels adds a
+// lane); at a few thousand lanes, latency.  Design: the one-scalar case of
+// fold_bits / fold_c: each row recoded in the kernel into 64 signed
+// base-16 digits (fold_recode; the top one takes the carry, <= 2; a zero
+// row stays the identity), then Straus over an 8-entry niels table of P_i,
+// in fold_c's two designs picked by size (smul_lanes_design):
+//  - group (smul_lanes_group): fold_bits' body with one table, 8 lanes an
+//    output; the group's lane 0 recodes the row into its shared words;
+//  - thread (smul_lanes_thread): one thread a lane, the table in local
+//    memory (2P = dbl P, then t(k-1) + P), each entry copied into
+//    registers before its add, the codes in shared memory, 4 doublings a
+//    window (T on the 4th) once a digit was added.
+// The first version ran the TPU's bit ladder a thread (253 doublings and
+// 253 adds of P or the identity, out of line): ~4,300 field multiplies a
+// lane against ~2,300 here.  smul_lanes_design takes the group design
+// while the lanes are at most 1 / SL_GROUP_SHARE of the groups the card
+// holds at once (occupancy query), else the thread design.  Measured
+// (NVIDIA H100 80GB HBM3, 700.00 W; chip_profile.py --oracle, each design
+// forced): at 2,048 lanes group 0.387-0.389 ms, thread 0.81-0.82; at 4,096
+// 0.49-0.51 against 0.87-0.88; at 8,192 0.89-0.91 against 0.87-0.89 (the
+// crossover); at 2^14 1.67-1.69 against 0.86-0.88; at the path's 2^16
+// 6.28-6.37 against 3.03-3.07 (the first version 6.47-6.48 there, 2.08 at
+// 2^14).  The card holds ~14,800 groups (70 registers), so the switch sits
+// at ~7,400 lanes.  The thread design at 4 blocks an SM (119 registers)
+// ran 2% faster at 2^16 than at fold_c_thread's 3 (134 registers).
+#define SL_CODE_WORDS 9                  // a thread's code words, 8 and a pad (odd: distinct banks)
+#define SL_GROUP_WORDS (8 * 32 + 8 + 2)  // a group's table and codes (+2: spread over banks)
+#define SL_GROUP_SHARE 2                 // the group design up to this share of a card of groups
+#define SL_MIN_BLOCKS 4                  // smul_lanes_thread blocks an SM holds: <= 128 registers
+
+// Block b, group g: lane 8b + g (groups past n run lane n - 1 and store
+// nothing).
+__global__ void __launch_bounds__(FB_THREADS)
+smul_lanes_group(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
+                 int32_t* __restrict__ out, int n) {
+    __shared__ uint32_t tables[(FB_THREADS / 8) * SL_GROUP_WORDS];
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int h = (lane >> 2) & 1;
+    const int j = lane & 7;
+    const int base = lane & ~7;
+    const long long i0 = (long long)blockIdx.x * (FB_THREADS / 8) + (threadIdx.x >> 3);
+    const bool live = i0 < n;
+    const long long i = live ? i0 : n - 1;
+    uint32_t* tbl = tables + (threadIdx.x >> 3) * SL_GROUP_WORDS;
+    uint32_t* code = tbl + 8 * 32;
+    if (j == 0) fold_recode(words + 8 * i, code);
+    coop_table(tbl, pts + 32 * i, q, h, j, base);
+    coop_to_niels(tbl, 8, q, h);
+    const ge acc = coop_straus(tbl, code, 1, q, h, base);
+    if (live) coop_store(out + 32 * i, acc, j);
+}
+
+// Thread i: lane i.
+__global__ void __launch_bounds__(FC_THREADS, SL_MIN_BLOCKS)
+smul_lanes_thread(const int32_t* __restrict__ pts, const int32_t* __restrict__ words,
+                  int32_t* __restrict__ out, int n) {
+    __shared__ uint32_t csh[FC_THREADS * SL_CODE_WORDS];
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    uint32_t* code = csh + threadIdx.x * SL_CODE_WORDS;
+    fold_recode(words + 8 * i, code);
+    niels tbl[8];  // (k + 1) P: local memory (indexed by digits)
+    ge x;
+#pragma unroll 1
+    for (int k = 0; k < 8; ++k) {
+        if (k == 0) {
+            x = ge_load(pts + 32 * i);
+        } else if (k == 1) {
+            x = ge_double_cc(x, true);
+        } else {
+            const niels nP = tbl[0];
+            x = ge_add_niels_cc(x, nP, false);
+        }
+        tbl[k] = ge_to_niels_cc(x);
+    }
+    ge acc = ge_identity();
+    bool started = false;
+#pragma unroll 1
+    for (int pos = 63; pos >= 0; --pos) {
+        if (started) {
+#pragma unroll 1
+            for (int d = 0; d < 4; ++d) acc = ge_double_cc(acc, d == 3);
+        }
+        const uint32_t c = (code[pos >> 3] >> (4 * (pos & 7))) & 15u;
+        if (c) {
+            const bool neg = c >= 8u;  // code 8 is the digit -8: entry 8P negated
+            const niels e = tbl[(neg ? 16 - c : c) - 1];  // into registers
+            acc = ge_add_niels_cc(acc, e, neg);
+            started = true;
+        }
+    }
+    ge_store(out + 32 * i, acc);
+}
+
+// 1 for the group design, 0 for the thread design, for n lanes.
+static int smul_lanes_design(long long n) {
+    static int held[64];
+    return n * SL_GROUP_SHARE <= (long long)group_outputs((const void*)smul_lanes_group, held)
+               ? 1
+               : 0;
+}
+
 extern "C" {
 
 // Makes `device` current for this library's CUDA runtime, which is linked
@@ -555,6 +653,26 @@ int bp_fold_grid(const int32_t* pts, const int32_t* wl, const int32_t* wr, int32
         else
             fold_grid_thread<<<(v + FC_THREADS - 1) / FC_THREADS, FC_THREADS, 0, s>>>(
                 pts, wl, wr, out, v, wl_stride, wr_stride);
+    }
+    return (int)cudaGetLastError();
+}
+
+// smul_lanes' design on the current device for n lanes: 1 group, 0 thread.
+int bp_smul_lanes_design(int n) { return smul_lanes_design(n); }
+
+// out (n, 4, 8): out[i] = s_i * P_i, s_i from bit words (n, 8) (bits
+// 253..255 not read).  design: 1 group, 0 thread, -1 by size.
+int bp_smul_lanes(const int32_t* pts, const int32_t* words, int32_t* out, int n, int design,
+                  void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n > 0) {
+        if (design < 0) design = smul_lanes_design(n);
+        if (design)
+            smul_lanes_group<<<(n + FB_THREADS / 8 - 1) / (FB_THREADS / 8), FB_THREADS, 0, s>>>(
+                pts, words, out, n);
+        else
+            smul_lanes_thread<<<(n + FC_THREADS - 1) / FC_THREADS, FC_THREADS, 0, s>>>(
+                pts, words, out, n);
     }
     return (int)cudaGetLastError();
 }

@@ -105,7 +105,7 @@ struct walks2 {
 // the TPU kernels' sequence (2P = dbl P, odd multiples t(k-1) + P, even
 // ones doubled from t(k/2)) and stored in niels form with canonical
 // words, so the words equal the plain version's (the carry-chain
-// operations compute the same residues as ge_add / ge_double).  What
+// operations compute the plain version's residues).  What
 // bounds it on an H100: the 32-bit multiplies of ~TBL point operations a
 // point (0.13 ms at 2^18 w4 points against 0.09 ms for its 302 MB of
 // stores).  Design: two threads a point, four warps a role, 128 points a block;

@@ -62,7 +62,8 @@ SIGNATURES = {
     "bp_fold_c_comb": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "bp_padd": [_VP, _VP, _VP, _I, _VP],
     "bp_pdbl": [_VP, _VP, _I, _VP],
-    "bp_smul_lanes": [_VP, _VP, _VP, _I, _VP],
+    "bp_smul_lanes_design": [_I],
+    "bp_smul_lanes": [_VP, _VP, _VP, _I, _I, _VP],
     "bp_msm_block_totals": [_VP] * 5 + [_I, _VP],
     "bp_msm_chunk_acc": [_VP] * 6 + [_I, _VP],
     "bp_fold_grid_design": [_I],

@@ -176,23 +176,31 @@ not rest on the words past the valid span being zero.
 
 The device-oracle path's kernels (callers in
 ``ops/{field,curve,msm,backend,poseidon}.py`` and ``parallel/pipeline.py``)
-take any n, not only the TPU's multiples of 2048.  Those of
-``csrc/oracle.cu`` run the TPU kernels' own operation sequence, the
-identity doubled and added like any point, so the kernel and its plain
-version agree word for word; the MSMs and the fold are redesigned:
+take any n, not only the TPU's multiples of 2048.  ``padd``, ``pdbl``,
+``mul_fp`` and ``mul_fq`` agree with their plain versions word for word;
+the redesigned scalar multiply, MSMs and fold add in another order and
+agree as group elements:
 
 ``padd`` / ``pdbl`` replace ``pallas_curve.padd`` / ``pdbl`` (:176 / :190,
 ``_padd_kernel`` :163, ``_pdbl_kernel`` :167): pointwise add and doubling.
-Bound: memory (384 / 256 B per point moved for 9 / 8 field multiplies).
-Design: one thread per point, ``ge_add`` / ``ge_double`` and a canonical
-store.
+Bound: bytes and multiplies nearly alike (384 / 256 B per point moved for
+9 / 8 field multiplies).  Design (``csrc/oracle.cu``): one templated
+kernel, one thread per point on the inlined carry-chain ``ge_add_cc`` /
+``ge_double_cc`` (the same formulas, so the same canonical words as the
+plain versions), tiles of 128 points staged through shared memory for
+16-byte coalesced loads and stores, a grid of the card's resident blocks
+striding over the tiles.
 
 ``smul_lanes`` replaces ``pallas_curve.smul_lanes`` (:1519, ``_smul_kernel``
-:243, ``_ladder`` :219): s_i * P_i per lane by the bit-serial ladder over
-bits 252..0.  Bound: integer multiplies (253 doublings and 253 adds per
-point; the bound counts the ones the data needs, from each scalar's top
-bit).  Design: one thread per point runs the ladder (``ladder_bits``, the
-template of the next two) and stores its point.
+:243, ``_ladder`` :219): s_i * P_i per lane, s_i bits 252..0 of a bit
+word row.  Bound: integer multiplies (the windowed ladder's ~250
+doublings and ~60 adds per lane; the TPU's bit ladder, 253 doublings and
+253 adds, was the first version's work).  Design (``csrc/msm_fold.cu``):
+each row recoded in the kernel into 64 signed base-16 digits
+(``fold_recode``), then Straus over an 8-entry niels table of P_i, in
+``fold_c``'s two designs picked by size (``bp_smul_lanes_design``;
+``design=`` forces one): ``group``, 8 lanes an output, and ``thread``, one
+thread a lane with its table in local memory.
 
 ``msm_chunk_acc`` replaces ``pallas_curve.msm_chunk_acc`` (:279,
 ``_smul_acc_kernel`` :269): acc + sum_i s_i * P_i over any n, the scalars
@@ -869,6 +877,7 @@ def fold_w3h_comb(points: torch.Tensor, words: torch.Tensor, bp: int
 
 FOLD_C_DESIGNS = ("thread", "group")  # csrc/msm_fold.cu's designs, by number
 FOLD_GRID_DESIGNS = FOLD_C_DESIGNS  # fold_grid's: the same two, numbered alike
+SMUL_LANES_DESIGNS = FOLD_C_DESIGNS  # smul_lanes': the same two, numbered alike
 
 
 def _design_number(name: str, designs: tuple, design: str | None) -> int:
@@ -886,13 +895,20 @@ def _fold_c_design(design: str | None) -> int:
     return _design_number("fold_c", FOLD_C_DESIGNS, design)
 
 
+def _library_design(name: str, designs: tuple, dev: torch.device,
+                    outputs: int) -> str:
+    """The design the library picks for kernel `name` on card `dev` for
+    `outputs` outputs (its ``bp_<name>_design`` entry)."""
+    lib = build.load()
+    with torch.cuda.device(dev):
+        build.check(lib.bp_set_device(dev.index), f"{name} design (set device)")
+        return designs[getattr(lib, f"bp_{name}_design")(outputs)]
+
+
 def fold_c_design(dev: torch.device, outputs: int) -> str:
     """The design the constant folds take on card `dev` for `outputs`
     outputs (v, or 2v for ``fold_c_comb``)."""
-    lib = build.load()
-    with torch.cuda.device(dev):
-        build.check(lib.bp_set_device(dev.index), "fold_c design (set device)")
-        return FOLD_C_DESIGNS[lib.bp_fold_c_design(outputs)]
+    return _library_design("fold_c", FOLD_C_DESIGNS, dev, outputs)
 
 
 def fold_c(points: torch.Tensor, words: torch.Tensor, bp: int,
@@ -935,8 +951,8 @@ def pdbl_plain(a) -> torch.Tensor:
 
 def ladder_bits_plain(pts: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     """Per point s * P by the bit ladder over bits 252..0: double, then add
-    P where the bit is set and the identity where not (the kernel's and
-    the TPU's sequence).  (n, 4, 16) limbs in and out."""
+    P where the bit is set and the identity where not (the TPU's sequence,
+    and the first kernels').  (n, 4, 16) limbs in and out."""
     n = pts.shape[0]
     ident = C.identity(n, pts.device)
     w = words.to(torch.int64) & 0xFFFFFFFF
@@ -1057,18 +1073,27 @@ def pdbl(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def smul_lanes(points: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+def smul_lanes_design(dev: torch.device, n: int) -> str:
+    """The design ``smul_lanes`` takes on card `dev` for n lanes."""
+    return _library_design("smul_lanes", SMUL_LANES_DESIGNS, dev, n)
+
+
+def smul_lanes(points: torch.Tensor, words: torch.Tensor,
+               design: str | None = None) -> torch.Tensor:
     """(n, 4, 8): row i = s_i * points_i, s_i from bit words (n, 8) (bits
-    253..255 are not read)."""
+    253..255 are not read).  `design` (``"thread"`` / ``"group"``, for
+    measurements) overrides the library's choice by size; the points are
+    the same either way."""
     dev = points.device
     n = points.shape[0]
     _check(points, "points", (n, 4, 8), dev)
     _check(words, "words", (n, 8), dev)
+    number = _design_number("smul_lanes", SMUL_LANES_DESIGNS, design)
     if _route(dev) == "plain":
         return smul_lanes_plain(points, words)
     out = torch.empty((n, 4, 8), dtype=torch.int32, device=dev)
     _launch("smul_lanes", dev, "bp_smul_lanes", _ptr(points), _ptr(words),
-            _ptr(out), n)
+            _ptr(out), n, number)
     return out
 
 
@@ -1109,10 +1134,7 @@ def msm_chunk_acc(points: torch.Tensor, words: torch.Tensor,
 
 def fold_grid_design(dev: torch.device, v: int) -> str:
     """The design ``fold_grid`` takes on card `dev` for v outputs."""
-    lib = build.load()
-    with torch.cuda.device(dev):
-        build.check(lib.bp_set_device(dev.index), "fold_grid design (set device)")
-        return FOLD_GRID_DESIGNS[lib.bp_fold_grid_design(v)]
+    return _library_design("fold_grid", FOLD_GRID_DESIGNS, dev, v)
 
 
 def fold_grid(points: torch.Tensor, wl: torch.Tensor, wr: torch.Tensor,

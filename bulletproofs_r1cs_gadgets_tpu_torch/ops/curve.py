@@ -222,9 +222,9 @@ def bits_to_words(bits: torch.Tensor) -> torch.Tensor:
 
 def scalar_mul_bits(points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Per-point scalar multiplication: points (N, 4, 8), bits (N, nbits)
-    LSB-first, nbits <= 253.  One ``smul_lanes`` launch: the bit ladder over
-    bits 252..0 (the JAX package scans nbits bits; the group elements are
-    the same)."""
+    LSB-first, nbits <= 253.  One ``smul_lanes`` launch over bits 252..0
+    (the JAX package's bit ladder scans nbits bits; the kernel runs a
+    windowed ladder: the group elements are the same)."""
     return cc.smul_lanes(points.contiguous(), bits_to_words(bits))
 
 

@@ -10,8 +10,8 @@ real flagship primitives:
   folds each proof's leaf up its path with ``DevicePoseidon.hash_2``, with
   the cube S-box as in the reference (the proving stack itself runs the
   inverse S-box end to end);
-* partial MSM: a commitment partial, the ``smul_lanes`` ladder per point
-  and a ``padd`` halving tree.
+* partial MSM: a commitment partial, one ``smul_lanes`` scalar multiply
+  per point and a ``padd`` halving tree.
 
 ``__graft_entry__.entry`` returns the JAX package's version of this step.
 """

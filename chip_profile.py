@@ -80,9 +80,16 @@ composition, pair; equal results); then the device-oracle kernels as
 
     python3 chip_profile.py --oracle [--out oracle.json]
 
-times the device-oracle path's redesigned kernels through their wrappers
-only: ``msm_chunk_acc`` at 2^14 (the path's chunk) and 143,704 points,
-``msm_block_totals`` at 2^16 + 1,000 points, ``fold_grid`` at 2^17,
+times the device-oracle path's kernels through their wrappers only:
+``padd`` / ``pdbl`` at 1, 2^10, 2^14 and 2^18 points (CUDA events a call,
+the profiler's device time a launch, and the wrapper's wall time a call
+over back-to-back calls), ``smul_lanes`` at the path's 2^16 lanes, at
+2^14 and at 12,288, 2^13, 4,096 and 2,048 (around its designs'
+crossover), ``scalar_mul_shared`` over 2^14 points (phase 10 (d)): five
+calls' wall, then three ``torch.profiler`` traces (wall, device time,
+idle share, device time by kernel), ``msm_chunk_acc`` at 2^14 (the
+path's chunk) and 143,704 points, ``msm_block_totals`` at 2^16 + 1,000
+points, ``fold_grid`` at 2^17,
 2^14, 12,288, 2^13 and 2,048 outputs with per-lane words and with
 constant rows (by the library's choice, and under each design where the
 wrapper takes ``design``); then the depth-253 proof of
@@ -116,6 +123,10 @@ FOLD_C_OUTPUTS = tuple(1 << k for k in (11, 13, 14, 15, 17))  # fold_c shapes
 # fold_grid outputs: the oracle IPP's rounds 1, 4, 5 and 7, and 12,288 (the
 # designs' crossover)
 GRID_OUTPUTS = (1 << 17, 1 << 14, 12288, 1 << 13, 2048)
+POINTWISE_N = (1, 1 << 10, 1 << 14, 1 << 18)  # padd / pdbl points
+# smul_lanes lanes: the path's 2^16, phase 2's 2^14, and sizes around the
+# designs' crossover
+SMUL_LANES = (1 << 16, 1 << 14, 12288, 1 << 13, 4096, 2048)
 
 
 def device_time_ms(prof, torch) -> tuple[float, dict]:
@@ -349,9 +360,7 @@ def kernels(bp, torch, cs, cc, ck, F, gens) -> dict:
     def rand_const():
         return bp.Scalar(int.from_bytes(rng.bytes(32), "little") % L)
 
-    designs = [None]  # the library's choice; then each design, where taken
-    if "design" in inspect.signature(cc.fold_c).parameters:
-        designs += list(cc.FOLD_C_DESIGNS)
+    designs = designs_of(cc.fold_c, cc.FOLD_C_DESIGNS)
     for v in FOLD_C_OUTPUTS:
         Gv = G[: 2 * v]
         cw = ck.c_fold_words([(rand_const(), rand_const())], dev)
@@ -370,21 +379,80 @@ def kernels(bp, torch, cs, cc, ck, F, gens) -> dict:
     return dict(kernels_ms=ms)
 
 
+def designs_of(fn, names) -> list:
+    """[None] (the library's choice by size), then each of `names` if the
+    wrapper `fn` takes ``design`` (an older tree's may not)."""
+    if "design" in inspect.signature(fn).parameters:
+        return [None, *names]
+    return [None]
+
+
 def oracle_kernels(bp, torch, cs, cc, ck, F, gens) -> dict:
-    """The device-oracle path's MSMs and fold at their path's shapes over
-    random scalars (cs.time_ms, ms a call), fold_grid by the library's
-    choice and under each design where the wrapper takes one."""
+    """The device-oracle path's kernels at their path's shapes over
+    random scalars (cs.time_ms, ms a call): padd / pdbl at POINTWISE_N
+    points (with the profiler's device ms a launch and the wrapper's wall
+    ms a call beside each), smul_lanes at SMUL_LANES, the MSMs, fold_grid
+    (smul_lanes and fold_grid by the library's choice and under each
+    design where the wrapper takes one), and scalar_mul_shared over 2^14
+    points (phase 10 (d)): five calls' wall, then three in torch.profiler
+    traces (wall, device time, idle share)."""
     import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import curve as C
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(cs.SEED + 11)
     N, L = cs.GENS_N, bp.L
     G = F.from_raw(gens.G_raw(N), dev)
+    H = F.from_raw(gens.H_raw(N), dev)
     ms = {}
 
     def timed(name, fn, reps=10):
         ms[name] = cs.time_ms(torch, fn, reps)
         print(f"  {name}: {ms[name]:.3f} ms", flush=True)
+
+    def wall_per_call(fn, calls):
+        def run():
+            for _ in range(calls):
+                fn()
+
+        fn()
+        return 1000 * wall_s(torch, run) / calls
+
+    for n in POINTWISE_N:
+        a, b = G[:n], H[:n]
+        for name, fn in (("padd", lambda: cc.padd(a, b)),
+                         ("pdbl", lambda: cc.pdbl(a))):
+            key = f"{name} {n}"
+            timed(key, fn, 20 if n > 1 << 14 else 200)
+            ms[f"{key} device"] = max(cs.kernel_ms(torch, fn, 20).values())
+            ms[f"{key} wall"] = wall_per_call(fn, 20 if n > 1 << 14 else 200)
+            print(f"  {key}: device {ms[key + ' device']:.4f} ms, wall "
+                  f"{ms[key + ' wall']:.4f} ms a call", flush=True)
+    rows = cs.random_scalar_rows(bp, max(SMUL_LANES), rng)
+    bits_all = torch.from_numpy(ck.bit_words(rows)).to(dev)
+    for n in SMUL_LANES:
+        Gn, wn = G[:n], bits_all[:n]
+        # smul_lanes' design names are fold_c's (an older tree lacks its own)
+        for d in designs_of(cc.smul_lanes, cc.FOLD_C_DESIGNS):
+            kw = {} if d is None else dict(design=d)
+            timed(f"smul_lanes {n} {d or 'auto'}",
+                  lambda: cc.smul_lanes(Gn, wn, **kw), 5)
+    k = int.from_bytes(rng.bytes(32), "little") % L
+    pts = G[: cs.SMUL_N]
+    C.scalar_mul_shared(pts, k)
+    before = dict(cc.LAUNCHES)
+    shared = [profiled(torch, lambda: C.scalar_mul_shared(pts, k)) for _ in range(3)]
+    launches = sum(cc.LAUNCHES[x] - before[x] for x in ("padd", "pdbl")) // 3
+    ms["scalar_mul_shared"] = dict(
+        launches=launches,
+        unprofiled_wall_ms=[1000 * wall_s(torch, lambda: C.scalar_mul_shared(pts, k))
+                            for _ in range(5)],
+        wall_ms=[r["wall_ms"] for r in shared],
+        device_ms=[r["device_ms"] for r in shared],
+        idle_share=[r["idle_share"] for r in shared], by_kernel=shared[-1]["by_kernel"])
+    print(f"  scalar_mul_shared {cs.SMUL_N}: {json.dumps(ms['scalar_mul_shared'])}",
+          flush=True)
 
     acc = F.from_points([bp.PedersenGens.default().B], dev)
     rows = cs.random_scalar_rows(bp, N, rng)
@@ -400,9 +468,7 @@ def oracle_kernels(bp, torch, cs, cc, ck, F, gens) -> dict:
     wl_all, wr_all = ck.w2_words(sl, dev), ck.w2_words(sr, dev)
     u = bp.Scalar(int.from_bytes(rng.bytes(32), "little") % L)
     ci, cu = ck.const_grid_words(u.invert(), dev), ck.const_grid_words(u, dev)
-    designs = [None]  # the library's choice; then each design, where taken
-    if "design" in inspect.signature(cc.fold_grid).parameters:
-        designs += list(cc.FOLD_GRID_DESIGNS)
+    designs = designs_of(cc.fold_grid, cc.FOLD_GRID_DESIGNS)
     for v in GRID_OUTPUTS:
         Gv = G[: 2 * v]
         wl, wr = wl_all[:v], wr_all[:v]

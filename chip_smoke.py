@@ -52,7 +52,8 @@ non-zero and prints no result):
    143,704 generators at offset 0 and 2048; msm_grid_local over one
    phase-8 shard, 32 chunks = 65,536 generators, at 32, 7 and 0 valid
    chunks; the device-oracle path's kernels: padd / pdbl over 2^18
-   points, smul_lanes over 2^14 points x 253 bits, msm_block_totals over
+   points (and timed at 2^14), smul_lanes over the path's 2^16 and over
+   2^14 points x 253 bits under both designs, msm_block_totals over
    2^16 + 1000 points (a ragged last block, an all-zero block),
    msm_chunk_acc over 143,704 points and over the path's 2^14 with a
    nonzero acc, fold_grid from 2^18 into 2^17 with per-lane words (the edge scalars 0,
@@ -62,8 +63,8 @@ non-zero and prints no result):
    multiplication or Python ints.  Tolerance: exact (the same group
    elements, ``point_err`` 0: the windowed MSM and the niels fold add in
    another order than their plain versions, and so do msm_lane, fold_c*,
-   the oracle MSMs and fold_grid; equal table words; equal words for the
-   other device-oracle kernels).  Every walk of the window
+   smul_lanes, the oracle MSMs and fold_grid; equal table words; equal
+   words for the other device-oracle kernels).  Every walk of the window
    walkers (msm_win5, msm_win_pair, msm_win) and of the windowed w4 MSM
    (msm_w4, msm_w4_pair, msm_grid, msm_grid_local, which end in the
    walkers' Horner) is timed, and split into its Horner tail (the
@@ -168,7 +169,9 @@ also gives its time over 24 segments (``ms_24``), and fold_c its
 design and its record at 2048 outputs (``*_2048``: padded n = 4096's
 round 1 on the default route) and each design's time at both shapes
 (``design_ms``); msm_chunk_acc its record at the path's 2^14 points
-(``*_16384``); fold_grid its design, constant rows' times
+(``*_16384``); padd / pdbl their times at 2^14 points (``ms_16384``);
+smul_lanes its design, each design's time and its record at 2^14 lanes
+(``design_ms``, ``*_16384``); fold_grid its design, constant rows' times
 (``const_ms``), each design's time and its records at 2,048 and 2^13
 outputs (``design_ms``, ``*_2048``, ``*_8192``);
 fold_bits gives its chain floor, ``chain_ops`` dependent cooperative
@@ -201,7 +204,7 @@ SOURCES = {
     "fold_c": _W4, "fold_c_comb": _W4, "msm_win": _WIN,
     "msm_grid": _WIN,  # launches msm_w4's kernels over a view
     "msm_grid_local": _WIN,  # msm_w4's kernels over one shard's live prefix
-    "padd": _OR, "pdbl": _OR, "smul_lanes": _OR,
+    "padd": _OR, "pdbl": _OR, "smul_lanes": _W4,
     "msm_block_totals": _WIN,  # the windowed w4 MSM over bit words
     "msm_chunk_acc": _WIN, "fold_grid": _W4, "mul_fp": _OR, "mul_fq": _OR,
 }
@@ -2319,7 +2322,7 @@ def phase_stream(bp, torch, cc, gens, params, tree, circuit):
 
 # ---- the device-oracle path's kernels (phase 2) and the path (phase 10)
 ORACLE_PTS = 1 << 18  # padd / pdbl points
-SMUL_N = 1 << 14  # smul_lanes points (x 253 bits)
+SMUL_N = 1 << 14  # smul_lanes' second shape; phase 10 (d)'s scalar_mul_shared points
 TOTALS_N = (1 << 16) + 1000  # msm_block_totals: 33 blocks, the last ragged
 GRID_V = (2048, 1 << 13)  # fold_grid outputs of the device-oracle IPP's rounds 7 and 5
 FIELD_N = 1 << 20  # mul_fq / mul_fp elements
@@ -2373,11 +2376,13 @@ def fold_w2_ops(wl, wr) -> dict:
 
 def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
     """The device-oracle path's eight kernels at its shapes, each exactly
-    against its plain version (equal words; the redesigned
+    against its plain version (equal words; the redesigned smul_lanes,
     msm_block_totals, msm_chunk_acc and fold_grid by group element,
     ``point_err``), and on subsets against the host group law, MSM or
-    Python ints: padd / pdbl over 2^18 points, smul_lanes over 2^14 points
-    x 253 bits, msm_block_totals over 2^16 + 1000 points (a ragged last
+    Python ints: padd / pdbl over 2^18 points (timed at 2^14 too),
+    smul_lanes over the path's 2^16 and over 2^14 points x 253 bits under
+    both designs (edge rows 0, 1, L - 1, 2^253 - 1 and bits 253..255
+    set), msm_block_totals over 2^16 + 1000 points (a ragged last
     block, an all-zero block), msm_chunk_acc over 143,704 points and over
     the path's 2^14 with a nonzero acc, fold_grid from 2^18 into 2^17 (per-lane words with the
     edge scalars 0, 1, L - 1; then constant rows) and at 2,048 and 2^13
@@ -2408,7 +2413,7 @@ def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
         assert err == 0, f"{name} != plain (err {err})"
         return err, plain_ms
 
-    # ---- padd / pdbl over 2^18 points
+    # ---- padd / pdbl over 2^18 points, timed at 2^14 too
     n = ORACLE_PTS
     got = cc.padd(G, H)
     assert F.to_points(got[:64]) == [a + b for a, b in zip(hostG, hostH)]
@@ -2418,22 +2423,45 @@ def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
     assert F.to_points(got[:64]) == [a.double() for a in hostG]
     record("pdbl", got, lambda: cc.pdbl_plain(G), lambda: cc.pdbl(G), 20,
            dict(dbl=n), 2 * n * 128)
+    m = SMUL_N
+    Gm, Hm = G[:m], H[:m]
+    records["padd"][f"ms_{m}"] = time_ms(torch, lambda: cc.padd(Gm, Hm), 50)
+    records["pdbl"][f"ms_{m}"] = time_ms(torch, lambda: cc.pdbl(Gm), 50)
 
-    # ---- smul_lanes over 2^14 points x 253 bits
-    n = SMUL_N
-    rows = random_scalar_rows(bp, n, rng)
+    # ---- smul_lanes over the path's 2^16 lanes and over 2^14, each under
+    # both designs: edge rows 0, 1, L - 1, 2^253 - 1, bits 253..255 set
+    smul = {}
+    rows = random_scalar_rows(bp, ORACLE_MSM_N, rng)
     rows[:3] = bp.scvec.from_ints([0, 1, L - 1])
-    words = ck.bit_words(rows)
+    words = ck.bit_words(rows).copy()  # bit_words is a view of rows
     words[3] = np.frombuffer(((1 << 253) - 1).to_bytes(32, "little"), "<i4")
-    w = torch.from_numpy(words).to(dev)
-    pts = G[:n]
-    got = cc.smul_lanes(pts, w)
-    want = [p.scalar_mul(bp.Scalar(decode_bits(r) % L))
+    words[4, 7] |= np.int32(-0x20000000)  # bits 253..255: not read
+    w_all = torch.from_numpy(words).to(dev)
+    for n in (ORACLE_MSM_N, SMUL_N):
+        w, pts = w_all[:n], G[:n]
+        got = cc.smul_lanes(pts, w)
+        err, plain_ms = by_point("smul_lanes", got,
+                                 lambda: cc.smul_lanes_plain(pts, w))
+        for d in cc.SMUL_LANES_DESIGNS:
+            e = point_err(F, cc.smul_lanes(pts, w, design=d), got, P)
+            assert e == 0, f"smul_lanes {n} {d} != plain (err {e})"
+        ops, _, _ = fold_bits_ops(words[:n], np.zeros_like(words[:n]))
+        ladder, _ = bit_ladder_ops(words[:n])
+        smul[n] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: cc.smul_lanes(pts, w), 5),
+            plain_ms=plain_ms, design=cc.smul_lanes_design(dev, n),
+            design_ms={d: time_ms(torch, lambda: cc.smul_lanes(pts, w, design=d), 5)
+                       for d in cc.SMUL_LANES_DESIGNS},
+            **bounds(ops, ladder, n * (2 * 128 + 32)))
+        log(f"  smul_lanes {n} lanes ({smul[n]['design']}): {smul[n]['ms']:.3f} ms, "
+            f"designs {smul[n]['design_ms']}, plain {plain_ms:.1f} ms")
+    want = [p.scalar_mul(bp.Scalar(decode_bits(r) % (1 << 253) % L))
             for p, r in zip(hostG[:16], words[:16])]
-    assert F.to_points(got[:16]) == want, "smul_lanes != host"
-    ops, _ = bit_ladder_ops(words)
-    record("smul_lanes", got, lambda: cc.smul_lanes_plain(pts, w),
-           lambda: cc.smul_lanes(pts, w), 5, ops, n * (2 * 128 + 32))
+    assert F.to_points(cc.smul_lanes(G[:16], w_all[:16])) == want, "smul_lanes != host"
+    records["smul_lanes"] = dict(
+        smul[ORACLE_MSM_N], **{f"{k}_{SMUL_N}": v for k, v in smul[SMUL_N].items()
+                               if k in ("ms", "plain_ms", "design", "design_ms",
+                                        "bound_ms", "bound_ladder_ms")})
 
     # ---- msm_block_totals over 2^16 + 1000 points: 33 blocks, the last
     # ragged, block 1 all zero
@@ -2746,10 +2774,12 @@ def main() -> int:
         redesigned = {k: v for k, v in build.report().items()
                       if any(s in k for s in ("win", "msm_w4", "fold_w3h",
                                               "fold_bits", "table_kernel",
-                                              "fold_c", "fold_grid"))}
+                                              "fold_c", "fold_grid",
+                                              "pointwise", "smul_lanes"))}
         for part in ("msm_w4_tiles", "fold_w3h", "fold_bits", "table_kernel",
                      "fold_c_group", "fold_c_thread", "fold_grid_group",
-                     "fold_grid_thread"):
+                     "fold_grid_thread", "pointwise_kernel",
+                     "smul_lanes_group", "smul_lanes_thread"):
             assert any(part in k for k in redesigned), f"no ptxas report for {part}"
         log("ptxas " + json.dumps(redesigned))
     with Phase("gens"):

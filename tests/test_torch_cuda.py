@@ -47,6 +47,7 @@ from bulletproofs_r1cs_gadgets_tpu_torch.ops import torch_backend as tb
 from bulletproofs_r1cs_gadgets_tpu_torch.parallel.sharded_fast import (
     ShardedWalkMsm,
 )
+from test_torch_smul_pointwise import pointwise_inputs
 from test_torch_walker import host_walk
 
 pytestmark = pytest.mark.cuda
@@ -701,8 +702,9 @@ def test_two_role_tables_match_plain_on_card(cuda_device):
 def test_oracle_kernels_match_plain_on_card(cuda_device):
     """The device-oracle path's eight kernels at ragged sizes (n not a
     multiple of 128 or 2048), each against its plain version on the same
-    CUDA tensors: word for word, but the redesigned msm_block_totals,
-    msm_chunk_acc and fold_grid by group element; one launch each."""
+    CUDA tensors: word for word, but the redesigned smul_lanes,
+    msm_block_totals, msm_chunk_acc and fold_grid by group element; one
+    launch each."""
     dev = cuda_device
     n = 2048 + 45
     pts = F.from_raw(BulletproofGens(2 * n).G_raw(2 * n), dev)
@@ -715,8 +717,8 @@ def test_oracle_kernels_match_plain_on_card(cuda_device):
     assert torch.equal(cc.padd(a, b), cc.padd_plain(a, b))
     assert torch.equal(cc.pdbl(a), cc.pdbl_plain(a))
     m = 300
-    assert torch.equal(cc.smul_lanes(a[:m], words[:m]),
-                       cc.smul_lanes_plain(a[:m], words[:m]))
+    assert _same_points(cc.smul_lanes(a[:m], words[:m]),
+                        cc.smul_lanes_plain(a[:m], words[:m]))
     assert _same_points(cc.msm_block_totals(a, words),
                         cc.msm_block_totals_plain(a, words))
     assert _same_points(cc.msm_chunk_acc(a, words, acc),
@@ -736,6 +738,61 @@ def test_oracle_kernels_match_plain_on_card(cuda_device):
         "padd": 1, "pdbl": 1, "smul_lanes": 1, "msm_block_totals": 1,
         "msm_chunk_acc": 1, "fold_grid": 1, "mul_fp": 1, "mul_fq": 1,
     }
+
+
+@pytest.mark.parametrize("n", [1, 129, (1 << 18) + 77])
+def test_pointwise_ops_match_plain_on_card(cuda_device, n):
+    """padd / pdbl at 1, 129 (a ragged second tile) and 2^18 + 77 points
+    (past a card of resident blocks: the grid strides), on coordinates in
+    [p, 2^256) with the identity and a point plus its negation among the
+    rows: word for word against the plain versions, which give the
+    canonical inputs' words; the first rows against the host group law."""
+    dev = cuda_device
+    a, b, a2, b2 = pointwise_inputs(n, 860 + n % 1000)
+    a, b, a2, b2 = (t.to(dev) for t in (a, b, a2, b2))
+    before = dict(cc.LAUNCHES)
+    add, dbl = cc.padd(a2, b2), cc.pdbl(a2)
+    assert torch.equal(add, cc.padd_plain(a2, b2))
+    assert torch.equal(dbl, cc.pdbl_plain(a2))
+    assert torch.equal(add, cc.padd(a, b)) and torch.equal(dbl, cc.pdbl(a))
+    k = min(n, 8)
+    ha, hb = F.to_points(a[:k]), F.to_points(b[:k])
+    assert F.to_points(add[:k]) == [x + y for x, y in zip(ha, hb)]
+    assert F.to_points(dbl[:k]) == [x.double() for x in ha]
+    if n > 2:
+        assert F.to_points(add[2:3])[0].is_identity()
+    ran = {k: cc.LAUNCHES[k] - before[k] for k in before}
+    assert {k: v for k, v in ran.items() if v} == {"padd": 2, "pdbl": 2}
+
+
+@pytest.mark.parametrize("n", [0, 1, 33, 1 << 13, 1 << 16])
+def test_smul_lanes_designs_match_plain_on_card(cuda_device, n):
+    """smul_lanes at 0, 1, 33, 2^13 and 2^16 lanes (the device-oracle
+    path's proving_step), by the library's choice and under each design,
+    over bit words with 0, 1, L - 1 and 2^253 - 1 in front, bits 253..255
+    set (not read) and zero rows: by group element against the plain
+    version (the bit ladder), and the first lanes against the host scalar
+    multiply."""
+    dev = cuda_device
+    pts, words = _bit_inputs(dev, n, 230 + n % 1000)
+    if n > 3:
+        words[3] = torch.from_numpy(
+            np.frombuffer(((1 << 253) - 1).to_bytes(32, "little"), "<i4").copy())
+    plain = cc.smul_lanes_plain(pts, words)
+    before = cc.LAUNCHES["smul_lanes"]
+    for d in (None, *cc.SMUL_LANES_DESIGNS):
+        got = cc.smul_lanes(pts, words, design=d)
+        assert got.shape == (n, 4, 8)
+        assert _same_points(got, plain), (n, d)
+    assert cc.LAUNCHES["smul_lanes"] - before == 3
+    if n in (1, 33, 1 << 16):
+        want = "thread" if n == 1 << 16 else "group"
+        assert cc.smul_lanes_design(dev, n) == want
+    k = min(n, 8)
+    host = [p.scalar_mul(Scalar(_bits_value(r) % L))
+            for p, r in zip(F.to_points(pts[:k]), words[:k].tolist())]
+    assert F.to_points(cc.smul_lanes(pts[:k].contiguous(),
+                                     words[:k].contiguous())) == host
 
 
 def _bits_value(row) -> int:

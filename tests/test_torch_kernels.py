@@ -249,11 +249,12 @@ def _cuh_words(name: str) -> int:
 def test_cuda_constants_match_engine():
     assert _cuh_words("FE_D2") == D2
     assert _cuh_words("FE_P") == P
-    # fold_bits (and the bit-word MSMs' tiles) read bits 252..0 as the TPU
+    # fold_bits (and smul_lanes and the bit-word MSMs' tiles) read bits 252..0 as the TPU
     # fold does: fold_recode, shared from ge25519_cc.cuh, masks the top word
     # to its low 29 bits before the recoding; scalars are < L
     recode = (CSRC / "ge25519_cc.cuh").read_text()
     assert "w[7] &= 0x1fffffffu" in recode and L < 1 << 253
     assert "fold_recode(wl + 8 * i" in (CSRC / "msm_fold.cu").read_text()
+    assert "fold_recode(words + 8 * i" in (CSRC / "msm_fold.cu").read_text()
     assert "fold_recode(words" in (CSRC / "win.cu").read_text()
 
