@@ -296,7 +296,7 @@ def _sbox_witness_arrays(sbox_uv: np.ndarray, sbox: SboxType):
         aO = np.stack([ones, zeros, ones], axis=-2)
         per = 3
     else:
-        flat_u = u.reshape(-1, 4)
+        flat_u = np.ascontiguousarray(u.reshape(-1, 4))
         usq = scvec.mul(flat_u, flat_u).reshape(u.shape)
         aL = np.stack([u, usq], axis=-2)
         aR = np.stack([u, u], axis=-2)

@@ -1,6 +1,6 @@
 """Native (C++) host-side acceleration. Falls back to pure Python when the
 shared library has not been built (build with: python -m
-bulletproofs_r1cs_gadgets_tpu_torch.native.loader)."""
+bulletproofs_r1cs_gadgets_tpu_torch.native.build)."""
 
 try:
     from .loader import load_native as _load_native

@@ -9,7 +9,7 @@
 //
 // Exposed via a plain C ABI for ctypes (no pybind11 in this environment).
 //
-// Build: python -m bulletproofs_r1cs_gadgets_tpu_torch.native.loader
+// Build: python -m bulletproofs_r1cs_gadgets_tpu_torch.native.build
 //
 // Field arithmetic: 4x64-bit limbs with unsigned __int128 products,
 // reduction mod L = 2^252 + C by folding 2^252 == -C three times

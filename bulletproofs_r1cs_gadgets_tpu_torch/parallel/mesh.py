@@ -6,19 +6,23 @@ Two parallel axes, as in the JAX package's ``parallel/mesh.py``:
   proof on the host (``parallel/device_batch.py``);
 * ``points``: the n-axis of one MSM; each device walks its shard of the
   generators and the partial points are gathered and folded on one device
-  (``parallel/sharded_fast.py``; a point sum is the group law, not a
-  lane-wise sum).
+  (``parallel/sharded_fast.py``, ``parallel/sharded_backend.py``; a point
+  sum is the group law, not a lane-wise sum).
 
 A mesh here is a ``(batch, points)`` grid of ``torch.device`` objects.
 The reference's ``NamedSharding`` helpers (``batch_spec``,
-``points_spec``, ``replicated``) serve only its sharded XLA oracle
-(``sharded_backend.py``), which the port does not have yet.
+``points_spec``, ``replicated``) have no counterpart: the port places
+each shard on its device itself, by the mesh's device lists
+(``axis_devices``, the rows of ``devices``), where the reference hands
+``shard_map`` a partition spec.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.curve import point_add
 
 
 class Mesh:
@@ -35,8 +39,32 @@ class Mesh:
         line = self.devices[0, :] if k == 1 else self.devices[:, 0]
         return list(line)
 
+    def rows(self, axis: str) -> list[list[torch.device]]:
+        """For each index along `axis`, its devices along the other axis
+        (``rows("batch")``: each batch row's points devices)."""
+        k = self.axis_names.index(axis)
+        grid = self.devices if k == 0 else self.devices.T
+        return [list(line) for line in grid]
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
+
+
+def even_spans(n: int, parts: int) -> list[tuple[int, int]]:
+    """[lo, hi) of `parts` contiguous slices of n items, ceil(n / parts)
+    each: the last one short, any past n empty (a shard's share)."""
+    per = -(-n // parts)
+    return [(k * per, min(n, (k + 1) * per)) for k in range(parts)]
+
+
+def sum_partials(parts: list, lead) -> torch.Tensor:
+    """The group sum of the shards' partial points (each ``(..., 4, 8)``):
+    gathered onto `lead` (the reference's ``all_gather``) and added there
+    one at a time with ``point_add`` (the ``padd`` kernel)."""
+    total = parts[0].to(lead)
+    for p in parts[1:]:
+        total = point_add(total, p.to(lead))
+    return total
 
 
 def cuda_devices() -> list[torch.device]:

@@ -10,9 +10,11 @@ and on the reference's route flags) and a batch of eight proved through
 ``TorchBackend("cuda")``, the reference's equivalence gate (one depth-8
 proof down every route), and the multi-device layer and the stream
 (depth-253 proofs placed over the cards, the sharded walk at 2^18, a
-stream of twelve), and the device-oracle path (``DeviceBackend``,
-``proving_step``, the batched generator derivation, ``MsmEngine``), and
-checks every kernel on the way.
+stream of twelve), the device-oracle path (``DeviceBackend``,
+``proving_step``, the batched generator derivation, ``MsmEngine``), the
+gadget zoo, and the sharded oracle path (``ShardedMsmBackend``,
+``BatchShardedBackend``, ``make_sharded_step``, the dry run), and checks
+every kernel on the way.
 Phases, each printing one line with its wall time (any failure exits
 non-zero and prints no result):
 
@@ -150,11 +152,40 @@ non-zero and prints no result):
    ``MsmEngine.msm`` at 2^16 against the host MSM and
    ``scalar_mul_shared`` over 2^14 points against host scalar
    multiplication.  Each part must launch its kernels.
+11. the gadget zoo through ``TorchBackend("cuda")`` on the default route,
+   at the reference's sizes: the 64-bit bound check and range proof, set
+   membership, set non-membership and ``set_membership_1`` over 32
+   elements, not-equals, factors, MiMC at its 322 rounds (644
+   multipliers), the Poseidon 2:1 preimage proof with the cube and the
+   inverse S-box (``bench.py``:161-226's circuit) and VSMT-4 at depth 64
+   (``CompiledVSMT4``, 37,312 multipliers padded to 2^16); each circuit
+   built from the gadget functions on a prover with a seeded rng and
+   blindings: its proof byte-identical to the same circuit proved on the
+   host path (a low-priority process, ``chip_smoke.py --zoo-host``,
+   started before phase 2; VSMT-4's host leg is the port's
+   ``NativeBackend``, as the host path would take minutes), verified
+   through the backend, a tampered copy rejected; per circuit its padded
+   size, prove and verify wall times and launch counts.
+12. the sharded oracle path over four shards of the visible cards (all on
+   cuda:0 with one card, printed as such), each part timed: (a) phase 4's
+   depth-253 prover, restored, through ``ShardedMsmBackend``:
+   byte-identical to phase 4's proof, verified through it, a tampered
+   copy rejected, its times beside phase 10 (a)'s; (b) phase 5's first
+   four depth-253 provers, restored, through ``prove_provers`` on
+   ``BatchShardedBackend`` over a (batch 2, points 2) mesh: each proof
+   byte-identical to phase 5's, one ``batch_verify`` of the four through
+   it; (a) and (b) must launch ``msm_chunk_acc``, ``padd`` and
+   ``fold_grid``; (c) ``make_sharded_step`` on that mesh at B = 8 proofs
+   x W = 32 (phase 10 (b) runs W = 254), 2^16 points x 253 bits: digests
+   equal to the host Poseidon chain, the checksum their sum mod l, the
+   total the host MSM; (d) ``graft_entry.dryrun_multichip(4)``, its five
+   phase lines (A, B, B2, C, D).
 
 Each path's launch counts are set to 0 just before it and read just
 after.  The third line from the end is the card's nvidia-smi name and
 power limit, the line before the last holds the per-kernel JSON record
-(``launches`` summed over phases 4 (both parts), 5, 6, 7, 8, 9 and 10,
+(``launches`` summed over phases 4 (both parts), 5, 6, 7, 8, 9, 10, 11
+and 12,
 every kernel at least once;
 ``bound_ms``
 the larger of the work's 32-bit multiplies over the card's multiply rate
@@ -1854,8 +1885,8 @@ def phase_batch(bp, torch, cc, gens, params, tree):
     """BATCH depth-253 provers (leaves 1..BATCH) through prove_provers,
     one batch_verify, proof 0 against the same prover proved alone, and
     a batch with one tampered proof.  out["reuse"] keeps the circuit and
-    the first PLACED jobs with their snapshots and seeds for phases 7
-    and 9."""
+    the first PLACED jobs with their snapshots, seeds and proof bytes for
+    phases 7, 9 and 12."""
     import numpy as np
 
     out = {}
@@ -1921,7 +1952,8 @@ def phase_batch(bp, torch, cc, gens, params, tree):
     else:
         raise AssertionError("batch with a tampered proof was accepted")
     backend.evict_gens()
-    out["reuse"] = (circuit, jobs[:PLACED], snaps, seeds[:PLACED])
+    out["reuse"] = (circuit, jobs[:PLACED], snaps, seeds[:PLACED],
+                    [p.to_bytes() for p in proofs[:PLACED]])
     return out
 
 
@@ -1971,21 +2003,13 @@ def gate_host_proof_hex() -> str:
     return prover.prove(bp.BulletproofGens(GATE_N), backend=None).to_bytes().hex()
 
 
-def start_gate_host():
-    """Start the host-path gate proof in a low-priority process (it
-    takes about a minute of one core); phase_gate collects it."""
-    return subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--gate-host"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-    )
-
-
 def phase_gate(bp, torch, cc, host):
     """The gate's proof through TorchBackend under each of the seven route
     combos (GATE_COMBOS, a fresh backend each, its generator cache evicted
     after), through prove_provers with three provers with the flotilla
     off and on, through the port's NativeBackend and through the host
-    path (`host`, the process start_gate_host started): one byte string.
+    path (`host`, the ``--gate-host`` process, about a minute of one
+    core): one byte string.
     The common proof verifies and a tampered copy is rejected; each
     combo's launches hold route_kernels, and every kernel of FLAG_KERNELS
     launches in the gate.  Returns the launch counts and the times."""
@@ -2090,7 +2114,7 @@ def phase_placement(bp, torch, cc, F, gens, reuse):
     out = {}
     ndev = max(2, torch.cuda.device_count())
     devices = card_devices(torch, ndev)
-    circuit, jobs, snaps, seeds = reuse
+    circuit, jobs, snaps, seeds, _ = reuse
     provers = [j[3] for j in jobs]
 
     def restore():
@@ -2747,10 +2771,487 @@ def phase_oracle(bp, torch, cc, F, gens, full, dev):
     return out
 
 
+# ---- phase 11: the gadget zoo (BASELINE.json configs 1-4 and the other
+# gadgets) through TorchBackend at the reference's sizes
+ZOO_SET = [7 * i + 3 for i in range(32)]  # the 32-element set
+ZOO_MIMC_ROUNDS = 322  # gadget_mimc.rs:15: 644 multipliers
+ZOO_VSMT4_DEPTH = 64  # BASELINE.json config 4
+
+
+class Wires:
+    """One side of a circuit: the prover commits values with blindings
+    ``Scalar.random(rng)``, the verifier binds the commitments in order.
+    ``val(x)`` is the assignment (None on the verifier's side)."""
+
+    def __init__(self, bp, cs, w):
+        self.bp, self.cs = bp, cs
+        self.prover = isinstance(cs, bp.Prover)
+        self.rng = w if self.prover else None
+        self.comms = [] if self.prover else list(w)
+        self.i = 0
+
+    def commit(self, value):
+        bp = self.bp
+        if self.prover:
+            s = value if isinstance(value, bp.Scalar) else bp.Scalar(value)
+            com, var = self.cs.commit(s, bp.Scalar.random(self.rng))
+            self.comms.append(com)
+            return var
+        var = self.cs.commit(self.comms[self.i])
+        self.i += 1
+        return var
+
+    def val(self, x):
+        return x if self.prover else None
+
+
+def zoo_bound(bp, cs, w):
+    """The 64-bit bound check (gadget_bound_check.rs:49-116)."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.bound_check import (
+        bound_check_gadget,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.r1cs_utils import (
+        AllocatedQuantity as Q,
+    )
+
+    lo, hi, v = 1 << 62, (1 << 64) - 1, 0xDEADBEEF12345678
+    x = Wires(bp, cs, w)
+    qs = [Q(x.commit(c), x.val(c)) for c in (v, v - lo, hi - v)]
+    bound_check_gadget(cs, *qs, hi, lo, 64)
+    return x.comms
+
+
+def zoo_range(bp, cs, w):
+    """The 64-bit range proof (gadget_range_proof.rs:127-202)."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.r1cs_utils import (
+        AllocatedQuantity as Q,
+        constrain_lc_with_scalar,
+        positive_no_gadget,
+    )
+
+    lo, hi, v = 1 << 62, (1 << 64) - 1, 0xC0FFEE0123456789
+    x = Wires(bp, cs, w)
+    va = x.commit(v - lo)
+    positive_no_gadget(cs, Q(va, x.val(v - lo)), 64)
+    vb = x.commit(hi - v)
+    positive_no_gadget(cs, Q(vb, x.val(hi - v)), 64)
+    constrain_lc_with_scalar(cs, va + vb, bp.Scalar(hi - lo))
+    return x.comms
+
+
+def zoo_member(bp, cs, w):
+    """Set membership over 32 elements (gadget_set_membership.rs)."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets import set_membership as m
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.r1cs_utils import (
+        AllocatedQuantity as Q,
+    )
+
+    value = ZOO_SET[17]
+    x = Wires(bp, cs, w)
+    bits = []
+    for elem in ZOO_SET:
+        b = int(elem == value)
+        q = Q(x.commit(b), x.val(b))
+        m.bit_gadget(cs, q)
+        bits.append(q)
+    m.vector_sum_gadget(cs, bits, 1)
+    m.vector_product_gadget(cs, ZOO_SET, bits, Q(x.commit(value), x.val(value)))
+    return x.comms
+
+
+def zoo_member_1(bp, cs, w):
+    """Set membership by a product of differences over 32 elements
+    (gadget_set_membership_1.rs)."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets import set_membership_1 as m
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.r1cs_utils import (
+        AllocatedScalar as A,
+    )
+
+    val = bp.Scalar(ZOO_SET[5])
+    x = Wires(bp, cs, w)
+    v = A(x.commit(val), x.val(val))
+    diffs = [A(x.commit(bp.Scalar(e) - val), x.val(bp.Scalar(e) - val))
+             for e in ZOO_SET]
+    m.set_membership_1_gadget(cs, v, diffs, ZOO_SET)
+    return x.comms
+
+
+def zoo_non_member(bp, cs, w):
+    """Set non-membership over 32 elements
+    (gadget_set_non_membership.rs)."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets import set_non_membership as m
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.r1cs_utils import (
+        AllocatedScalar as A,
+    )
+
+    val = bp.Scalar(1000)
+    x = Wires(bp, cs, w)
+    v = A(x.commit(val), x.val(val))
+    diffs, invs = [], []
+    for e in ZOO_SET:
+        d = bp.Scalar(e) - val
+        diffs.append(A(x.commit(d), x.val(d)))
+        invs.append(A(x.commit(d.invert()), x.val(d.invert())))
+    m.set_non_membership_gadget(cs, v, diffs, invs, ZOO_SET)
+    return x.comms
+
+
+def zoo_not_equals(bp, cs, w):
+    """gadget_not_equals.rs: v = 10 != 5."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.not_equals import (
+        not_equals_gadget,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.r1cs_utils import (
+        AllocatedScalar as A,
+    )
+
+    val = bp.Scalar(10)
+    d = bp.Scalar(5) - val
+    x = Wires(bp, cs, w)
+    qs = [A(x.commit(s), x.val(s)) for s in (val, d, d.invert())]
+    not_equals_gadget(cs, *qs, 5)
+    return x.comms
+
+
+def zoo_factors(bp, cs, w):
+    """factors.rs: 17 * 19 = 323."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.factors import factors_gadget
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.r1cs_utils import (
+        AllocatedScalar as A,
+    )
+
+    p, q = bp.Scalar(17), bp.Scalar(19)
+    x = Wires(bp, cs, w)
+    factors_gadget(cs, A(x.commit(p), x.val(p)), A(x.commit(q), x.val(q)),
+                   p * q)
+    return x.comms
+
+
+def zoo_mimc(bp, cs, w):
+    """MiMC preimage, the full 322 rounds (gadget_mimc.rs:91-175)."""
+    import random
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.mimc import mimc, mimc_gadget
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.r1cs_utils import (
+        AllocatedScalar as A,
+    )
+
+    rnd = random.Random(24)
+    consts = [bp.Scalar(rnd.randrange(bp.L)) for _ in range(ZOO_MIMC_ROUNDS)]
+    xl, xr = bp.Scalar(5), bp.Scalar(6)
+    x = Wires(bp, cs, w)
+    mimc_gadget(cs, A(x.commit(xl), x.val(xl)), A(x.commit(xr), x.val(xr)),
+                ZOO_MIMC_ROUNDS, consts, mimc(xl, xr, consts))
+    return x.comms
+
+
+def zoo_poseidon(sbox_name):
+    def build(bp, cs, w):
+        """The Poseidon 2:1 preimage proof (bench.py:161-226's circuit)."""
+        from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.poseidon import (
+            Poseidon_hash_2,
+            SboxType,
+            allocate_statics_for_prover,
+            allocate_statics_for_verifier,
+        )
+        from bulletproofs_r1cs_gadgets_tpu_torch.models.compiled import (
+            CompiledPoseidon2,
+        )
+
+        sbox = getattr(SboxType, sbox_name)
+        params = bp.PoseidonParams(6, 4, 4, 140)
+        comp = CompiledPoseidon2(params, sbox)
+        xl, xr = bp.Scalar(31), bp.Scalar(59)
+        tape = comp.tape(Poseidon_hash_2(xl, xr, params, sbox))
+        x = Wires(bp, cs, w)
+        x.commit(xl)
+        x.commit(xr)
+        if x.prover:
+            allocate_statics_for_prover(cs, 4)
+            cs.load_compiled(tape, *comp.witness(xl, xr))
+        else:
+            allocate_statics_for_verifier(cs, 4, bp.PedersenGens.default())
+            cs.load_compiled(tape, comp.num_multipliers)
+        return x.comms
+
+    return build
+
+
+def zoo_vsmt4(bp, cs, w):
+    """VSMT-4 membership at depth 64 (BASELINE.json config 4,
+    gadget_vsmt_4.rs:199-312; bench.py stage 3b's synthetic siblings)."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.models.compiled import CompiledVSMT4
+
+    depth = ZOO_VSMT4_DEPTH
+    comp = CompiledVSMT4(bp.PoseidonParams(6, 4, 4, 140), depth)
+    k = bp.Scalar(7)
+    nodes = [bp.Scalar(1000 + i) for i in range(3 * depth)]
+    aL, aR, aO = comp.witness(k, k, nodes)
+    tape = comp.tape(comp._root)
+    if isinstance(cs, bp.Prover):
+        comms = comp.commit_prover(cs, k, k, nodes, rng=w)
+        cs.load_compiled(tape, aL, aR, aO)
+        return comms
+    comp.commit_verifier(cs, w, bp.PedersenGens.default())
+    cs.load_compiled(tape, comp.num_multipliers)
+    return w
+
+
+# name: (circuit, transcript label); every prover's rng SEED + 1100 + 10 i,
+# its blindings' SEED + 1101 + 10 i
+ZOO = {
+    "bound_check_64": (zoo_bound, b"BoundsTest"),
+    "range_proof_64": (zoo_range, b"RangeProofTest"),
+    "set_membership_32": (zoo_member, b"SetMemebershipTest"),
+    "set_non_membership_32": (zoo_non_member, b"SetNonMemebershipTest"),
+    "set_membership_1_32": (zoo_member_1, b"SetMemebership1Test"),
+    "not_equals": (zoo_not_equals, b"NotEqualsTest"),
+    "factors": (zoo_factors, b"Factors"),
+    "mimc_322": (zoo_mimc, b"MiMC"),
+    "poseidon2_cube": (zoo_poseidon("Cube"), b"PoseidonBench"),
+    "poseidon2_inverse": (zoo_poseidon("Inverse"), b"PoseidonBench"),
+    "vsmt4_64": (zoo_vsmt4, b"VSMT"),
+}
+ZOO_HOST_NATIVE = ("vsmt4_64",)  # host leg on NativeBackend: see zoo_host_hex
+
+
+def zoo_prover(bp, i: int, name: str):
+    """(commitments, prover) of ZOO[name], seeded by its index."""
+    import numpy as np
+
+    build, label = ZOO[name]
+    prover = bp.Prover(bp.PedersenGens.default(), bp.Transcript(label),
+                       rng=np.random.RandomState(SEED + 1100 + 10 * i))
+    comms = build(bp, prover, np.random.RandomState(SEED + 1101 + 10 * i))
+    return comms, prover
+
+
+def zoo_verify(bp, name, comms, proof, gens, backend):
+    build, label = ZOO[name]
+    verifier = bp.Verifier(bp.Transcript(label))
+    build(bp, verifier, comms)
+    verifier.verify(proof, bp.PedersenGens.default(), gens, backend=backend)
+
+
+def zoo_host_hex() -> str:
+    """Every ZOO proof through the port's host path, as JSON of hex: what
+    ``chip_smoke.py --zoo-host`` prints, in a process of its own beside
+    the card's phases.  VSMT-4 at depth 64 (2^16 padded) would take
+    ~12 min of one core on the host path, so its host leg is the port's
+    ``NativeBackend`` (the C++ CPU backend, byte-identical to the host
+    path by phase 6's gate)."""
+    sys.path.insert(0, ROOT)
+    import bulletproofs_r1cs_gadgets_tpu_torch as bp
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import (
+        NativeBackend,
+    )
+
+    gens = bp.BulletproofGens(GENS_N)
+    out = {}
+    for i, name in enumerate(ZOO):
+        _, prover = zoo_prover(bp, i, name)
+        be = NativeBackend() if name in ZOO_HOST_NATIVE else None
+        out[name] = prover.prove(gens, backend=be).to_bytes().hex()
+    return json.dumps(out, separators=(",", ":"))
+
+
+def start_host(flag: str):
+    """Start a host-path leg (``--gate-host``, ``--zoo-host``) in a
+    low-priority process of its own; the phase collects it."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def phase_zoo(bp, torch, cc, gens, host):
+    """Every ZOO circuit through TorchBackend("cuda") on the default
+    route: its proof byte-identical to the host leg (`host`, the
+    ``--zoo-host`` process), verified through the backend, a tampered
+    copy rejected; per circuit its padded size, prove and verify wall
+    times and launch counts (counted from 0 before each prove)."""
+    backend = bp.TorchBackend("cuda", route=bp.Route())
+    out, launches = {}, dict.fromkeys(cc.LAUNCHES, 0)
+    proofs = {}
+    for i, name in enumerate(ZOO):
+        comms, prover = zoo_prover(bp, i, name)
+        cc.reset_launches()
+        proof, prove_ms = timed_once(
+            torch, lambda: prover.prove(gens, backend=backend))
+        _, verify_ms = timed_once(
+            torch, lambda: zoo_verify(bp, name, comms, proof, gens, backend))
+        ran = {k: v for k, v in cc.LAUNCHES.items() if v}
+        for k, v in ran.items():
+            launches[k] += v
+        try:
+            zoo_verify(bp, name, comms, tampered(bp, proof), gens, backend)
+        except bp.VerificationError:
+            pass
+        else:
+            raise AssertionError(f"{name}: tampered proof accepted")
+        proofs[name] = proof.to_bytes()
+        out[name] = dict(
+            multipliers=prover.num_multipliers(),
+            padded_n=1 << len(proof.ipp_proof.L_vec),
+            prove_ms=prove_ms, verify_ms=verify_ms, launches=ran)
+        log(f"  {name}: {out[name]}")
+    backend.evict_gens()
+    t0 = time.time()
+    got, err = host.communicate(timeout=900)
+    assert host.returncode == 0, f"host-path zoo proofs failed: {err[-2000:]}"
+    want = json.loads(got.split()[-1])
+    for name in ZOO:
+        assert proofs[name].hex() == want[name], \
+            f"{name}: card proof differs from the host path's"
+    log(f"  {len(ZOO)} proofs byte-identical to the host path (waited "
+        f"{time.time() - t0:.1f} s), verified, tampered copies rejected")
+    return out, launches
+
+
+# ---- phase 12: the sharded oracle path (parallel/sharded_backend.py,
+# make_sharded_step, graft_entry.dryrun_multichip)
+SHARDED_W = 32  # make_sharded_step's path lanes: W = 254 cut to 32 (phase 10 (b) runs 254)
+
+
+def phase_sharded_oracle(bp, torch, cc, F, gens, full, reuse, oracle_ms):
+    """(a) phase 4's depth-253 prover, restored, through ShardedMsmBackend
+    over 4 shards: byte-identical to phase 4's proof, verified through the
+    backend, a tampered copy rejected, its wall time beside phase 10 (a)'s
+    DeviceBackend (`oracle_ms`); (b) phase 5's first four depth-253
+    provers, restored, through prove_provers on BatchShardedBackend over a
+    (batch 2, points 2) mesh: each proof byte-identical to phase 5's, one
+    batch_verify of the four through the backend; (c) make_sharded_step on
+    that mesh at B = 8, W = SHARDED_W, 2^16 points x 253 bits: digests
+    equal to the host Poseidon chain, the checksum their sum mod l, the
+    total the host MSM; (d) graft_entry.dryrun_multichip(4) over the
+    visible cards (four shards on one card when there is one).  Each
+    part's launches are counted from 0."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch import graft_entry
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.poseidon import (
+        Poseidon_hash_2,
+        SboxType,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import curve as C
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.field import FQ
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import (
+        NativeBackend,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.parallel import pipeline
+    from bulletproofs_r1cs_gadgets_tpu_torch.parallel.mesh import make_mesh
+    from bulletproofs_r1cs_gadgets_tpu_torch.parallel.sharded_backend import (
+        BatchShardedBackend,
+        ShardedMsmBackend,
+    )
+
+    rng = np.random.RandomState(SEED + 12)
+    out, launches = {}, dict.fromkeys(cc.LAUNCHES, 0)
+
+    def part(tag, need):
+        ran = dict(cc.LAUNCHES)
+        for k in launches:
+            launches[k] += ran[k]
+        missing = [k for k in need if not ran[k]]
+        assert not missing, f"phase 12 {tag}: {missing} not launched"
+        out[f"{tag}_launches"] = {k: v for k, v in ran.items() if v}
+        log(f"  ({tag}) launches {out[f'{tag}_launches']}")
+
+    devices = card_devices(torch, 4)
+    # (a) one depth-253 proof, every MSM over 4 shards
+    comp, tape, comms, prover, _ = full["case"]
+    snap, want = full["oracle_case"]
+    backend = ShardedMsmBackend(devices)
+    log(f"  {backend!r}")
+    cc.reset_launches()
+    prover.restore(snap)
+    prover.rng = np.random.RandomState(SEED)
+    proof, out["a_prove_ms"] = timed_once(
+        torch, lambda: prover.prove(gens, backend=backend))
+    assert proof.to_bytes() == want, \
+        "ShardedMsmBackend proof differs from phase 4's"
+    _, out["a_verify_ms"] = timed_once(
+        torch, lambda: verify(bp, comp, tape, comms, proof, gens, backend))
+    part("a", ("msm_chunk_acc", "padd", "fold_grid"))
+    try:
+        verify(bp, comp, tape, comms, tampered(bp, proof), gens, backend)
+    except bp.VerificationError:
+        pass
+    else:
+        raise AssertionError("ShardedMsmBackend accepted a tampered proof")
+    log(f"  (a) depth-253 proof over 4 shards byte-identical to phase 4's, "
+        f"prove {out['a_prove_ms']:.1f} ms, verify {out['a_verify_ms']:.1f} "
+        f"ms (DeviceBackend, phase 10 (a): {oracle_ms['a_prove_ms']:.1f} / "
+        f"{oracle_ms['a_verify_ms']:.1f} ms); tampered copy rejected")
+    del backend
+
+    # (b) four depth-253 proofs in lockstep on a (2, 2) mesh
+    circuit, jobs, snaps, seeds, batch_bytes = reuse
+    provers = [j[3] for j in jobs]
+    for p, s, seed in zip(provers, snaps, seeds):
+        p.restore(s)
+        p.rng = np.random.RandomState(seed)
+    mesh = make_mesh(devices=devices, batch_axis=2)
+    bbackend = BatchShardedBackend(mesh)
+    log(f"  {mesh!r}")
+    cc.reset_launches()
+    proofs, out["b_prove_ms"] = timed_once(
+        torch, lambda: bp.prove_provers(provers, gens, backend=bbackend))
+    for i, (got, want_i) in enumerate(zip(proofs, batch_bytes)):
+        assert got.to_bytes() == want_i, f"lockstep proof {i} != phase 5's"
+    _, out["b_verify_ms"] = timed_once(torch, lambda: bp.batch_verify(
+        [verifier_for(bp, circuit[0], j[1], j[2]) for j in jobs], proofs,
+        bp.PedersenGens.default(), gens, backend=bbackend))
+    part("b", ("msm_chunk_acc", "padd", "fold_grid"))
+    log(f"  (b) {len(proofs)} depth-253 proofs in lockstep byte-identical to "
+        f"phase 5's: prove {out['b_prove_ms']:.1f} ms, one batch_verify "
+        f"{out['b_verify_ms']:.1f} ms")
+    del bbackend
+
+    # (c) the sharded step
+    B, W, N = ORACLE_B, SHARDED_W, ORACLE_MSM_N
+    vals = [[int.from_bytes(rng.bytes(32), "little") % bp.L for _ in range(W)]
+            for _ in range(B)]
+    witness = FQ.to_device([x for r in vals for x in r], devices[0]
+                           ).reshape(B, W, 8)
+    points = F.from_raw(gens.G_raw(N), devices[0])
+    rows = random_scalar_rows(bp, N, rng)
+    bitw = torch.from_numpy(
+        np.unpackbits(rows.view(np.uint8), axis=1, bitorder="little")[:, :253]
+        .astype(np.int32)).to(devices[0])
+    step = pipeline.make_sharded_step(mesh)
+    cc.reset_launches()
+    (digest, checksum, total), out["c_step_ms"] = timed_once(
+        torch, lambda: step(witness, points, bitw))
+    part("c", ("smul_lanes", "padd", "mul_fq"))
+    params = pipeline.flagship_hasher(devices[0]).params
+    exp = []
+    for r in vals:
+        acc = bp.Scalar(r[0])
+        for x in r[1:]:
+            acc = Poseidon_hash_2(acc, bp.Scalar(x), params, SboxType.Cube)
+        exp.append(acc.v)
+    assert FQ.to_ints(digest) == exp, "digests != host Poseidon chain"
+    assert FQ.to_ints(checksum[None]) == [sum(exp) % bp.L], "checksum"
+    assert C.points_from_device(total)[0] == NativeBackend().msm(
+        rows, gens.G(N)), "sharded total != host MSM"
+    log(f"  (c) make_sharded_step B={B} W={W} N={N}: {out['c_step_ms']:.1f} "
+        f"ms; digests equal the host Poseidon chain, checksum their sum mod "
+        f"l, total the host MSM")
+
+    # (d) the dry run
+    cc.reset_launches()
+    _, out["d_dryrun_ms"] = timed_once(
+        torch, lambda: graft_entry.dryrun_multichip(4, devices=devices))
+    part("d", ("msm_chunk_acc", "padd", "fold_grid", "msm_grid_local"))
+    return out, launches
+
+
 def main() -> int:
-    if sys.argv[1:] == ["--gate-host"]:
+    hosts = {"--gate-host": gate_host_proof_hex, "--zoo-host": zoo_host_hex}
+    if len(sys.argv) == 2 and sys.argv[1] in hosts:
         os.nice(19)  # beside the card's phases: yield the host's cores
-        print(gate_host_proof_hex(), flush=True)
+        print(hosts[sys.argv[1]](), flush=True)
         return 0
     sys.path.insert(0, ROOT)
     import torch
@@ -2785,7 +3286,8 @@ def main() -> int:
     with Phase("gens"):
         gens = bp.BulletproofGens(1 << 18)
         gens_small = bp.BulletproofGens(1 << 12)
-    host = start_gate_host()  # phase 6's host-path proof, beside the card
+    # phase 6's and phase 11's host-path proofs, beside the card
+    host, zoo_host = start_host("--gate-host"), start_host("--zoo-host")
     try:
         with Phase("2 kernels vs plain"):
             records = phase_kernels(bp, torch, cc, F, gens, dev)
@@ -2799,22 +3301,29 @@ def main() -> int:
             batch = phase_batch(bp, torch, cc, gens, params, tree)
         with Phase("6 equivalence gate"):
             gate_launches, gate_times = phase_gate(bp, torch, cc, host)
+        reuse = batch.pop("reuse")  # phase 5's circuit, provers and proofs
+        with Phase("7 placement"):
+            placed = phase_placement(bp, torch, cc, F, gens, reuse)
+        with Phase("8 sharded walk"):
+            sharded = phase_sharded(bp, torch, cc, F, gens, full["case"])
+        with Phase("9 stream"):
+            stream = phase_stream(bp, torch, cc, gens, params, tree, reuse[0])
+        with Phase("10 device-oracle path"):
+            oracle = phase_oracle(bp, torch, cc, F, gens, full, dev)
+        with Phase("11 gadget zoo"):
+            zoo, zoo_launches = phase_zoo(bp, torch, cc, gens, zoo_host)
     finally:
-        if host.poll() is None:
-            host.kill()
-        host.communicate()
-    reuse = batch.pop("reuse")  # phase 5's circuit and provers
-    with Phase("7 placement"):
-        placed = phase_placement(bp, torch, cc, F, gens, reuse)
-    with Phase("8 sharded walk"):
-        sharded = phase_sharded(bp, torch, cc, F, gens, full["case"])
-    with Phase("9 stream"):
-        stream = phase_stream(bp, torch, cc, gens, params, tree, reuse[0])
-    with Phase("10 device-oracle path"):
-        oracle = phase_oracle(bp, torch, cc, F, gens, full, dev)
+        for proc in (host, zoo_host):
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+    with Phase("12 sharded oracle path"):
+        shoracle, shoracle_launches = phase_sharded_oracle(
+            bp, torch, cc, F, gens, full, reuse, oracle)
     runs = (full["launches"], full["route_launches"], batch["launches"],
             gate_launches, placed["launches"], sharded["launches"],
-            stream["launches"], oracle.pop("launches"))
+            stream["launches"], oracle.pop("launches"), zoo_launches,
+            shoracle_launches)
     kernels = [
         dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -2836,6 +3345,8 @@ def main() -> int:
         "sharded": {k: v for k, v in sharded.items() if k != "launches"},
         "stream": {k: v for k, v in stream.items() if k != "launches"},
         "oracle": oracle,
+        "zoo": zoo,
+        "sharded_oracle": shoracle,
     }
     log("summary " + json.dumps(summary))
     print(card)

@@ -6,8 +6,10 @@ must never import any module of the JAX package (the port keeps its own
 copies of the host layers, ``ops/native_backend.py`` among them; every
 ``*.py`` of the port is scanned; comments may cite the JAX package by
 path),
-and both scripts and the default ``TorchBackend()`` must refuse to run
-(non-zero exit, no result line, an error) where there is no GPU, and
+and both scripts, the default ``TorchBackend()`` / ``DeviceBackend()``,
+the sharded backends, ``make_sharded_step`` and the dry-run entry must
+refuse to run (non-zero exit, no result line, an error) where there is
+no GPU, and
 ``chip_smoke.py`` also where there is no repository around it.  The
 port's C++ host library builds safely when two processes load it at
 once.  Tolerance: none (exact exit codes and output).
@@ -53,7 +55,17 @@ def test_port_imports_with_jax_blocked():
         "from bulletproofs_r1cs_gadgets_tpu_torch.ops.poseidon import "
         "DevicePoseidon\n"
         "from bulletproofs_r1cs_gadgets_tpu_torch.parallel.pipeline import "
-        "proving_step\n"
+        "proving_step, make_sharded_step\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.parallel.sharded_backend "
+        "import ShardedMsmBackend, BatchShardedBackend\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.ops.msm import "
+        "msm_chunk_impl, scalars_to_digits\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch import graft_entry\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.gadgets import factors, "
+        "mimc, not_equals, range_proof, set_membership, set_membership_1, "
+        "set_non_membership\n"
+        "from bulletproofs_r1cs_gadgets_tpu_torch.models import osmt\n"
+        "import bulletproofs_r1cs_gadgets_tpu_torch.native.build\n"
         "import chip_smoke\n"
         "import chip_profile\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
@@ -139,6 +151,38 @@ def test_device_backend_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DeviceBackend("cuda:0")
     assert DeviceBackend("cpu").device == torch.device("cpu")
+
+
+def test_sharded_entry_points_need_the_card():
+    """The sharded backends, the sharded step and the dry-run entry take
+    every visible card by default; without one they raise (and the
+    module's command exits non-zero) rather than run on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from bulletproofs_r1cs_gadgets_tpu_torch import graft_entry
+    from bulletproofs_r1cs_gadgets_tpu_torch.parallel.mesh import make_mesh
+    from bulletproofs_r1cs_gadgets_tpu_torch.parallel.pipeline import (
+        make_sharded_step,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.parallel.sharded_backend import (
+        BatchShardedBackend,
+        ShardedMsmBackend,
+    )
+
+    for fn in (ShardedMsmBackend, BatchShardedBackend, make_sharded_step,
+               lambda: make_sharded_step(make_mesh()),
+               lambda: graft_entry.dryrun_multichip(1), graft_entry.entry):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedMsmBackend(["cuda:0"] * 4)
+    out = subprocess.run(
+        [sys.executable, "-m", "bulletproofs_r1cs_gadgets_tpu_torch.graft_entry"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "dryrun_multichip" not in out.stdout
+    assert "no CUDA device" in out.stderr
 
 
 def _jax_package_exports() -> tuple[list[str], str]:
