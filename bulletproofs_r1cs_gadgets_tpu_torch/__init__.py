@@ -42,7 +42,7 @@ What sits behind the engine's backend seam is the port's device layer:
   csrc/                 the Hopper kernels (sm_90a)
 
 the device-oracle layer (the JAX package's XLA-composed oracle modules,
-on seven more kernels):
+on nine more kernels):
 
   ops/field.py          LimbField, FQ (mod l) and FP (mod p) on (..., 8)
                         words: mul / square on the mul_fq / mul_fp kernels
@@ -54,8 +54,9 @@ on seven more kernels):
                         (msm_block_totals)
   ops/backend.py        DeviceBackend: the seam on msm_device and fold_grid
   ops/poseidon.py       DevicePoseidon: the batched permutation
-  parallel/pipeline.py  proving_step: batched Merkle-path hashing and a
-                        commitment partial
+                        (poseidon_permute; chain: poseidon_chain)
+  parallel/pipeline.py  proving_step: batched Merkle-path hashing (one
+                        poseidon_chain launch) and a commitment partial
 
 and the multi-device layer:
 

@@ -1,7 +1,8 @@
 // Hopper kernels for the device-oracle path (ops/{field,curve,msm,backend,
 // poseidon}.py, parallel/pipeline.py): the pointwise group operations
 // (padd, pdbl) and the elementwise field multiplies mod p and mod l
-// (mul_fp, mul_fq).  The path's MSMs (msm_chunk_acc, msm_block_totals) run
+// (mul_fp, mul_fq; mod l by sc_l.cuh's Barrett reduction, which the
+// Poseidon kernel of poseidon.cu shares).  The path's MSMs (msm_chunk_acc, msm_block_totals) run
 // the windowed w4 MSM of win.cu, and its fold (fold_grid) and per-lane
 // scalar multiply (smul_lanes) the Straus designs of msm_fold.cu.  Plain C
 // entry points for ctypes (ops/build.py): each launches on the caller's
@@ -16,6 +17,7 @@
 #include <cstdint>
 
 #include "ge25519_cc.cuh"
+#include "sc_l.cuh"
 
 #define OR_THREADS 128  // threads per block
 
@@ -124,17 +126,6 @@ static int pointwise_launch(const int32_t* a, const int32_t* b, int32_t* out, in
     return (int)cudaGetLastError();
 }
 
-// l = 2^252 + 27742317777372353535851937790883648493, little-endian words
-static __device__ __constant__ uint32_t SC_L[8] = {
-    0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu,
-    0x00000000u, 0x00000000u, 0x00000000u, 0x10000000u,
-};
-// Barrett's mu = floor(2^512 / l) (260 bits)
-static __device__ __constant__ uint32_t SC_MU[9] = {
-    0x0a2c131bu, 0xed9ce5a3u, 0x086329a7u, 0x2106215du, 0xffffffebu,
-    0xffffffffu, 0xffffffffu, 0xffffffffu, 0x0000000fu,
-};
-
 __device__ __forceinline__ void or_load8(const int32_t* src, uint32_t w[8]) {
     const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
 #pragma unroll
@@ -148,7 +139,8 @@ __device__ __forceinline__ void or_store8(int32_t* dst, const uint32_t w[8]) {
 }
 
 // mul_fp / mul_fq (pallas_field.py :201 / :200): what bounds them is
-// memory (96 B an element for one field multiply); one thread an element.
+// memory (96 B an element for one field multiply); one thread an element,
+// mod p fe_mul then fe_canon, mod l sc_mul_canon (sc_l.cuh).
 __global__ void __launch_bounds__(OR_THREADS)
 mul_fp_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
               int32_t* __restrict__ out, int n) {
@@ -159,83 +151,6 @@ mul_fp_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     or_load8(b + 8 * i, y.w);
     fe r = fe_canon(fe_mul(x, y));
     or_store8(out + 8 * i, r.w);
-}
-
-// a * b mod l for any a, b < 2^256: the 512-bit schoolbook product, then
-// Barrett's reduction with base 2^32 and k = 8 words (Handbook of Applied
-// Cryptography 14.42): q3 = floor(floor(x / 2^224) * mu / 2^288),
-// r = (x - q3 * l) mod 2^288 < 3l, then at most two subtractions of l.
-__device__ __forceinline__ void sc_mul_canon(const uint32_t a[8], const uint32_t b[8],
-                                             uint32_t r[8]) {
-    uint32_t x[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) x[i] = 0u;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            c += (uint64_t)a[i] * b[j] + x[i + j];
-            x[i + j] = (uint32_t)c;
-            c >>= 32;
-        }
-        x[i + 8] = (uint32_t)c;
-    }
-    // q2 = q1 * mu with q1 = x[7..15] (9 words); q3 = q2[9..17]
-    uint32_t q2[18];
-#pragma unroll
-    for (int i = 0; i < 18; ++i) q2[i] = 0u;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < 9; ++j) {
-            c += (uint64_t)x[7 + i] * SC_MU[j] + q2[i + j];
-            q2[i + j] = (uint32_t)c;
-            c >>= 32;
-        }
-        q2[i + 9] = (uint32_t)c;
-    }
-    // r2 = q3 * l mod 2^288 (l's ninth word is 0)
-    uint32_t r2[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) r2[i] = 0u;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < 9 - i; ++j) {
-            c += (uint64_t)q2[9 + i] * (j < 8 ? SC_L[j] : 0u) + r2[i + j];
-            r2[i + j] = (uint32_t)c;
-            c >>= 32;
-        }
-    }
-    // rr = (x mod 2^288) - r2 mod 2^288, in [0, 3l)
-    uint32_t rr[9];
-    uint64_t br = 0;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-        uint64_t d = (uint64_t)x[i] - r2[i] - br;
-        rr[i] = (uint32_t)d;
-        br = d >> 63;
-    }
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-        uint32_t d[9];
-        br = 0;
-#pragma unroll
-        for (int i = 0; i < 9; ++i) {
-            uint64_t t = (uint64_t)rr[i] - (i < 8 ? SC_L[i] : 0u) - br;
-            d[i] = (uint32_t)t;
-            br = t >> 63;
-        }
-        if (!br) {
-#pragma unroll
-            for (int i = 0; i < 9; ++i) rr[i] = d[i];
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) r[i] = rr[i];
 }
 
 __global__ void __launch_bounds__(OR_THREADS)

@@ -71,6 +71,9 @@ SIGNATURES = {
     "bp_mul_fp": [_VP, _VP, _VP, _I, _VP],
     "bp_mul_fq": [_VP, _VP, _VP, _I, _VP],
     "bp_fe_mul_test": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "bp_poseidon_permute": [_VP] * 5 + [_I] * 4 + [_VP],
+    "bp_poseidon_chain": [_VP] * 5 + [_I] * 5 + [_VP],
+    "bp_sc_mul_test": [_VP, _VP, _VP, _I, _I, _VP],
 }
 
 

@@ -1,4 +1,4 @@
-"""Wrappers for the port's twenty-three Hopper kernels, with their plain versions.
+"""Wrappers for the port's Hopper kernels, with their plain versions.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and then
@@ -6,8 +6,8 @@ outputs with ``torch.empty`` and then
 * for CPU tensors, runs the plain torch version beside it (this is what
   the CPU tests exercise);
 * for CUDA tensors, launches its kernel from ``csrc/msm_fold.cu``,
-  ``csrc/win.cu``, ``csrc/fold_w3h.cu`` or ``csrc/oracle.cu`` on the
-  current stream of the
+  ``csrc/win.cu``, ``csrc/fold_w3h.cu``, ``csrc/oracle.cu`` or
+  ``csrc/poseidon.cu`` on the current stream of the
   tensors' device (from any thread), raises if the launch failed, and
   adds one to ``LAUNCHES[name]``.  There is no fallback to the plain
   version.
@@ -18,7 +18,8 @@ tables ``(n, 16, 4, 8)`` / ``(n, 8, 4, 8)`` int32 (niels entries),
 half-width fold words ``(sides, 2, 2, 8)`` int32, constant fold words
 ``(sides, 2, 8)`` int32, w2 fold words ``(v, 8)`` or one ``(1, 8)`` row
 for every lane, field elements ``(n, 8)`` int32, accumulators
-``(k, 4, 8)``.  Outputs are canonical.
+``(k, 4, 8)``, Poseidon states ``(B, w, 8)`` and witnesses ``(B, W, 8)``
+int32 (canonical words mod l).  Outputs are canonical.
 
 Kernel notes (what each replaces, what bounds it on an H100, what its
 design does about that):
@@ -240,6 +241,21 @@ multiply).  Design: one thread per element; mod p is ``fe_mul`` then
 base 2^32 (``sc_mul_canon``), the plain version the same reduction over
 int64 word limbs (``field.mul_mod_plain``).
 
+``poseidon_permute`` / ``poseidon_chain`` (one template, ``poseidon_perm``,
+in ``csrc/poseidon.cu``) replace ``pallas_field.mul_fq`` as the port's
+Poseidon used it (three launches a round over 288, 48 or 8 elements) and
+the JAX package's jitted ``DevicePoseidon._permute`` (ops/poseidon.py:62,
+one XLA program): every round of a permutation in one launch, and
+``parallel.pipeline.witness_transform``'s chain of 2:1 hashes in one
+launch.  Bound: the mod-l products' 32-bit multiplies, and at the chain's
+8 rows the latency of a row's dependent products.  Design: a group of 8
+lanes a state row, lane i holding st[i]; the MDS row by shuffles, its w
+products summed unreduced and reduced once (``sc_mul_canon``'s Barrett
+reduction takes any value below 2^512); round keys, MDS and round mask
+staged in shared memory once a block; the chain's accumulator stays in
+registers.  The plain versions are the round loop the port ran before,
+on ``field.mul_mod_plain``: equal words.
+
 Every launch makes its tensors' device current first (``_launch``): the
 library launches on the calling thread's current device, and a pool
 thread or a backend on a second card need not have it current.
@@ -264,6 +280,7 @@ LAUNCHES = {
     "msm_grid_local": 0,
     "padd": 0, "pdbl": 0, "smul_lanes": 0, "msm_block_totals": 0,
     "msm_chunk_acc": 0, "fold_grid": 0, "mul_fp": 0, "mul_fq": 0,
+    "poseidon_permute": 0, "poseidon_chain": 0,
 }
 _COUNT_LOCK = threading.Lock()  # batched IPP rounds launch from a pool
 TBL5 = 16
@@ -324,7 +341,8 @@ def _launch(name: str, dev: torch.device, entry: str, *args,
             count: bool = True) -> None:
     """Call the library's entry point `entry` with `args` and the current
     stream of `dev`, raise if the launch failed, and (unless `count` is
-    False: the test entry ``fe_mul_test``) count it under `name`.  The
+    False: the test entries ``fe_mul_test``, ``sc_mul_test``) count it
+    under `name`.  The
     library launches on the calling thread's current device, which need
     not be `dev` (a pool thread, a backend on a second card), so `dev` is
     made current for the call: in torch, which restores the thread's
@@ -1216,3 +1234,151 @@ def mul_fp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mul_fq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(n, 8) = a * b mod l, canonical, for any words below 2^256."""
     return _mul_launch("mul_fq", mul_fq_plain, a, b)
+
+
+# ------------------------------------------------------------- Poseidon
+# csrc/poseidon.cu's S-boxes by number, and its limits: PS_LANES lanes a
+# state row, PS_MAX_SHARED bytes of constants a block (the test suite holds
+# these equal to the kernel's #defines)
+POSEIDON_SBOXES = ("cube", "inverse")
+POSEIDON_MAX_WIDTH = 8
+POSEIDON_MAX_SHARED = 232_448
+
+
+def _pow_l_plain(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e mod l (e >= 1), square and multiply from the top bit."""
+    acc = x
+    for bit in bin(e)[3:]:
+        acc = mul_fq_plain(acc, acc)
+        if bit == "1":
+            acc = mul_fq_plain(acc, x)
+    return acc
+
+
+def _sbox_plain(x: torch.Tensor, sbox: str) -> torch.Tensor:
+    if sbox == "cube":
+        return mul_fq_plain(mul_fq_plain(x, x), x)
+    return _pow_l_plain(x, F.L - 2)  # inv(0) == 0
+
+
+def poseidon_permute_plain(state, round_keys, mds, full_mask, sbox: str
+                           ) -> torch.Tensor:
+    """(B, w, 8): each round adds its keys, applies the S-box to every
+    lane (full round) or to the last (partial), and mixes with the MDS
+    matrix, st'[i] = sum_j M[i][j] * st[j] mod l."""
+    st = state
+    for keys, full in zip(round_keys, full_mask.tolist()):
+        st = F.FQ.add(st, keys)
+        if full:
+            st = _sbox_plain(st, sbox)
+        else:
+            st = torch.cat([st[:, :-1], _sbox_plain(st[:, -1:], sbox)], dim=1)
+        st = F.FQ.sum(mul_fq_plain(mds[None], st[:, None]), dim=-2)
+    return st
+
+
+def poseidon_chain_plain(witness, round_keys, mds, full_mask, sbox: str
+                         ) -> torch.Tensor:
+    """(B, 8): acc <- hash_2(acc, witness[:, i]) for i = 1..W-1, from acc =
+    witness[:, 0]; each hash lane 1 of the permuted 2:1 hash state."""
+    from .poseidon import hash_state  # the hash layout; imports this module
+
+    acc = witness[:, 0]
+    for i in range(1, witness.shape[1]):
+        state = hash_state(torch.stack([acc, witness[:, i]], dim=1),
+                           mds.shape[0])
+        acc = poseidon_permute_plain(state, round_keys, mds, full_mask,
+                                     sbox)[:, 1]
+    return acc.contiguous()
+
+
+def _poseidon_consts(round_keys, mds, full_mask, sbox: str, dev,
+                     min_width: int) -> tuple[int, int, int]:
+    """(w, R, the S-box's number) after checking the constants."""
+    w = mds.shape[0] if isinstance(mds, torch.Tensor) and mds.dim() == 3 else 0
+    if not min_width <= w <= POSEIDON_MAX_WIDTH:
+        raise ValueError(f"poseidon: width {w}, the kernel takes "
+                         f"{min_width}..{POSEIDON_MAX_WIDTH}")
+    R = round_keys.shape[0] if isinstance(round_keys, torch.Tensor) else 0
+    _check(round_keys, "round_keys", (R, w, 8), dev)
+    _check(mds, "mds", (w, w, 8), dev)
+    _check(full_mask, "full_mask", (R,), dev)
+    if sbox not in POSEIDON_SBOXES:
+        raise ValueError(f"poseidon: S-box {sbox!r}, expected one of "
+                         f"{POSEIDON_SBOXES}")
+    if 4 * (8 * R * w + 8 * w * w + R) > POSEIDON_MAX_SHARED:
+        raise ValueError(f"poseidon: {R} rounds of width {w} do not fit a "
+                         f"block's shared memory")
+    return w, R, POSEIDON_SBOXES.index(sbox)
+
+
+def poseidon_permute(state: torch.Tensor, round_keys: torch.Tensor,
+                     mds: torch.Tensor, full_mask: torch.Tensor, sbox: str
+                     ) -> torch.Tensor:
+    """(B, w, 8) new tensor: every state row through all R rounds
+    (``poseidon_permute_plain``) in one launch; full_mask ``(R,)`` int32
+    (non-zero: a full round), w from 2 to 8.  State, round keys
+    ``(R, w, 8)`` and MDS ``(w, w, 8)`` must be canonical words mod l
+    (unchecked: the kernel's sums and its single conditional subtraction
+    rely on it)."""
+    dev = state.device
+    w, R, number = _poseidon_consts(round_keys, mds, full_mask, sbox, dev, 2)
+    B = state.shape[0]
+    _check(state, "state", (B, w, 8), dev)
+    if _route(dev) == "plain":
+        return poseidon_permute_plain(state, round_keys, mds, full_mask, sbox)
+    out = torch.empty((B, w, 8), dtype=torch.int32, device=dev)
+    _launch("poseidon_permute", dev, "bp_poseidon_permute", _ptr(state),
+            _ptr(out), _ptr(round_keys), _ptr(mds), _ptr(full_mask), B, w, R,
+            number)
+    return out
+
+
+def poseidon_chain(witness: torch.Tensor, round_keys: torch.Tensor,
+                   mds: torch.Tensor, full_mask: torch.Tensor, sbox: str
+                   ) -> torch.Tensor:
+    """(B, 8) new tensor: each witness row (W >= 1 words) folded by the 2:1
+    hash (``poseidon_chain_plain``) in one launch, the accumulator never
+    leaving the card; w from 4 to 8.  Witness and constants must be
+    canonical words mod l, as for ``poseidon_permute`` (unchecked)."""
+    dev = witness.device
+    w, R, number = _poseidon_consts(round_keys, mds, full_mask, sbox, dev, 4)
+    B, W = witness.shape[:2] if witness.dim() == 3 else (0, 0)
+    if W < 1:
+        raise ValueError(f"poseidon_chain: witness shape {tuple(witness.shape)}")
+    _check(witness, "witness", (B, W, 8), dev)
+    if _route(dev) == "plain":
+        return poseidon_chain_plain(witness, round_keys, mds, full_mask, sbox)
+    out = torch.empty((B, 8), dtype=torch.int32, device=dev)
+    _launch("poseidon_chain", dev, "bp_poseidon_chain", _ptr(witness),
+            _ptr(out), _ptr(round_keys), _ptr(mds), _ptr(full_mask), B, W, w,
+            R, number)
+    return out
+
+
+def sc_mul_test_plain(a, b, reps: int = 1) -> torch.Tensor:
+    """(n, 8) canonical: a * b^reps mod l."""
+    x = a
+    for _ in range(reps):
+        x = mul_fq_plain(x, b)
+    return x
+
+
+def sc_mul_test(a: torch.Tensor, b: torch.Tensor, reps: int = 1
+                ) -> torch.Tensor:
+    """The depth probe of ``csrc/poseidon.cu``'s mod-l multiply: (n, 8)
+    words, `reps` dependent products deep (``sc_mul_test_plain``).  Not a
+    kernel of any path: it times one dependent ``sc_mul_canon`` (the
+    Poseidon chain's floor); counts no launch."""
+    dev = a.device
+    n = a.shape[0]
+    _check(a, "a", (n, 8), dev)
+    _check(b, "b", (n, 8), dev)
+    if reps < 1:
+        raise ValueError(f"sc_mul_test: reps {reps}")
+    if _route(dev) == "plain":
+        return sc_mul_test_plain(a, b, reps)
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    _launch("sc_mul_test", dev, "bp_sc_mul_test", _ptr(a), _ptr(b), _ptr(out),
+            n, reps, count=False)
+    return out

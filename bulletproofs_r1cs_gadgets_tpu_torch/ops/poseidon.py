@@ -6,13 +6,16 @@ reference-exact); this module is the throughput path: many independent
 permutations per call (bulk sparse-Merkle-tree node hashing, batched
 witness generation).
 
-State is ``(batch, width, 8)`` FQ words (:class:`.field.LimbField`).  Each
-round adds its keys (plain torch mod l), applies the S-box (the cube: two
-``mul_fq`` launches; the inverse: a Fermat power, one launch per square
-and per set bit) to every lane in a full round and to the last lane in a
-partial round, and mixes with the MDS matrix: one ``mul_fq`` launch over
-``(batch, width, width)`` and a plain mod-l sum.  A Python loop over the
-rounds takes the place of the JAX package's ``lax.scan``.
+State is ``(batch, width, 8)`` FQ words (:class:`.field.LimbField`),
+canonical mod l.  Each round adds its keys, applies the S-box (the cube or
+the inverse, a Fermat power) to every lane in a full round and to the last
+lane in a partial round, and mixes with the MDS matrix.  Where the JAX
+package compiles the rounds' ``lax.scan`` into one XLA program, the port
+runs them in one kernel launch: ``permute`` (and ``hash_2`` / ``hash_4``)
+launch ``poseidon_permute``, and ``chain`` (a Merkle path's fold of 2:1
+hashes) launches ``poseidon_chain`` once for all its hashes
+(``csrc/poseidon.cu``, ``ops/cuda_curve.py``).  A CPU state runs the
+kernels' plain versions.  Widths 2 to 8 (the chain 4 to 8).
 """
 
 from __future__ import annotations
@@ -20,7 +23,21 @@ from __future__ import annotations
 import torch
 
 from ..gadgets.poseidon_params import PoseidonParams
-from .field import FQ, ints_to_words
+from . import cuda_curve as cc
+from .field import ints_to_words
+
+PAD = 101  # the hash's padding lane (gadget_poseidon.rs:428)
+
+
+def hash_state(lanes: torch.Tensor, width: int) -> torch.Tensor:
+    """(B, width, 8): the k:1 hash's input state [0, x_1 .. x_k, 101, 0, ...]
+    for lanes (B, k, 8), k + 2 <= width (gadget_poseidon.rs:428 at k = 2;
+    ``csrc/poseidon.cu``'s chain builds the same state for k = 2)."""
+    b, k = lanes.shape[:2]
+    state = torch.zeros((b, width, 8), dtype=torch.int32, device=lanes.device)
+    state[:, 1 : k + 1] = lanes
+    state[:, k + 1, 0] = PAD
+    return state
 
 
 class DevicePoseidon:
@@ -29,7 +46,7 @@ class DevicePoseidon:
 
     def __init__(self, params: PoseidonParams, sbox: str = "inverse",
                  device="cuda"):
-        assert sbox in ("cube", "inverse")
+        assert sbox in cc.POSEIDON_SBOXES
         self.params = params
         self.sbox = sbox
         self.width = params.width
@@ -45,40 +62,29 @@ class DevicePoseidon:
         self._mds = torch.from_numpy(mds.reshape(w, w, 8).copy()).to(self.device)
         fb, pr, fe = (params.full_rounds_beginning, params.partial_rounds,
                       params.full_rounds_end)
-        self._full = [True] * fb + [False] * pr + [True] * fe
+        self._full_mask = torch.tensor([1] * fb + [0] * pr + [1] * fe,
+                                       dtype=torch.int32, device=self.device)
 
-    def _sbox_apply(self, x: torch.Tensor) -> torch.Tensor:
-        if self.sbox == "cube":
-            return FQ.mul(FQ.square(x), x)
-        return FQ.inv(x)
+    def _consts(self) -> tuple:
+        return self._round_keys, self._mds, self._full_mask, self.sbox
 
     def permute(self, state: torch.Tensor) -> torch.Tensor:
-        """(batch, width, 8) -> same, one full permutation."""
-        st = state
-        for keys, full in zip(self._round_keys, self._full):
-            st = FQ.add(st, keys)
-            if full:
-                st = self._sbox_apply(st)
-            else:  # partial round: the S-box on the last lane only
-                st = torch.cat([st[:, :-1], self._sbox_apply(st[:, -1:])], dim=1)
-            # MDS: st'[i] = sum_j M[i][j] * st[j]
-            st = FQ.sum(FQ.mul(self._mds[None], st[:, None]), dim=-2)
-        return st
-
-    def _pad(self, b: int) -> tuple[torch.Tensor, torch.Tensor]:
-        zero = FQ.zeros((b, 1), self.device)
-        pad = FQ.constant(101, self.device).expand(b, 1, 8)
-        return zero, pad
+        """(batch, width, 8) -> same, one full permutation.  The state must
+        be canonical words mod l (unchecked: the kernel relies on it)."""
+        return cc.poseidon_permute(state.contiguous(), *self._consts())
 
     # the batched 2:1 hash (input layout of gadget_poseidon.rs:428)
     def hash_2(self, xl: torch.Tensor, xr: torch.Tensor) -> torch.Tensor:
         """xl, xr: (batch, 8) -> (batch, 8)."""
-        zero, pad = self._pad(xl.shape[0])
-        state = torch.cat([zero, xl[:, None], xr[:, None], pad, zero, zero],
-                          dim=1)
-        return self.permute(state)[:, 1]
+        return self.permute(hash_state(torch.stack([xl, xr], dim=1),
+                                       self.width))[:, 1]
 
     def hash_4(self, x: torch.Tensor) -> torch.Tensor:
         """x: (batch, 4, 8) -> (batch, 8)."""
-        zero, pad = self._pad(x.shape[0])
-        return self.permute(torch.cat([zero, x, pad], dim=1))[:, 1]
+        return self.permute(hash_state(x, self.width))[:, 1]
+
+    def chain(self, witness: torch.Tensor) -> torch.Tensor:
+        """(batch, W, 8) -> (batch, 8): acc <- hash_2(acc, witness[:, i])
+        for i = 1..W-1 from acc = witness[:, 0], in one launch.  The
+        witness must be canonical words mod l (unchecked)."""
+        return cc.poseidon_chain(witness.contiguous(), *self._consts())

@@ -6,9 +6,10 @@ real flagship primitives:
 
 * witness transform: a batched Poseidon Merkle-path recompute (width 6,
   rounds 4+140+4: the VSMT-2 hash geometry of ``models/vsmt2.py``) that
-  folds each proof's leaf up its path with ``DevicePoseidon.hash_2``, with
-  the cube S-box as in the reference (the proving stack itself runs the
-  inverse S-box end to end);
+  folds each proof's leaf up its path with the 2:1 hash
+  (``DevicePoseidon.chain``: one ``poseidon_chain`` launch for the whole
+  path), with the cube S-box as in the reference (the proving stack
+  itself runs the inverse S-box end to end);
 * partial MSM: a commitment partial, one ``smul_lanes`` scalar multiply
   per point and a ``padd`` halving tree.
 
@@ -16,7 +17,8 @@ real flagship primitives:
 devices, where the reference runs them under ``shard_map``:
 
 * witness: split over the batch rows; each row hashes its own proofs
-  with its first device's hasher (data parallel);
+  with its first device's hasher, one ``poseidon_chain`` launch a row
+  (data parallel);
 * points and bits: split over the points devices, one partial MSM each
   (tensor parallel), the partials gathered onto the mesh's first device
   and added with ``padd`` (the reference's ``all_gather`` and
@@ -56,13 +58,9 @@ def flagship_hasher(device="cuda") -> DevicePoseidon:
 def witness_transform(witness: torch.Tensor) -> torch.Tensor:
     """Batched Merkle-path recompute: (B, W, 8) FQ words, per proof lane 0
     the leaf and lanes 1..W-1 the path nodes, folded with the Poseidon 2:1
-    hash acc <- H(acc, node_i).  Returns (B, 8) root digests
+    hash acc <- H(acc, node_i) in one launch.  Returns (B, 8) root digests
     (models/vsmt2.py:35-158)."""
-    h = flagship_hasher(witness.device)
-    acc = witness[:, 0]
-    for i in range(1, witness.shape[1]):
-        acc = h.hash_2(acc, witness[:, i])
-    return acc
+    return flagship_hasher(witness.device).chain(witness)
 
 
 def partial_msm(points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:

@@ -98,6 +98,20 @@ cold prove and three warm proves and verifies (wall ms, synchronised;
 the proof checked byte for byte against ``TorchBackend``'s and by the
 verifier), and ``MsmEngine.msm`` at 2^16 (phase 10 (d)), five calls.  A
 copy of the script times an older tree the same way.
+
+    python3 chip_profile.py --step [--out step.json]
+
+runs ``proving_step`` at ``chip_smoke.py`` phase 10 (b)'s shape (B = 8
+proofs x W = 254 Merkle-path lanes, the cube Poseidon 2:1 hash, and
+2^16 points x 253 bits) once after a small warm-up call: its wall time
+(synchronised), its launches by kernel and a SHA-256 of its outputs'
+bytes (equal across trees when both compute the same step).  It reads
+only ``proving_step``, the launch counts and phase 10 (b)'s constants, so
+a copy of the script placed in an older tree times that tree (for turns
+parent, change, change, parent in one call).  Where the hasher has
+``chain``, it also times ``witness_transform``'s fold in turns as one
+``chain`` launch and as W - 1 ``hash_2`` calls (``chain_ms``,
+``hash_2_loop_ms``; each digest checked against the step's).
 """
 
 from __future__ import annotations
@@ -527,6 +541,55 @@ def oracle_path(bp, torch, cs, cc, ck, F, gens) -> dict:
     return out
 
 
+def step(bp, torch, cs, cc, F) -> dict:
+    """proving_step at phase 10 (b)'s shape, as ``--step`` describes."""
+    import hashlib
+
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.field import FQ
+    from bulletproofs_r1cs_gadgets_tpu_torch.parallel import pipeline
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(cs.SEED + 10)
+    B, W, N = cs.ORACLE_B, cs.ORACLE_W, cs.ORACLE_MSM_N
+    vals = [int.from_bytes(rng.bytes(32), "little") % bp.L
+            for _ in range(B * W)]
+    witness = FQ.to_device(vals, dev).reshape(B, W, 8)
+    gens = bp.BulletproofGens(N)
+    points = F.from_raw(gens.G_raw(N), dev)
+    rows = cs.random_scalar_rows(bp, N, rng)
+    bitw = torch.from_numpy(
+        np.unpackbits(rows.view(np.uint8), axis=1, bitorder="little")[:, :253]
+        .astype(np.int32)).to(dev)
+    pipeline.proving_step(witness[:, :2].contiguous(), points[:16],
+                          bitw[:16])  # warm-up: the hasher, first launches
+    cc.reset_launches()
+    (digest, commitment), ms = cs.timed_once(
+        torch, lambda: pipeline.proving_step(witness, points, bitw))
+    sha = hashlib.sha256(digest.cpu().numpy().tobytes()
+                         + commitment.cpu().numpy().tobytes()).hexdigest()
+    out = dict(B=B, W=W, N=N, step_ms=ms, outputs_sha256=sha,
+               launches={k: v for k, v in cc.LAUNCHES.items() if v})
+    h = pipeline.flagship_hasher(dev)
+    if hasattr(h, "chain"):
+        # witness_transform's two designs in turns: one chain launch, and
+        # W - 1 hash_2 calls (one permute launch each)
+        def loop():
+            acc = witness[:, 0]
+            for i in range(1, W):
+                acc = h.hash_2(acc, witness[:, i])
+            return acc
+
+        for key, fn in (("chain_ms", lambda: h.chain(witness)),
+                        ("hash_2_loop_ms", loop), ("hash_2_loop_ms", loop),
+                        ("chain_ms", lambda: h.chain(witness))):
+            got, t = cs.timed_once(torch, fn)
+            assert torch.equal(got, digest), f"{key}: digest differs"
+            out.setdefault(key, []).append(t)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this file")
@@ -542,6 +605,8 @@ def main() -> int:
                     help="profile these routes only (comma-separated), no batch")
     ap.add_argument("--batch", action="store_true",
                     help="run part 4 (the batch of 8) only")
+    ap.add_argument("--step", action="store_true",
+                    help="time proving_step at phase 10 (b)'s shape only")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -566,6 +631,13 @@ def main() -> int:
     build.load()
     if args.sass:
         print(json.dumps(sass(build)), flush=True)
+        return 0
+    if args.step:
+        out.update(step(bp, torch, cs, cc, F))
+        print(json.dumps(out), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
         return 0
     gens = bp.BulletproofGens(cs.GENS_N)
     if args.walkers or args.kernels or args.oracle:

@@ -61,12 +61,20 @@ non-zero and prints no result):
    nonzero acc, fold_grid from 2^18 into 2^17 with per-lane words (the edge scalars 0,
    1, L - 1) and with constant rows, and at 2,048 and 2^13 outputs under
    both designs, mul_fq / mul_fp over 2^20 elements with the edges 0, 1,
-   m - 1, 2^256 - 1), and on a subset against the host MSM, scalar
-   multiplication or Python ints.  Tolerance: exact (the same group
+   m - 1, 2^256 - 1 (timed too at their callers' sizes: mul_fq's 288, 48
+   and 8 elements, mul_fp's 2^18); poseidon_permute / poseidon_chain
+   (csrc/poseidon.cu): the flagship cube permutation (width 6, 4 + 140 +
+   4 rounds) over 2^14 rows under its round mask and all full, the
+   inverse S-box over 1,024 rows under a mixed and an all-full mask,
+   widths 2 and 8, the chain at 8 rows x 4 hashes (cube) and x 2
+   (inverse), edge rows of 0, 1 and l - 1, and the depth probe
+   sc_mul_test (one dependent mod-l multiply's latency)), and on a
+   subset against the host MSM, scalar multiplication, the host Poseidon
+   or Python ints.  Tolerance: exact (the same group
    elements, ``point_err`` 0: the windowed MSM and the niels fold add in
    another order than their plain versions, and so do msm_lane, fold_c*,
    smul_lanes, the oracle MSMs and fold_grid; equal table words; equal
-   words for the other device-oracle kernels).  Every walk of the window
+   words for the other device-oracle kernels and the Poseidon kernel).  Every walk of the window
    walkers (msm_win5, msm_win_pair, msm_win) and of the windowed w4 MSM
    (msm_w4, msm_w4_pair, msm_grid, msm_grid_local, which end in the
    walkers' Horner) is timed, and split into its Horner tail (the
@@ -151,7 +159,11 @@ non-zero and prints no result):
    ``BulletproofGens``' G (the products on the card by ``FP.mul``); (d)
    ``MsmEngine.msm`` at 2^16 against the host MSM and
    ``scalar_mul_shared`` over 2^14 points against host scalar
-   multiplication.  Each part must launch its kernels.
+   multiplication; (e) ``DevicePoseidon`` with the inverse S-box over
+   2^14 2:1 node hashes and 2^12 4:1 hashes (one ``poseidon_permute``
+   launch each), on rows against the host Poseidon.  Each part must
+   launch its kernels; (b) must launch ``poseidon_chain`` once and
+   ``mul_fq`` never.
 11. the gadget zoo through ``TorchBackend("cuda")`` on the default route,
    at the reference's sizes: the 64-bit bound check and range proof, set
    membership, set non-membership and ``set_membership_1`` over 32
@@ -176,8 +188,8 @@ non-zero and prints no result):
    byte-identical to phase 5's, one ``batch_verify`` of the four through
    it; (a) and (b) must launch ``msm_chunk_acc``, ``padd`` and
    ``fold_grid``; (c) ``make_sharded_step`` on that mesh at B = 8 proofs
-   x W = 32 (phase 10 (b) runs W = 254), 2^16 points x 253 bits: digests
-   equal to the host Poseidon chain, the checksum their sum mod l, the
+   x W = 254, 2^16 points x 253 bits (one ``poseidon_chain`` launch a
+   batch row, no ``mul_fq``): digests equal to the host Poseidon chain, the checksum their sum mod l, the
    total the host MSM; (d) ``graft_entry.dryrun_multichip(4)``, its five
    phase lines (A, B, B2, C, D).
 
@@ -186,7 +198,8 @@ after.  The third line from the end is the card's nvidia-smi name and
 power limit, the line before the last holds the per-kernel JSON record
 (``launches`` summed over phases 4 (both parts), 5, 6, 7, 8, 9, 10, 11
 and 12,
-every kernel at least once;
+every kernel at least once but ``mul_fq``, which no path calls
+(``OFF_PATH``);
 ``bound_ms``
 the larger of the work's 32-bit multiplies over the card's multiply rate
 and its bytes over 3.35 TB/s, counted from this run's inputs; the
@@ -209,6 +222,16 @@ fold_bits gives its chain floor, ``chain_ops`` dependent cooperative
 operations, and ``chain_ms``, computed, not timed: ``chain_ops`` times
 one cooperative operation's latency as this run measured it in the w4
 Horner tail (its ``tail_ms`` over its HORNER_OPS operations);
+poseidon_permute its record at 2^14 rows, poseidon_chain at 8 x 4
+hashes and (``*_253``) at phase 10 (b)'s 8 x 253, each bound counted
+from the kernel's work (the MDS sums reduced once), beside
+``bound_jax_ms`` / ``jax_int_muls`` from the JAX program's (every MDS
+product reduced), and a chain floor,
+``chain_ops`` dependent mod-l multiplies a row (three a cube round)
+times the depth probe's ``sc_mul_latency_ns``; mul_fq / mul_fp their
+times (CUDA events over back-to-back calls), device times a launch
+(``device_ms_288`` ..., the profiler's) and byte bounds at their callers'
+sizes (``ms_288`` ...);
 ``library_ms`` null: no PyTorch call computes these functions), and the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -228,6 +251,7 @@ _W4 = f"{PKG}/csrc/msm_fold.cu"
 _WIN = f"{PKG}/csrc/win.cu"
 _W3H = f"{PKG}/csrc/fold_w3h.cu"
 _OR = f"{PKG}/csrc/oracle.cu"
+_PS = f"{PKG}/csrc/poseidon.cu"
 SOURCES = {
     "msm_w4": _WIN, "msm_w4_pair": _WIN, "fold_bits": _W4, "msm_lane": _WIN,
     "table_w5": _WIN, "msm_win5": _WIN, "table_w4": _WIN,
@@ -238,6 +262,7 @@ SOURCES = {
     "padd": _OR, "pdbl": _OR, "smul_lanes": _W4,
     "msm_block_totals": _WIN,  # the windowed w4 MSM over bit words
     "msm_chunk_acc": _WIN, "fold_grid": _W4, "mul_fp": _OR, "mul_fq": _OR,
+    "poseidon_permute": _PS, "poseidon_chain": _PS,  # poseidon_perm's entries
 }
 _PC = "bulletproofs_r1cs_gadgets_tpu/ops/pallas_curve.py"
 REPLACES = {
@@ -264,13 +289,22 @@ REPLACES = {
     "fold_grid": f"{_PC}:865",
     "mul_fp": "bulletproofs_r1cs_gadgets_tpu/ops/pallas_field.py:201",
     "mul_fq": "bulletproofs_r1cs_gadgets_tpu/ops/pallas_field.py:200",
+    # mul_fq as the port's Poseidon called it, three launches a round
+    "poseidon_permute": "bulletproofs_r1cs_gadgets_tpu/ops/pallas_field.py:200",
+    "poseidon_chain": "bulletproofs_r1cs_gadgets_tpu/ops/pallas_field.py:200",
 }
 # the kernels the route flags add (ported in the same slice): every one
 # must launch in phase 6 and on the full-width routes
 FLAG_KERNELS = ("fold_c", "fold_c_comb", "msm_win", "msm_grid")
 # the device-oracle path's kernels (phase 10; TorchBackend launches none)
 ORACLE_KERNELS = ("padd", "pdbl", "smul_lanes", "msm_block_totals",
-                  "msm_chunk_acc", "fold_grid", "mul_fp", "mul_fq")
+                  "msm_chunk_acc", "fold_grid", "mul_fp", "mul_fq",
+                  "poseidon_permute", "poseidon_chain")
+# kernels no path calls: mul_fq's one caller on a path, the port's
+# Poseidon, runs poseidon_perm since it was written (and no path of the JAX
+# package calls the Pallas mul_fq); phase 2 still holds it to its plain
+# version and times it
+OFF_PATH = ("mul_fq",)
 KERNELS = tuple(REPLACES)
 GOLDEN = os.path.join(ROOT, PKG, "golden", "vsmt2_depth4.json")
 SEED = 20261016
@@ -365,7 +399,8 @@ def check_route(tag: str, ran: dict, route, combined: bool = True) -> None:
 INT_MULS_PER_FE_MUL = 2 * 73
 INT_MULS = {"dbl": 8 * INT_MULS_PER_FE_MUL, "add": 9 * INT_MULS_PER_FE_MUL,
             "nadd": 8 * INT_MULS_PER_FE_MUL, "fe": INT_MULS_PER_FE_MUL,
-            "sq": 2 * 45}
+            "sq": 2 * 45, "sc": 2 * (64 + 81 + 45),
+            "sc_prod": 2 * 64, "sc_red": 2 * (81 + 45)}
 HBM_BYTES_PER_S = 3.35e12
 CARD = {"int_muls_per_s": None}
 
@@ -954,6 +989,7 @@ def phase_kernels(bp, torch, cc, F, gens, dev):
     records["msm_grid_local"] = phase_kernel_grid_local(bp, torch, cc, F,
                                                         gens, dev, rng)
     records.update(phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng))
+    records.update(phase_kernels_poseidon(bp, torch, cc, F, dev, rng))
     log("walkers " + json.dumps(WALKS))
     phase_fe_mul(bp, torch, cc, F, dev, rng)
     for name, r in records.items():
@@ -2350,6 +2386,10 @@ SMUL_N = 1 << 14  # smul_lanes' second shape; phase 10 (d)'s scalar_mul_shared p
 TOTALS_N = (1 << 16) + 1000  # msm_block_totals: 33 blocks, the last ragged
 GRID_V = (2048, 1 << 13)  # fold_grid outputs of the device-oracle IPP's rounds 7 and 5
 FIELD_N = 1 << 20  # mul_fq / mul_fp elements
+# the elements a launch of each takes on the paths that call it: mul_fq as
+# the port's Poseidon called it before poseidon_perm (the MDS product, a
+# full round's S-box, a partial round's), mul_fp in the 2^18 derivation
+FIELD_CALLER_N = {"mul_fq": (288, 48, 8), "mul_fp": (1 << 18,)}
 SC_PRODUCTS = 64 + 81 + 45  # mul_fq's 32 x 32 -> 64 products (Barrett)
 
 
@@ -2640,6 +2680,179 @@ def phase_kernels_oracle(bp, torch, cc, F, gens, dev, rng):
             plain_ms=plain_ms,
             **bound(dict(fe=n * prods / 73), 3 * 32 * n),
         )
+        for k in FIELD_CALLER_N[name]:  # at the callers' sizes: the events
+            # over back-to-back calls (the wrapper's host work a call sets
+            # them) and the profiler's device time a launch
+            ak, bk = a[:k].contiguous(), b[:k].contiguous()
+            records[name][f"ms_{k}"] = time_ms(torch, lambda: kern(ak, bk), 200)
+            records[name][f"device_ms_{k}"] = sum(
+                v for kname, v in kernel_ms(torch, lambda: kern(ak, bk), 20).items()
+                if f"{name}_kernel" in kname)
+            records[name][f"bound_ms_{k}"] = bound(
+                dict(fe=k * prods / 73), 3 * 32 * k)["bound_ms"]
+    return records
+
+
+# ---- poseidon_perm (csrc/poseidon.cu): the flagship hash geometry, width
+# 6 and 4 + 140 + 4 rounds
+PS_BULK = 1 << 14  # poseidon_permute rows: the bulk node hashing (timed)
+PS_SMALL = 1024  # rows of the inverse S-box's and the other widths' cases
+PS_CHAIN_B, PS_CHAIN_W = 8, 5  # poseidon_chain held to its plain version: 8 x 4 hashes
+PS_INV_W = 3  # the inverse S-box's chain: 8 x 2 hashes
+SC_PROBE_N, SC_PROBE_REPS = 1 << 14, 256  # the depth probe: elements, products deep
+# products a mod-l S-box makes: the cube 2; the inverse l - 2's 252
+# squarings and a multiply for each of its set bits below the top
+SBOX_PRODUCTS = {"cube": 2, "inverse": 252 + bin((1 << 252) + 27742317777372353535851937790883648491).count("1") - 1}
+
+
+def poseidon_work(w: int, mask: list, sbox: str, hashes: int) -> tuple:
+    """(ops for bound() of `hashes` permutations as the kernel computes
+    them: the S-boxes' mod-l multiplies, the MDS's w x w 256 x 256-bit
+    products summed unreduced and one reduction a lane a round; ops as the
+    JAX program makes them, every MDS product reduced (bound_jax_ms); the
+    chain depth of one row: a round at least an S-box and one multiply
+    deep)."""
+    R, nfull = len(mask), sum(1 for f in mask if f)
+    boxes = hashes * (nfull * w + (R - nfull)) * SBOX_PRODUCTS[sbox]
+    mix = hashes * R * w * w
+    kernel = dict(sc=boxes, sc_prod=mix, sc_red=hashes * R * w)
+    return kernel, dict(sc=boxes + mix), hashes * R * (SBOX_PRODUCTS[sbox] + 1)
+
+
+def phase_kernels_poseidon(bp, torch, cc, F, dev, rng):
+    """poseidon_permute / poseidon_chain word for word against their plain
+    versions on the same CUDA inputs: the flagship cube permutation over
+    2^14 rows under its round mask (4 + 140 + 4) and all full, the
+    inverse S-box over 2^14 rows under a mixed mask and 1,024 under an
+    all-full one (three and two of the flagship's rounds: its plain
+    version is a Fermat power of plain products a round), widths 2 and 8, the chain at 8 x 4
+    hashes (cube) and 8 x 2 (inverse); edge rows hold 0, 1 and l - 1; a
+    few rows against the host permutation and the host Poseidon_hash_2
+    chain.  The depth probe (sc_mul_test) is held to its plain version
+    and gives one dependent sc_mul_canon's latency.  Timed (CUDA events):
+    the permute at 2^14 rows, the chain at 8 x 4 and 8 x 253 hashes
+    (phase 10 (b)'s), with their bounds and chain floors."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.poseidon import (
+        Poseidon_hash_2,
+        Poseidon_permutation,
+        SboxType,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.poseidon import DevicePoseidon
+
+    L = bp.L
+    params = bp.PoseidonParams(6, 4, 4, 140)
+    rk, mds, mask, _ = DevicePoseidon(params, "cube", device=dev)._consts()
+    w, full = 6, torch.ones_like(mask)
+    flag_mask = mask.tolist()
+
+    def words(n, k):
+        """(n, k, 8) random canonical words, rows 0-2 holding 0, 1, l - 1."""
+        vals = [int.from_bytes(rng.bytes(32), "little") % L for _ in range(n * k)]
+        for r in range(min(n, 3)):
+            vals[r * k : (r + 1) * k] = [[0, 1, L - 1][(r + j) % 3] for j in range(k)]
+        return torch.from_numpy(F.ints_to_words(vals).reshape(n, k, 8).copy()).to(dev)
+
+    def same(name, got, plain_fn):
+        plain, ms = timed_once(torch, plain_fn)
+        assert torch.equal(got, plain), f"{name} != plain"
+        return ms
+
+    def nbytes(B, rows_in, rows_out, R, k):
+        return 32 * (B * rows_in + B * rows_out + R * k + k * k) + 4 * R
+
+    # the flagship cube permutation at 2^14 rows, both masks
+    state = words(PS_BULK, w)
+    out = {}
+    for tag, m in (("flagship", mask), ("all full", full)):
+        got = cc.poseidon_permute(state, rk, mds, m, "cube")
+        out[tag] = same(f"poseidon_permute cube {tag}", got, lambda: cc.poseidon_permute_plain(
+            state, rk, mds, m, "cube"))
+        if tag == "flagship":
+            host = [Poseidon_permutation([bp.Scalar(v) for v in F.words_to_ints(
+                state[i].cpu().numpy())], params, SboxType.Cube) for i in range(4)]
+            assert [F.words_to_ints(got[i].cpu().numpy()) for i in range(4)] == [
+                [x.v for x in h] for h in host], "poseidon_permute != host"
+    perm_plain_ms = out["flagship"]
+    # the inverse S-box over the flagship's keys: a mixed mask at 2^14 rows
+    # (the grid strides past its first pass, as phase 10 (e)'s launches do)
+    # and an all-full one at 1,024
+    small = state[:PS_SMALL].contiguous()
+    for m, st in (([1, 0, 1], state), ([1, 1], small)):
+        mt = torch.tensor(m, dtype=torch.int32, device=dev)
+        keys = rk[: len(m)].contiguous()
+        same(f"poseidon_permute inverse {m} {st.shape[0]} rows",
+             cc.poseidon_permute(st, keys, mds, mt, "inverse"),
+             lambda: cc.poseidon_permute_plain(st, keys, mds, mt, "inverse"))
+    # the kernel's narrowest and widest states, random constants
+    for k in (2, 8):
+        st_k, rk_k, mds_k = words(PS_SMALL, k), words(3, k), words(k, k)
+        mt = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+        same(f"poseidon_permute width {k}",
+             cc.poseidon_permute(st_k, rk_k, mds_k, mt, "cube"),
+             lambda: cc.poseidon_permute_plain(st_k, rk_k, mds_k, mt, "cube"))
+    # the chain: cube over the flagship rounds, inverse over three
+    wit = words(PS_CHAIN_B, PS_CHAIN_W)
+    got = cc.poseidon_chain(wit, rk, mds, mask, "cube")
+    chain_plain_ms = same("poseidon_chain cube", got, lambda: cc.poseidon_chain_plain(
+        wit, rk, mds, mask, "cube"))
+    for i in range(PS_CHAIN_B):
+        vals = F.words_to_ints(wit[i].cpu().numpy())
+        acc = bp.Scalar(vals[0])
+        for x in vals[1:]:
+            acc = Poseidon_hash_2(acc, bp.Scalar(x), params, SboxType.Cube)
+        assert F.words_to_ints(got[i : i + 1].cpu().numpy()) == [acc.v], \
+            f"poseidon_chain row {i} != host Poseidon_hash_2 chain"
+    wit3 = wit[:, :PS_INV_W].contiguous()
+    mt = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    keys = rk[:3].contiguous()
+    same("poseidon_chain inverse", cc.poseidon_chain(wit3, keys, mds, mt, "inverse"),
+         lambda: cc.poseidon_chain_plain(wit3, keys, mds, mt, "inverse"))
+
+    # the depth probe: one dependent mod-l multiply's latency
+    pa, pb = words(SC_PROBE_N, 1)[:, 0].contiguous(), words(SC_PROBE_N, 1)[:, 0].flip(0).contiguous()
+    for reps in (1, 64):
+        same(f"sc_mul_test {reps} deep", cc.sc_mul_test(pa, pb, reps),
+             lambda: cc.sc_mul_test_plain(pa, pb, reps))
+    a32, b32 = pa[:32].contiguous(), pb[:32].contiguous()
+    lat_ms = time_ms(torch, lambda: cc.sc_mul_test(a32, b32, SC_PROBE_REPS), 5) / SC_PROBE_REPS
+    log(f"  sc_mul_canon: {lat_ms * 1e6:.1f} ns a dependent product "
+        f"(32 elements x {SC_PROBE_REPS} deep)")
+
+    # times and bounds
+    records = {}
+    def bounded(hashes, nb):
+        """bound() of the kernel's work and bound_jax_ms, the JAX
+        program's, for `hashes` permutations moving `nb` bytes."""
+        kernel, jax_ops, depth = poseidon_work(w, flag_mask, "cube", hashes)
+        jax = bound(jax_ops, nb)
+        return dict(**bound(kernel, nb), bound_jax_ms=jax["bound_ms"],
+                    jax_int_muls=jax["int_muls"]), depth
+
+    b, depth = bounded(PS_BULK, nbytes(PS_BULK, w, w, len(flag_mask), w))
+    records["poseidon_permute"] = dict(
+        max_abs_err=0, rows=PS_BULK, plain_ms=perm_plain_ms,
+        ms=time_ms(torch, lambda: cc.poseidon_permute(state, rk, mds, mask, "cube"), 5),
+        **b, chain_ops=depth // PS_BULK, chain_ms=depth // PS_BULK * lat_ms)
+    rec = dict(max_abs_err=0, rows=PS_CHAIN_B, hashes=PS_CHAIN_W - 1,
+               plain_ms=chain_plain_ms,
+               ms=time_ms(torch, lambda: cc.poseidon_chain(wit, rk, mds, mask, "cube"), 5))
+    b, depth = bounded(PS_CHAIN_B * (PS_CHAIN_W - 1),
+                       nbytes(PS_CHAIN_B, PS_CHAIN_W, 1, len(flag_mask), w))
+    rec.update(b, chain_ops=depth // PS_CHAIN_B, chain_ms=depth // PS_CHAIN_B * lat_ms)
+    W = ORACLE_W
+    wit_full = words(ORACLE_B, W)
+    b, depth = bounded(ORACLE_B * (W - 1), nbytes(ORACLE_B, W, 1, len(flag_mask), w))
+    rec.update({f"ms_{W - 1}": time_ms(torch, lambda: cc.poseidon_chain(
+        wit_full, rk, mds, mask, "cube"), 3),
+        **{f"{k}_{W - 1}": v for k, v in b.items()},
+        f"chain_ops_{W - 1}": depth // ORACLE_B,
+        f"chain_ms_{W - 1}": depth // ORACLE_B * lat_ms})
+    rec["sc_mul_latency_ns"] = lat_ms * 1e6
+    records["poseidon_chain"] = rec
+    for name, r in records.items():
+        log(f"  {name}: " + json.dumps(r))
     return records
 
 
@@ -2648,7 +2861,9 @@ def phase_oracle(bp, torch, cc, F, gens, full, dev):
     proof through DeviceBackend("cuda"), (b) proving_step at B = 8,
     W = 254, N = 2^16 x 253 bits, (c) from_uniform_bytes over party 0's
     2^18 G seeds, (d) MsmEngine.msm at 2^16 and scalar_mul_shared over
-    2^14 points.  Each part's launches are counted from 0 and its wall time
+    2^14 points, (e) DevicePoseidon's bulk node hashing with the inverse
+    S-box: 2^14 2:1 hashes and 2^12 4:1 hashes, one poseidon_permute launch
+    each.  Each part's launches are counted from 0 and its wall time
     recorded."""
     import numpy as np
 
@@ -2678,6 +2893,7 @@ def phase_oracle(bp, torch, cc, F, gens, full, dev):
         missing = [k for k in need if not ran[k]]
         assert not missing, f"phase 10 {tag}: {missing} not launched"
         log(f"  ({tag}) launches { {k: v for k, v in ran.items() if v} }")
+        return ran
 
     # (a) the depth-253 proof through DeviceBackend, phase 4's prover / rng
     comp, tape, comms, prover, _ = full["case"]
@@ -2717,7 +2933,9 @@ def phase_oracle(bp, torch, cc, F, gens, full, dev):
     cc.reset_launches()
     (digest, commitment), out["b_step_ms"] = timed_once(
         torch, lambda: pipeline.proving_step(witness, points, bitw))
-    part("b", ("smul_lanes", "padd", "mul_fq"))
+    ran = part("b", ("smul_lanes", "padd", "poseidon_chain"))
+    assert ran["poseidon_chain"] == 1 and ran["mul_fq"] == 0, \
+        "proving_step: not one poseidon_chain launch and no mul_fq"
     params = pipeline.flagship_hasher(dev).params
     exp = []
     for r in vals:
@@ -2767,6 +2985,38 @@ def phase_oracle(bp, torch, cc, F, gens, full, dev):
     ], "scalar_mul_shared != host"
     log(f"  (d) MsmEngine.msm {n} points {out['d_msm_ms']:.1f} ms, "
         f"scalar_mul_shared {SMUL_N} points {out['d_shared_ms']:.1f} ms")
+
+    # (e) bulk node hashing: one level of 2^14 VSMT-2 nodes (the 2:1 hash,
+    # inverse S-box) and 2^12 4:1 hashes through DevicePoseidon
+    from bulletproofs_r1cs_gadgets_tpu_torch.gadgets.poseidon import (
+        Poseidon_permutation,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.poseidon import DevicePoseidon
+
+    hasher = DevicePoseidon(params, "inverse", device=dev)
+    n = PS_BULK
+    kids = FQ.to_device([int.from_bytes(rng.bytes(32), "little") % bp.L
+                         for _ in range(2 * n)], dev).reshape(n, 2, 8)
+    quads = kids.reshape(n // 2, 4, 8)[: n // 4]
+    cc.reset_launches()
+    nodes, out["e_hash_2_ms"] = timed_once(
+        torch, lambda: hasher.hash_2(kids[:, 0], kids[:, 1]))
+    quad, out["e_hash_4_ms"] = timed_once(torch, lambda: hasher.hash_4(quads))
+    ran = part("e", ("poseidon_permute",))
+    assert ran["poseidon_permute"] == 2 and ran["mul_fq"] == 0
+    inv = SboxType.Inverse
+    # the first and last 8 rows and one in each 512 (2:1) or 256 (4:1):
+    # every tile pass of the grid's stride
+    for i in sorted({*range(8), *range(n - 8, n), *range(5, n, 512)}):
+        xl, xr = FQ.to_ints(kids[i])
+        assert FQ.to_ints(nodes[i : i + 1]) == [Poseidon_hash_2(
+            bp.Scalar(xl), bp.Scalar(xr), params, inv).v], f"node {i} != host"
+    for i in sorted({*range(8), *range(n // 4 - 8, n // 4), *range(5, n // 4, 256)}):
+        state = [0] + FQ.to_ints(quads[i]) + [101]
+        assert FQ.to_ints(quad[i : i + 1]) == [Poseidon_permutation(
+            [bp.Scalar(v) for v in state], params, inv)[1].v], f"4:1 {i} != host"
+    log(f"  (e) {n} 2:1 node hashes {out['e_hash_2_ms']:.1f} ms, {n // 4} 4:1 "
+        f"hashes {out['e_hash_4_ms']:.1f} ms (inverse S-box); equal to the host")
     out["launches"] = launches
     return out
 
@@ -3110,7 +3360,6 @@ def phase_zoo(bp, torch, cc, gens, host):
 
 # ---- phase 12: the sharded oracle path (parallel/sharded_backend.py,
 # make_sharded_step, graft_entry.dryrun_multichip)
-SHARDED_W = 32  # make_sharded_step's path lanes: W = 254 cut to 32 (phase 10 (b) runs 254)
 
 
 def phase_sharded_oracle(bp, torch, cc, F, gens, full, reuse, oracle_ms):
@@ -3121,7 +3370,8 @@ def phase_sharded_oracle(bp, torch, cc, F, gens, full, reuse, oracle_ms):
     provers, restored, through prove_provers on BatchShardedBackend over a
     (batch 2, points 2) mesh: each proof byte-identical to phase 5's, one
     batch_verify of the four through the backend; (c) make_sharded_step on
-    that mesh at B = 8, W = SHARDED_W, 2^16 points x 253 bits: digests
+    that mesh at B = 8, W = 254 (phase 10 (b)'s), 2^16 points x 253 bits,
+    one poseidon_chain launch a batch row and no mul_fq: digests
     equal to the host Poseidon chain, the checksum their sum mod l, the
     total the host MSM; (d) graft_entry.dryrun_multichip(4) over the
     visible cards (four shards on one card when there is one).  Each
@@ -3209,7 +3459,7 @@ def phase_sharded_oracle(bp, torch, cc, F, gens, full, reuse, oracle_ms):
     del bbackend
 
     # (c) the sharded step
-    B, W, N = ORACLE_B, SHARDED_W, ORACLE_MSM_N
+    B, W, N = ORACLE_B, ORACLE_W, ORACLE_MSM_N
     vals = [[int.from_bytes(rng.bytes(32), "little") % bp.L for _ in range(W)]
             for _ in range(B)]
     witness = FQ.to_device([x for r in vals for x in r], devices[0]
@@ -3223,7 +3473,10 @@ def phase_sharded_oracle(bp, torch, cc, F, gens, full, reuse, oracle_ms):
     cc.reset_launches()
     (digest, checksum, total), out["c_step_ms"] = timed_once(
         torch, lambda: step(witness, points, bitw))
-    part("c", ("smul_lanes", "padd", "mul_fq"))
+    part("c", ("smul_lanes", "padd", "poseidon_chain"))
+    assert out["c_launches"]["poseidon_chain"] == len(mesh.rows("batch")) \
+        and "mul_fq" not in out["c_launches"], \
+        "make_sharded_step: not one poseidon_chain launch a batch row"
     params = pipeline.flagship_hasher(devices[0]).params
     exp = []
     for r in vals:
@@ -3276,11 +3529,13 @@ def main() -> int:
                       if any(s in k for s in ("win", "msm_w4", "fold_w3h",
                                               "fold_bits", "table_kernel",
                                               "fold_c", "fold_grid",
-                                              "pointwise", "smul_lanes"))}
+                                              "pointwise", "smul_lanes",
+                                              "poseidon_kernel"))}
         for part in ("msm_w4_tiles", "fold_w3h", "fold_bits", "table_kernel",
                      "fold_c_group", "fold_c_thread", "fold_grid_group",
                      "fold_grid_thread", "pointwise_kernel",
-                     "smul_lanes_group", "smul_lanes_thread"):
+                     "smul_lanes_group", "smul_lanes_thread",
+                     "poseidon_kernel"):
             assert any(part in k for k in redesigned), f"no ptxas report for {part}"
         log("ptxas " + json.dumps(redesigned))
     with Phase("gens"):
@@ -3333,7 +3588,8 @@ def main() -> int:
         )
         for name in KERNELS
     ]
-    idle = [k["name"] for k in kernels if not k["launches"]]
+    idle = [k["name"] for k in kernels
+            if not k["launches"] and k["name"] not in OFF_PATH]
     assert not idle, f"kernels never launched on a path: {idle}"
     summary = {
         "single": {k: v for k, v in full.items()

@@ -100,7 +100,7 @@ def test_kernels_match_plain_on_card(cuda_device):
         "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
         "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
         "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
-        "mul_fp": 0, "mul_fq": 0,
+        "mul_fp": 0, "mul_fq": 0, "poseidon_permute": 0, "poseidon_chain": 0,
     }
 
 
@@ -135,7 +135,7 @@ def test_w5_and_lane_kernels_match_plain_on_card(cuda_device):
         "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
         "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
         "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
-        "mul_fp": 0, "mul_fq": 0,
+        "mul_fp": 0, "mul_fq": 0, "poseidon_permute": 0, "poseidon_chain": 0,
     }
 
 
@@ -168,7 +168,7 @@ def test_combined_layout_kernels_match_plain_on_card(cuda_device):
         "fold_c": 0, "fold_c_comb": 0, "msm_win": 0, "msm_grid": 0,
         "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
         "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
-        "mul_fp": 0, "mul_fq": 0,
+        "mul_fp": 0, "mul_fq": 0, "poseidon_permute": 0, "poseidon_chain": 0,
     }
 
 
@@ -209,7 +209,7 @@ def test_route_flag_kernels_match_plain_on_card(cuda_device):
         "fold_c": 6, "fold_c_comb": 1, "msm_win": 2, "msm_grid": 1,
         "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
         "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
-        "mul_fp": 0, "mul_fq": 0,
+        "mul_fp": 0, "mul_fq": 0, "poseidon_permute": 0, "poseidon_chain": 0,
     }
 
 

@@ -48,7 +48,8 @@ from test_torch_host import poseidon_arrays
 torch.set_num_threads(1)
 rng = np.random.RandomState(20261018)
 ORACLE_KERNELS = ("padd", "pdbl", "smul_lanes", "msm_block_totals",
-                  "msm_chunk_acc", "fold_grid", "mul_fp", "mul_fq")
+                  "msm_chunk_acc", "fold_grid", "mul_fp", "mul_fq",
+                  "poseidon_permute", "poseidon_chain")
 
 
 def _ints(n: int, m: int) -> list[int]:
@@ -148,7 +149,8 @@ def test_proving_step_matches_host_oracles(monkeypatch):
     assert C.points_from_device(commitment) == _tp(
         [jmsm([JScalar(k) for k in ks], pts)])
     assert calls["smul_lanes"] == 1 and calls["padd"] == 3  # log2(8) rounds
-    assert calls["mul_fq"] == 148 * 3 * (W - 1)  # a round: cube 2, MDS 1
+    assert calls["mul_fq"] == 0  # the whole path in one chain launch
+    assert calls["poseidon_chain"] == 1 and calls["poseidon_permute"] == 0
 
 
 def test_curve_api_matches_host():
