@@ -9,8 +9,8 @@ by file):
   core/                 the R1CS engine: scalars, ristretto points,
                         Merlin transcripts, Pedersen / Bulletproof
                         generators, prover, verifier, IPP, scvec
-  utils/                constants, config, stats, metrics (spans and
-                        traces through ``torch.profiler``)
+  utils/                constants, config, stats, metrics (the span
+                        recorder: per-proof spans and counters)
   gadgets/              Poseidon, r1cs utilities, zero / nonzero, scalar
                         utilities, bound check
   models/               the VSMT-2 / VSMT-4 trees and compiled circuits

@@ -43,6 +43,7 @@ from .proof import R1CSProof
 from .errors import MissingAssignment, InvalidGeneratorsLength
 from .tape import TapeArrays
 from . import scvec
+from ..utils import metrics
 from ..utils.stats import CircuitStats
 
 _IDENTITY_BYTES = b"\x00" * 32
@@ -340,33 +341,28 @@ class Prover:
         ).compress()
         return A_I1, A_O1, S1
 
+    @metrics.traced("prove")
     def prove(self, bp_gens: BulletproofGens, backend=None) -> R1CSProof:
-        import time as _time
-
-        from ..utils.metrics import METRICS
-
-        _last = [_time.time()]
-
-        def _mark(name):
-            now = _time.time()
-            METRICS.add_time(f"prove.{name}", now - _last[0])
-            _last[0] = now
+        _mark = metrics.mark
+        _mark("prove.state")
         t = self.transcript
 
         # --- phase 1 commitments
         st = self._phase1_state(bp_gens)
         gens = st["gens"]
+        _mark(None)
         if backend is not None:
             A_I1, A_O1, S1 = backend.phase_commitments(
                 *self._phase1_msm_args(st)
             )
         else:
             A_I1, A_O1, S1 = self._phase1_host(st)
-        _mark("phase1_commitments")
+        _mark("prove.phase2")
 
         mid = self._prove_middle(st, A_I1, A_O1, S1, bp_gens, _mark)
 
         t.innerproduct_domain_sep(mid["padded_n"])
+        _mark(None)
         if backend is not None:
             ipp = backend.ipp_create(
                 t, mid["Q"], mid["G_factors"], mid["H_factors"],
@@ -387,9 +383,6 @@ class Prover:
                 scvec.to_scalars(mid["r_vec"]),
             )
 
-        _mark("ipp")
-        METRICS.add_count("prove.proofs")
-        METRICS.dump_group("prove")
         return R1CSProof(*mid["fields"], ipp)
 
     def _prove_middle(
@@ -461,9 +454,9 @@ class Prover:
         y = t.challenge_scalar(b"y")
         z = t.challenge_scalar(b"z")
 
-        _mark("phase2")
+        _mark("prove.flatten")
         wL, wR, wO, wV_arr = self._tape_arrays().flatten(z, n, len(self.v))
-        _mark("flatten")
+        _mark("prove.polys")
 
         # --- l(x), r(x) vector polynomials ((n, 4) arrays; the pad region
         # is all-zero for l and handled analytically for r)
@@ -542,7 +535,7 @@ class Prover:
         s_blinding = s_blinding1 + u * s_blinding2
         e_blinding = x * (i_blinding + x * (o_blinding + x * s_blinding))
 
-        _mark("polys")
+        _mark("prove.ipp_inputs")
         t.append_scalar(b"t_x", t_x)
         t.append_scalar(b"t_x_blinding", t_x_blinding)
         t.append_scalar(b"e_blinding", e_blinding)

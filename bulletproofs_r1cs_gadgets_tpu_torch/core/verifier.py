@@ -36,6 +36,7 @@ from .proof import R1CSProof, _IDENTITY
 from .errors import VerificationError, InvalidGeneratorsLength, MissingAssignment
 from .tape import TapeArrays
 from . import scvec
+from ..utils import metrics
 from ..utils.stats import CircuitStats
 
 
@@ -144,6 +145,7 @@ class Verifier:
             cb(rcs)
 
     # ------------------------------------------------------------------ verify
+    @metrics.traced("verify")
     def verify(
         self,
         proof: R1CSProof,
@@ -151,6 +153,7 @@ class Verifier:
         bp_gens: BulletproofGens,
         backend=None,
     ) -> None:
+        metrics.mark("verify.scalars")
         job = self._verification_job(proof, pc_gens, bp_gens)
         scalars_arr = np.concatenate(
             [
@@ -161,6 +164,7 @@ class Verifier:
             ]
         )
         head_points = job.head_points + [pc_gens.B, pc_gens.B_blinding]
+        metrics.mark(None)
         mega = _run_msm(
             backend, scalars_arr, head_points, bp_gens.share(0),
             job.padded_n, job.tail_points,

@@ -27,7 +27,8 @@ TPU kernel consumes:
   lane of a capacity array).
 
 Scalars arrive as ``(n, 4) uint64`` numpy arrays (``core/scvec.py``) and
-are encoded in numpy into int32 rows before ``torch.from_numpy``.
+are encoded in numpy into int32 rows, which ``field.upload`` copies to
+the device.
 
 The JAX package packs points into fixed 2048-point chunks because every
 new kernel shape costs a Mosaic compile; the port's tensors are flat
@@ -115,7 +116,7 @@ def signed_digit2_words(arr: np.ndarray) -> np.ndarray:
 
 def w2_words(arr: np.ndarray, device) -> torch.Tensor:
     """Per-lane ``fold_grid`` words of scalar rows on `device`."""
-    return torch.from_numpy(signed_digit2_words(arr)).to(device)
+    return F.upload(signed_digit2_words(arr), device)
 
 
 def const_grid_words(s, device) -> torch.Tensor:
@@ -143,10 +144,10 @@ def _digit5_bytes(t: torch.Tensor) -> torch.Tensor:
     Runs on t's device: each code is read from the two bytes it spans."""
     dev = t.device
     by = t.view(torch.uint8)  # (m, 32), little-endian
-    b = torch.as_tensor(_POS5 >> 3, device=dev)
+    b = F.upload(_POS5 >> 3, dev)
     lo = by[:, b].to(torch.int32)
     hi = by[:, (b + 1).clamp(max=31)].to(torch.int32)
-    sh = torch.as_tensor(_POS5 & 7, dtype=torch.int32, device=dev)
+    sh = F.upload((_POS5 & 7).astype(np.int32), dev)
     codes = ((lo | (hi << 8)) >> sh) & 31
     out = torch.zeros((t.shape[0], 64), dtype=torch.uint8, device=dev)
     out[:, :W5_WINDOWS] = codes.to(torch.uint8)
@@ -155,7 +156,7 @@ def _digit5_bytes(t: torch.Tensor) -> torch.Tensor:
 
 def _recode5(arr: np.ndarray, device) -> torch.Tensor:
     t = _signed_recode(arr, _W5_C).view(np.int64)
-    return torch.from_numpy(t).to(device)
+    return F.upload(t, device)
 
 
 def signed_digit5_bytes(arr: np.ndarray) -> np.ndarray:
@@ -219,7 +220,7 @@ def w3h_fold_words(sides, device) -> torch.Tensor:
                   for alpha, beta in pairs])
         for pairs in sides
     ])
-    return torch.from_numpy(np.ascontiguousarray(w)).to(device)
+    return F.upload(np.ascontiguousarray(w), device)
 
 
 def c_fold_words(sides, device) -> torch.Tensor:
@@ -231,7 +232,7 @@ def c_fold_words(sides, device) -> torch.Tensor:
     (``_c_fold_words_comb`` for two sides)."""
     rows = np.stack([scvec.scalar_to_row(c) for pair in sides for c in pair])
     w = signed_digit_words(rows).reshape(len(sides), 2, 8)
-    return torch.from_numpy(np.ascontiguousarray(w)).to(device)
+    return F.upload(np.ascontiguousarray(w), device)
 
 
 def comb_walks(n: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
@@ -249,7 +250,7 @@ def bit_words(arr: np.ndarray) -> np.ndarray:
 
 
 def w4_words(arr: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(signed_digit_words(arr)).to(device)
+    return F.upload(signed_digit_words(arr), device)
 
 
 def segment_words(segments: list[np.ndarray], device) -> torch.Tensor:
@@ -265,7 +266,7 @@ def const_rows(s, n: int) -> np.ndarray:
 def fold_words(arr: np.ndarray, device) -> torch.Tensor:
     """Bit-word rows of ``fold_bits`` launches, (m, 8) int32: one side's,
     or several sides' rows concatenated (one upload)."""
-    return torch.from_numpy(bit_words(arr)).to(device)
+    return F.upload(bit_words(arr), device)
 
 
 # ---------------------------------------------------------- point packing

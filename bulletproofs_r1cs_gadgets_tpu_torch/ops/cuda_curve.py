@@ -9,8 +9,9 @@ outputs with ``torch.empty`` and then
   ``csrc/win.cu``, ``csrc/fold_w3h.cu``, ``csrc/oracle.cu`` or
   ``csrc/poseidon.cu`` on the current stream of the
   tensors' device (from any thread), raises if the launch failed, and
-  adds one to ``LAUNCHES[name]``.  There is no fallback to the plain
-  version.
+  adds one to ``LAUNCHES[name]`` and to the ``launches`` count of the
+  innermost open span (``utils/metrics``).  There is no fallback to the
+  plain version.
 
 Tensors (see :mod:`.field`): points ``(n, 4, 8)`` int32, w4 and bit
 scalar words ``(n, 8)`` int32, w5 words ``(n, 16)`` int32, w5 / w4
@@ -268,6 +269,7 @@ import threading
 
 import torch
 
+from ..utils import metrics
 from . import build
 from . import curve as C
 from . import field as F
@@ -305,6 +307,7 @@ def reset_launches() -> None:
 def _count(name: str) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+    metrics.count("launches")
 
 
 # ------------------------------------------------------------ checks

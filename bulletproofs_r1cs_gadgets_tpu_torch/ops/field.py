@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core.ristretto import RistrettoPoint
+from ..utils import metrics
 from ..utils.constants import L, P
 
 NLIMBS = 16
@@ -181,11 +182,21 @@ def words_to_ints(w: np.ndarray) -> list[int]:
     ]
 
 
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device`: every copy of the backend's
+    data to its device goes through here, and adds its bytes to the
+    ``h2d_bytes`` count of the innermost open span (``utils/metrics``;
+    counted on a CPU device too, where no copy is made)."""
+    t = torch.from_numpy(arr)
+    metrics.count("h2d_bytes", t.nbytes)
+    return t.to(device)
+
+
 def from_points(points: list[RistrettoPoint], device="cpu") -> torch.Tensor:
     """Host points -> (n, 4, 8) int32 tensor on `device`."""
     coords = [c for pt in points for c in (pt.X, pt.Y, pt.Z, pt.T)]
     w = ints_to_words(coords).reshape(len(points), 4, 8)
-    return torch.from_numpy(w.copy()).to(device)
+    return upload(w.copy(), device)
 
 
 def to_points(t: torch.Tensor) -> list[RistrettoPoint]:
@@ -200,7 +211,7 @@ def to_points(t: torch.Tensor) -> list[RistrettoPoint]:
 def from_raw(raw: np.ndarray, device="cpu") -> torch.Tensor:
     """``BulletproofGens.G_raw`` (n, 4, 16) uint16 -> (n, 4, 8) int32."""
     w = np.ascontiguousarray(raw, dtype="<u2").view("<i4")
-    return torch.from_numpy(w.reshape(raw.shape[0], 4, 8).copy()).to(device)
+    return upload(w.reshape(raw.shape[0], 4, 8).copy(), device)
 
 
 def identity_points(n: int, device="cpu") -> torch.Tensor:
@@ -221,7 +232,7 @@ def from_jax_limbs(limbs: np.ndarray, device="cpu") -> torch.Tensor:
             sum(v << (JAX_LIMB_BITS * i) for i, v in enumerate(row)) % P
         )
     w = ints_to_words(coords).reshape(n, 4, 8)
-    return torch.from_numpy(w.copy()).to(device)
+    return upload(w.copy(), device)
 
 
 def from_jax_chunk(chunk, device="cpu") -> torch.Tensor:
@@ -362,7 +373,7 @@ class LimbField:
     def to_device(self, xs, device="cuda") -> torch.Tensor:
         """Python ints -> (len, 8) words mod the modulus on `device`."""
         w = ints_to_words([int(x) % self.modulus for x in xs])
-        return torch.from_numpy(w.copy()).to(device)
+        return upload(w.copy(), device)
 
     def to_ints(self, a: torch.Tensor) -> list[int]:
         flat = a.detach().reshape(-1, 8).cpu().numpy()

@@ -72,6 +72,7 @@ per MSM or fold, whatever n).
 
 from __future__ import annotations
 
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, fields
@@ -89,6 +90,7 @@ from ..core.ristretto import (
     multiscalar_mul,
 )
 from ..core.scalar import Scalar
+from ..utils import metrics
 from ..utils.config import DEFAULT_CONFIG
 from ..utils.constants import L as _L
 
@@ -252,11 +254,16 @@ class TorchBackend:
         the cached generators."""
         if self.route.winmsm:
             table = self._gens_table(gens_share, n, which)
-            return self.shared_walk(table, self.shared_words(arr), n, chain)
-        if chain is None:
-            chain = F.identity_points(1, self.device)
-        return cc.msm_grid(self._gens(gens_share, n, which),
-                           ck.w4_words(arr, self.device), chain)
+            with metrics.span("seam.encode"):
+                words = self.shared_words(arr)
+            with metrics.span("seam.launch"):
+                return self.shared_walk(table, words, n, chain)
+        with metrics.span("seam.encode"):
+            words = ck.w4_words(arr, self.device)
+        with metrics.span("seam.launch"):
+            if chain is None:
+                chain = F.identity_points(1, self.device)
+            return cc.msm_grid(self._gens(gens_share, n, which), words, chain)
 
     def _cached_point(self, tag: str, point: RistrettoPoint) -> torch.Tensor:
         key = (tag, point.compress())
@@ -279,6 +286,7 @@ class TorchBackend:
         )
         return ck.fetch_points([acc])[0]
 
+    @metrics.traced("msm_gens")
     def msm_gens(
         self, scalars, head_points, gens_share, padded_n, tail_points
     ) -> RistrettoPoint:
@@ -286,7 +294,8 @@ class TorchBackend:
         in the grid range the chain head ``msm_w4`` -> G -> H -> tail
         ``msm_w4``, G and H each a walk over the shared table or, with
         ``winmsm`` off, one ``msm_grid`` (pallas_backend.py:235-261);
-        otherwise one ``msm_w4`` launch."""
+        otherwise one ``msm_w4`` launch.  A span ``msm_gens``, its
+        children ``seam.encode`` / ``seam.launch`` / ``seam.fetch``."""
         nh, nt = len(head_points), len(tail_points)
         total = nh + 2 * padded_n + nt
         arr = _as_array(scalars)
@@ -296,29 +305,36 @@ class TorchBackend:
                 + gens_share.H(padded_n) + tail_points
             )
             return multiscalar_mul(scvec.to_scalars(arr), pts)
+        dev = self.device
         if self.walks(padded_n):
-            acc = ck.msm_chain(
-                F.from_points(head_points, self.device),
-                ck.w4_words(arr[:nh], self.device),
-            )
+            with metrics.span("seam.encode"):
+                head = F.from_points(head_points, dev)
+                words = ck.w4_words(arr[:nh], dev)
+            with metrics.span("seam.launch"):
+                acc = ck.msm_chain(head, words)
             g_end, h_end = nh + padded_n, nh + 2 * padded_n
             acc = self._shared_msm(gens_share, padded_n, "G", arr[nh:g_end],
                                    acc)
             acc = self._shared_msm(gens_share, padded_n, "H",
                                    arr[g_end:h_end], acc)
-            acc = ck.msm_chain(
-                F.from_points(tail_points, self.device),
-                ck.w4_words(arr[h_end:], self.device), acc,
-            )
+            with metrics.span("seam.encode"):
+                tail = F.from_points(tail_points, dev)
+                words = ck.w4_words(arr[h_end:], dev)
+            with metrics.span("seam.launch"):
+                acc = ck.msm_chain(tail, words, acc)
+        else:
+            with metrics.span("seam.encode"):
+                pts = torch.cat([
+                    F.from_points(head_points, dev),
+                    self._gens(gens_share, padded_n, "G"),
+                    self._gens(gens_share, padded_n, "H"),
+                    F.from_points(tail_points, dev),
+                ])
+                words = ck.w4_words(arr, dev)
+            with metrics.span("seam.launch"):
+                acc = ck.msm_chain(pts, words)
+        with metrics.span("seam.fetch"):
             return ck.fetch_points([acc])[0]
-        pts = torch.cat([
-            F.from_points(head_points, self.device),
-            self._gens(gens_share, padded_n, "G"),
-            self._gens(gens_share, padded_n, "H"),
-            F.from_points(tail_points, self.device),
-        ])
-        acc = ck.msm_chain(pts, ck.w4_words(arr, self.device))
-        return ck.fetch_points([acc])[0]
 
     # -------------------------------------------------- prover commitments
     def _phase_host(
@@ -371,26 +387,31 @@ class TorchBackend:
         bb = self._cached_point("Bb", B_blinding)
         G = self._gens(gens_share, n, "G")
         H = self._gens(gens_share, n, "H")
-        bGH = torch.cat([bb, G, H])
+        with metrics.span("seam.launch"):
+            bGH = torch.cat([bb, G, H])
         row = scvec.scalar_to_row
-        acc_AI = ck.msm_chain(
-            bGH, ck.segment_words([row(i_blinding)[None], a_L, a_R], dev)
-        )
-        acc_AO = ck.msm_chain(
-            bGH[: n + 1],
-            ck.segment_words([row(o_blinding)[None], a_O], dev),
-        )
-        acc_S = ck.msm_chain(
-            bGH, ck.segment_words([row(s_blinding)[None], s_L, s_R], dev)
-        )
-        return (acc_AI, acc_AO, acc_S), None
+        accs = []
+        # each MSM's words are encoded while the one before runs
+        for blind, segs, pts in (
+            (i_blinding, [a_L, a_R], bGH),
+            (o_blinding, [a_O], bGH[: n + 1]),
+            (s_blinding, [s_L, s_R], bGH),
+        ):
+            with metrics.span("seam.encode"):
+                words = ck.segment_words([row(blind)[None], *segs], dev)
+            with metrics.span("seam.launch"):
+                accs.append(ck.msm_chain(pts, words))
+        return tuple(accs), None
 
     def phase_commitments(self, *args):
         return self.phase_commitments_batch([args])[0]
 
+    @metrics.traced("phase_commitments")
     def phase_commitments_batch(self, jobs: list[tuple]) -> list[tuple]:
         """Phase-1 vector commitments for B provers: every MSM is launched,
-        then all are fetched with ONE sync.  Returns [(A_I, A_O, S)]."""
+        then all are fetched with ONE sync.  Returns [(A_I, A_O, S)].  A
+        span ``phase_commitments``, its children ``seam.encode`` /
+        ``seam.launch`` / ``seam.fetch``."""
         out: list = [None] * len(jobs)
         accs, heads, order = [], [], []
         for idx, job in enumerate(jobs):
@@ -402,7 +423,8 @@ class TorchBackend:
                 heads.append(job_heads)
                 order.append(idx)
         if accs:
-            pts = ck.fetch_points(accs)
+            with metrics.span("seam.fetch"):
+                pts = ck.fetch_points(accs)
             for j, idx in enumerate(order):
                 trio = pts[3 * j : 3 * j + 3]
                 if heads[j] is not None:
@@ -430,21 +452,28 @@ class TorchBackend:
         off): one ``msm_lane`` launch over every job's frozen pack
         (pallas_backend.py:429-537).  A thread pool runs
         the jobs' host stages; each job's transcript order is unchanged,
-        only device work interleaves."""
+        only device work interleaves.
+
+        Each job is a span ``ipp_create`` (a child of the caller's open
+        span, or a proof of its own), each of its rounds an ``ipp.round``
+        with children ``ipp.scalars``, ``seam.encode``, ``seam.launch``,
+        ``seam.fetch`` (the round's one sync, shared by the batch) and
+        ``ipp.finish``."""
         out: list = [None] * len(jobs)
         states: list[tuple[int, _IppJob]] = []
         for idx, job in enumerate(jobs):
             (transcript, Q, G_factors, H_factors, gens_share, padded_n,
              a, b) = job[:8]
             if padded_n < self.min_device_n:
-                out[idx] = InnerProductProof.create(
-                    _skip_domain_sep(transcript), Q,
-                    scvec.to_scalars(_as_array(G_factors)),
-                    scvec.to_scalars(_as_array(H_factors)),
-                    gens_share.G(padded_n), gens_share.H(padded_n),
-                    scvec.to_scalars(_as_array(a)),
-                    scvec.to_scalars(_as_array(b)),
-                )
+                with metrics.span("ipp_create", root=True):
+                    out[idx] = InnerProductProof.create(
+                        _skip_domain_sep(transcript), Q,
+                        scvec.to_scalars(_as_array(G_factors)),
+                        scvec.to_scalars(_as_array(H_factors)),
+                        gens_share.G(padded_n), gens_share.H(padded_n),
+                        scvec.to_scalars(_as_array(a)),
+                        scvec.to_scalars(_as_array(b)),
+                    )
             else:
                 states.append((idx, _IppJob(self, *job)))
         if states and self.device.type == "cuda":
@@ -462,29 +491,39 @@ class TorchBackend:
                 active = [s for _, s in states if s.n > 1]
                 if not active:
                     break
+                for s in active:
+                    s.round = metrics.child(s.trace, "ipp.round",
+                                            round=len(s.L_vec) + 1, m=s.n // 2)
+                rounds = [s.round for s in active]
                 if (self.route.flotilla and len(active) > 1
                         and all(s.frozen for s in active)
                         and 2 * len(active) <= FLOTILLA_MAX_SEGMENTS):
                     ids = tuple(id(s) for s in active)
                     if ids != flot_ids:
                         seg = max(2 * s.fzS for s in active)
-                        flot_pts = ck.flotilla_pack(
-                            [s.fz_pack for s in active], seg
-                        )
+                        with metrics.shared("seam.launch", rounds):
+                            flot_pts = ck.flotilla_pack(
+                                [s.fz_pack for s in active], seg
+                            )
                         flot_ids = ids
                     rows = list(run(_IppJob.frozen_rows, active))
-                    totals = cc.msm_lane(
-                        flot_pts, ck.flotilla_words(rows, seg, self.device),
-                        2 * len(active),
-                    )
-                    pts = ck.fetch_points([totals])
+                    with metrics.shared("seam.encode", rounds):
+                        words = ck.flotilla_words(rows, seg, self.device)
+                    with metrics.shared("seam.launch", rounds):
+                        totals = cc.msm_lane(flot_pts, words, 2 * len(active))
+                    with metrics.shared("seam.fetch", rounds):
+                        pts = ck.fetch_points([totals])
                 else:
                     pairs = list(run(_IppJob.round_dispatch, active))
-                    pts = ck.fetch_points([a for pair in pairs for a in pair])
+                    with metrics.shared("seam.fetch", rounds):
+                        pts = ck.fetch_points(
+                            [a for pair in pairs for a in pair])
                 list(run(
                     lambda j: active[j].round_finish(pts[2 * j], pts[2 * j + 1]),
                     range(len(active)),
                 ))
+                for r in rounds:
+                    metrics.end(r)
         finally:
             if pool is not None:
                 pool.shutdown()
@@ -584,6 +623,16 @@ def frozen_walk_rows(
     return np.concatenate([g_L, h_L]), np.concatenate([g_R, h_R])
 
 
+def _in_round(step):
+    """A job's step runs under the job's open ``ipp.round`` span, on
+    whichever thread the batch's pool gives it."""
+    @functools.wraps(step)
+    def run(self, *args):
+        with metrics.adopt(self.round):
+            return step(self, *args)
+    return run
+
+
 class _IppJob:
     """Per-proof state of a device-backed IPP, advanced one round at a
     time by :meth:`TorchBackend.ipp_create_batch`.
@@ -611,6 +660,10 @@ class _IppJob:
         self, backend: TorchBackend, transcript, Q, G_factors, H_factors,
         gens_share, padded_n, a, b, meta=None,
     ):
+        # the job's span, and its open round's: handed to the pool
+        # threads that run its steps
+        self.trace = metrics.begin("ipp_create")
+        self.round = None
         self.dev = backend.device
         self.max_side = backend.frozen_max_side
         self.route = backend.route
@@ -690,28 +743,36 @@ class _IppJob:
         self._nzR = max(0, min(a_nz - n, n))
         return scG_L, scH_L, scG_R, scH_R
 
+    @_in_round
     def frozen_rows(self):
         """One frozen round's host step: halve n and return the composite
         (rowsL, rowsR) over [G(S) | H(S)] (a flotilla round packs many
         jobs' rows into one launch)."""
-        scG_L, scH_L, scG_R, scH_R = self._round_scalars()
-        return frozen_walk_rows(
-            self.fzS, self.n, scG_L, scH_L, scG_R, scH_R, self.FFG, self.FFH,
-        )
+        with metrics.span("ipp.scalars"):
+            scG_L, scH_L, scG_R, scH_R = self._round_scalars()
+            return frozen_walk_rows(
+                self.fzS, self.n, scG_L, scH_L, scG_R, scH_R, self.FFG,
+                self.FFH,
+            )
 
+    @_in_round
     def round_dispatch(self):
         """Halve n, compute this round's scalars on host and launch the L/R
         MSMs; returns the (accL, accR) device accumulators (no sync)."""
         if self.frozen:
             rowsL, rowsR = self.frozen_rows()
-            if self.fz is None:
-                self.fz = torch.cat([self.fz_pack, self.fz_pack])
-            pair = cc.msm_w4_pair(
-                self.fz, ck.segment_words([rowsL, rowsR], self.dev),
-                F.identity_points(2, self.dev), 2 * self.fzS,
-            )
+            with metrics.span("seam.encode"):
+                words = ck.segment_words([rowsL, rowsR], self.dev)
+            with metrics.span("seam.launch"):
+                if self.fz is None:
+                    self.fz = torch.cat([self.fz_pack, self.fz_pack])
+                pair = cc.msm_w4_pair(
+                    self.fz, words, F.identity_points(2, self.dev),
+                    2 * self.fzS,
+                )
             return pair[0:1], pair[1:2]
-        scG_L, scH_L, scG_R, scH_R = self._round_scalars()
+        with metrics.span("ipp.scalars"):
+            scG_L, scH_L, scG_R, scH_R = self._round_scalars()
         n = self.n
         # R's G part stops at a_R's zero tail (round 1)
         vR = max(1, self._nzR) if self._nzR < n else n
@@ -720,33 +781,38 @@ class _IppJob:
             # [scG_L | scH_L | scG_R | scH_R]; both walks in ONE launch, or
             # with pairwalk off L in one walk and R in a wrap walk (two
             # chained walks with wrapmsm off)
-            words = ck.w4_words(
-                np.concatenate([scG_L, scH_L, scG_R, scH_R]), self.dev
-            )
-            walk_L, walk_R = ck.comb_walks(n)
-            if self.route.pairwalk:
-                pair = cc.msm_win_pair(
-                    self.tC, words, F.identity_points(2, self.dev),
-                    (walk_L, walk_R),
+            with metrics.span("seam.encode"):
+                words = ck.w4_words(
+                    np.concatenate([scG_L, scH_L, scG_R, scH_R]), self.dev
                 )
-                return pair[0:1], pair[1:2]
-            ident = F.identity_points(1, self.dev)
-            accL = cc.msm_win(self.tC, words, ident, *walk_L)
-            if self.route.wrapmsm:
-                return accL, cc.msm_win(self.tC, words, ident, *walk_R)
-            accR = cc.msm_win(self.tC, words, ident, n, 0, 2 * n)
-            accR = cc.msm_win(self.tC, words, accR, n, 3 * n, 3 * n)
-            return accL, accR
+            walk_L, walk_R = ck.comb_walks(n)
+            with metrics.span("seam.launch"):
+                if self.route.pairwalk:
+                    pair = cc.msm_win_pair(
+                        self.tC, words, F.identity_points(2, self.dev),
+                        (walk_L, walk_R),
+                    )
+                    return pair[0:1], pair[1:2]
+                ident = F.identity_points(1, self.dev)
+                accL = cc.msm_win(self.tC, words, ident, *walk_L)
+                if self.route.wrapmsm:
+                    return accL, cc.msm_win(self.tC, words, ident, *walk_R)
+                accR = cc.msm_win(self.tC, words, ident, n, 0, 2 * n)
+                accR = cc.msm_win(self.tC, words, accR, n, 3 * n, 3 * n)
+                return accL, accR
         if self.tG is not None:
             # round 1 over the shared tables (pallas_backend.py:873-884):
             # G words [scG_R | scG_L], H words [scH_L | scH_R]
             be = self.backend
-            wG = be.shared_words(np.concatenate([scG_R, scG_L]))
-            wH = be.shared_words(np.concatenate([scH_L, scH_R]))
-            accL = be.shared_walk(self.tG, wG, n, poff=n, woff=n)
-            accL = be.shared_walk(self.tH, wH, n, chain=accL)
-            accR = be.shared_walk(self.tG, wG, vR)
-            accR = be.shared_walk(self.tH, wH, n, chain=accR, poff=n, woff=n)
+            with metrics.span("seam.encode"):
+                wG = be.shared_words(np.concatenate([scG_R, scG_L]))
+                wH = be.shared_words(np.concatenate([scH_L, scH_R]))
+            with metrics.span("seam.launch"):
+                accL = be.shared_walk(self.tG, wG, n, poff=n, woff=n)
+                accL = be.shared_walk(self.tH, wH, n, chain=accL)
+                accR = be.shared_walk(self.tG, wG, vR)
+                accR = be.shared_walk(self.tH, wH, n, chain=accR, poff=n,
+                                      woff=n)
             self.tG = self.tH = None
             self._walked = True
             return accL, accR
@@ -754,25 +820,34 @@ class _IppJob:
             # grid round with winmsm off (pallas_backend.py:885-902): the G
             # pair walks [scG_R | scG_L] (R's part to the zero tail), the H
             # pair [scH_L | scH_R] chained from it, crossed
-            pG = cc.msm_w4_pair(
-                self.G[: 2 * n],
-                ck.w4_words(np.concatenate([scG_R, scG_L]), self.dev),
-                F.identity_points(2, self.dev), n, lo_limit=vR,
-            )
-            pH = cc.msm_w4_pair(
-                self.H[: 2 * n],
-                ck.w4_words(np.concatenate([scH_L, scH_R]), self.dev),
-                pG.flip(0), n,
-            )
+            with metrics.span("seam.encode"):
+                wG = ck.w4_words(np.concatenate([scG_R, scG_L]), self.dev)
+            with metrics.span("seam.launch"):
+                pG = cc.msm_w4_pair(
+                    self.G[: 2 * n], wG, F.identity_points(2, self.dev), n,
+                    lo_limit=vR,
+                )
+            with metrics.span("seam.encode"):
+                wH = ck.w4_words(np.concatenate([scH_L, scH_R]), self.dev)
+            with metrics.span("seam.launch"):
+                pH = cc.msm_w4_pair(self.H[: 2 * n], wH, pG.flip(0), n)
             return pH[0:1], pH[1:2]
-        ptsL, ptsR = ck.pack_pair(self.G, self.H, n)
-        accL = ck.msm_chain(ptsL, ck.segment_words([scG_L, scH_L], self.dev))
-        accR = ck.msm_chain(ptsR, ck.segment_words([scG_R, scH_R], self.dev))
-        return accL, accR
+        with metrics.span("seam.launch"):
+            ptsL, ptsR = ck.pack_pair(self.G, self.H, n)
+        accs = []
+        for pts, sides in ((ptsL, [scG_L, scH_L]), (ptsR, [scG_R, scH_R])):
+            with metrics.span("seam.encode"):
+                words = ck.segment_words(sides, self.dev)
+            with metrics.span("seam.launch"):
+                accs.append(ck.msm_chain(pts, words))
+        return tuple(accs)
 
+    @_in_round
     def round_finish(self, L_pt, R_pt) -> None:
         """Add the Q terms, append L/R, take the challenge, fold a/b and
-        the factor vectors on host, and launch the generator folds."""
+        the factor vectors on host (``ipp.finish``), and launch the
+        generator folds."""
+        metrics.mark("ipp.finish")
         n = self.n
         a_L, a_R, b_L, b_R = self._halves
         L_pt = L_pt + self.Qpt.scalar_mul(self.c_L)
@@ -842,25 +917,24 @@ class _IppJob:
             self.FFG = frozen_fold_update(self.FFG, n, rbp, cG[0], cG[1])
             self.FFH = frozen_fold_update(self.FFH, n, rbp, cH[0], cH[1])
             return
+        metrics.mark(None)
         if self.C is not None:
             # combined fold (pallas_backend.py:1027-1046): both sides into
             # a NEW tensor (blocks run in any order, so never in place),
             # half-width or, with w3h off, by the constants; then the next
             # round's table in the old table's storage, or the tail once
             # the sides are one chunk
-            if use_w3h:
-                self.C = cc.fold_w3h_comb(
-                    self.C, ck.w3h_fold_words([sG, sH], self.dev), rbp
-                )
-            else:
-                self.C = cc.fold_c_comb(
-                    self.C, ck.c_fold_words([cG, cH], self.dev), rbp
-                )
-            if n >= 2 * COMB_MIN_N:
-                self.tC = cc.table_w4(self.C, out=self.tC)
-            else:
-                self.G, self.H = self.C[:n], self.C[n : 2 * n]
-                self.C = self.tC = None
+            with metrics.span("seam.encode"):
+                words = (ck.w3h_fold_words([sG, sH], self.dev) if use_w3h
+                         else ck.c_fold_words([cG, cH], self.dev))
+            with metrics.span("seam.launch"):
+                fold = cc.fold_w3h_comb if use_w3h else cc.fold_c_comb
+                self.C = fold(self.C, words, rbp)
+                if n >= 2 * COMB_MIN_N:
+                    self.tC = cc.table_w4(self.C, out=self.tC)
+                else:
+                    self.G, self.H = self.C[:n], self.C[n : 2 * n]
+                    self.C = self.tC = None
             return
         if to_comb:
             # round 1 -> combined layout (pallas_backend.py:1047-1068):
@@ -869,27 +943,30 @@ class _IppJob:
             sides = ((self.G, sG, cG), (self.H, sH, cH))
             for k, (src, split, consts) in enumerate(sides):
                 out = C[k * n : (k + 1) * n]
-                if use_w3h:
-                    words = ck.w3h_fold_words([split], self.dev)
-                    cc.fold_w3h(src[: 2 * n], words, rbp, out=out)
-                else:
-                    words = ck.c_fold_words([consts], self.dev)
-                    cc.fold_c(src[: 2 * n], words, rbp, out=out)
+                with metrics.span("seam.encode"):
+                    words = (ck.w3h_fold_words([split], self.dev) if use_w3h
+                             else ck.c_fold_words([consts], self.dev))
+                with metrics.span("seam.launch"):
+                    fold = cc.fold_w3h if use_w3h else cc.fold_c
+                    fold(src[: 2 * n], words, rbp, out=out)
+            with metrics.span("seam.launch"):
+                self.tC = cc.table_w4(C)
             self.C, self.G, self.H = C, None, None
             self.grid = False
-            self.tC = cc.table_w4(C)
             return
         if self.grid and n >= COMB_MIN_N:
             # grid fold (pallas_backend.py:1069-1076): padded n = 4096's
             # round 1, and every grid round with winmsm off; in place once
             # the job owns the tensors (the reference's donated variant)
-            wG = ck.c_fold_words([cG], self.dev)
-            wH = ck.c_fold_words([cH], self.dev)
+            with metrics.span("seam.encode"):
+                wG = ck.c_fold_words([cG], self.dev)
+                wH = ck.c_fold_words([cH], self.dev)
             own = self._owns
-            self.G = cc.fold_c(self.G[: 2 * n], wG, rbp,
-                               out=self.G[:n] if own else None)
-            self.H = cc.fold_c(self.H[: 2 * n], wH, rbp,
-                               out=self.H[:n] if own else None)
+            with metrics.span("seam.launch"):
+                self.G = cc.fold_c(self.G[: 2 * n], wG, rbp,
+                                   out=self.G[:n] if own else None)
+                self.H = cc.fold_c(self.H[: 2 * n], wH, rbp,
+                                   out=self.H[:n] if own else None)
             self._owns = True
             return
         if n <= self.max_side // 2:
@@ -900,14 +977,17 @@ class _IppJob:
             self.FFH = frozen_fold_update(self.FFH, n, rbp, cH[0], cH[1])
             return
         # one upload of the three word arrays: wl (ones), G's and H's rows
-        wl, wgr, whr = ck.fold_words(np.concatenate([
-            _ones_rows(n), _pw_rows(cG[0], cG[1], rbp, n),
-            _pw_rows(cH[0], cH[1], rbp, n),
-        ]), self.dev).view(3, n, 8)
-        self.G = cc.fold_bits(self.G[:n], self.G[n : 2 * n], wl, wgr)
-        self.H = cc.fold_bits(self.H[:n], self.H[n : 2 * n], wl, whr)
+        with metrics.span("seam.encode"):
+            wl, wgr, whr = ck.fold_words(np.concatenate([
+                _ones_rows(n), _pw_rows(cG[0], cG[1], rbp, n),
+                _pw_rows(cH[0], cH[1], rbp, n),
+            ]), self.dev).view(3, n, 8)
+        with metrics.span("seam.launch"):
+            self.G = cc.fold_bits(self.G[:n], self.G[n : 2 * n], wl, wgr)
+            self.H = cc.fold_bits(self.H[:n], self.H[n : 2 * n], wl, whr)
 
     def result(self) -> InnerProductProof:
+        metrics.end(self.trace)
         return InnerProductProof(
             self.L_vec, self.R_vec,
             scvec.row_to_scalar(self.a[0]), scvec.row_to_scalar(self.b[0]),

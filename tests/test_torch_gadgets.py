@@ -356,8 +356,61 @@ _CUBE_FIX = ("        flat_u = u.reshape(-1, 4)\n",
              "        flat_u = np.ascontiguousarray(u.reshape(-1, 4))\n")
 # ... the build command names the port's module ...
 RENAMED = ("native/__init__.py", "native/bptpu_native.cpp", "native/build.py")
+# ... the engine's spans (the port's span recorder, utils/metrics.py): the
+# prover's and the verifier's top spans and their phases, each mark
+# closing the phase before it, in place of the JAX package's process-wide
+# timers ...
+_IMPORT_METRICS = ("from ..utils.stats import CircuitStats\n",
+                   "from ..utils import metrics\n"
+                   "from ..utils.stats import CircuitStats\n")
+TRACED = {
+    "core/prover.py": (
+        _IMPORT_METRICS,
+        ("    def prove(self, bp_gens: BulletproofGens, backend=None)"
+         " -> R1CSProof:\n"
+         "        import time as _time\n\n"
+         "        from ..utils.metrics import METRICS\n\n"
+         "        _last = [_time.time()]\n\n"
+         "        def _mark(name):\n"
+         "            now = _time.time()\n"
+         "            METRICS.add_time(f\"prove.{name}\", now - _last[0])\n"
+         "            _last[0] = now\n",
+         "    @metrics.traced(\"prove\")\n"
+         "    def prove(self, bp_gens: BulletproofGens, backend=None)"
+         " -> R1CSProof:\n"
+         "        _mark = metrics.mark\n"
+         "        _mark(\"prove.state\")\n"),
+        ("        gens = st[\"gens\"]\n        if backend is not None:\n",
+         "        gens = st[\"gens\"]\n        _mark(None)\n"
+         "        if backend is not None:\n"),
+        ("        _mark(\"phase1_commitments\")\n",
+         "        _mark(\"prove.phase2\")\n"),
+        ("        _mark(\"phase2\")\n", "        _mark(\"prove.flatten\")\n"),
+        ("        _mark(\"flatten\")\n", "        _mark(\"prove.polys\")\n"),
+        ("        _mark(\"polys\")\n", "        _mark(\"prove.ipp_inputs\")\n"),
+        ("        t.innerproduct_domain_sep(mid[\"padded_n\"])\n",
+         "        t.innerproduct_domain_sep(mid[\"padded_n\"])\n"
+         "        _mark(None)\n"),
+        ("\n        _mark(\"ipp\")\n"
+         "        METRICS.add_count(\"prove.proofs\")\n"
+         "        METRICS.dump_group(\"prove\")\n", "\n"),
+    ),
+    "core/verifier.py": (
+        _IMPORT_METRICS,
+        ("    def verify(\n        self,\n",
+         "    @metrics.traced(\"verify\")\n    def verify(\n        self,\n"),
+        ("        job = self._verification_job(proof, pc_gens, bp_gens)\n",
+         "        metrics.mark(\"verify.scalars\")\n"
+         "        job = self._verification_job(proof, pc_gens, bp_gens)\n"),
+        ("        head_points = job.head_points"
+         " + [pc_gens.B, pc_gens.B_blinding]\n",
+         "        head_points = job.head_points"
+         " + [pc_gens.B, pc_gens.B_blinding]\n"
+         "        metrics.mark(None)\n"),
+    ),
+}
 # ... and these two are the port's own (the loader builds into the port's
-# build directory under a lock; the metrics trace through torch.profiler)
+# build directory under a lock; the metrics are the port's span recorder)
 OWN = ("native/loader.py", "utils/metrics.py")
 COPIED_DIRS = ("core", "gadgets", "models", "utils", "native")
 
@@ -397,4 +450,7 @@ def test_host_copies_are_verbatim(rel):
     if rel == "models/compiled.py":
         assert want.count(_CUBE_FIX[0]) == 1
         want = want.replace(*_CUBE_FIX)
+    for jax_text, port_text in TRACED.get(rel, ()):
+        assert want.count(jax_text) == 1, jax_text
+        want = want.replace(jax_text, port_text)
     assert (ROOT / PORT_PKG / rel).read_text() == want
