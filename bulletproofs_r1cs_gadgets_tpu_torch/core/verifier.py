@@ -154,15 +154,21 @@ class Verifier:
         backend=None,
     ) -> None:
         metrics.mark("verify.scalars")
-        job = self._verification_job(proof, pc_gens, bp_gens)
-        scalars_arr = np.concatenate(
-            [
-                job.head_sc,
-                job.B_scalar_row[None, :],
-                job.B_blinding_row[None, :],
-                job.g, job.h, job.tail_sc,
-            ]
+        job = self._verification_job(
+            proof, pc_gens, bp_gens, getattr(backend, "verify_rows", None)
         )
+        if job.rows is not None:
+            # the backend's device builds g and h (ops/verify_rows.py)
+            scalars_arr = job.rows.with_scalars(job)
+        else:
+            scalars_arr = np.concatenate(
+                [
+                    job.head_sc,
+                    job.B_scalar_row[None, :],
+                    job.B_blinding_row[None, :],
+                    job.g, job.h, job.tail_sc,
+                ]
+            )
         head_points = job.head_points + [pc_gens.B, pc_gens.B_blinding]
         metrics.mark(None)
         mega = _run_msm(
@@ -177,11 +183,15 @@ class Verifier:
         proof: R1CSProof,
         pc_gens: PedersenGens,
         bp_gens: BulletproofGens,
+        rows=None,
     ) -> "VerificationJob":
         """Replay the Fiat-Shamir schedule and reduce the proof to one
         MSM-equals-identity check, returned in segments so that
         :func:`batch_verify` can combine many proofs into a single MSM
         (the shared G/H generator segments collapse across the batch).
+        With `rows` (a backend's ``verify_rows``) that builds this size's
+        G/H rows on its device, the job's ``g`` and ``h`` are None and its
+        ``rows`` builds them: the host replays only the IPP's challenges.
 
         MSM layout (scalar order == point order):
           [head: A_I1 A_O1 S1 A_I2 A_O2 S2, V_j.., T_1 T_3 T_4 T_5 T_6]
@@ -223,7 +233,13 @@ class Verifier:
         if tape is None or tape.num_constraints != self.num_constraints():
             tape = TapeArrays(self.constraints)
             self._tape_memo = tape
-        wL, wR, wO, wV, wc = tape.flatten(z, n, len(self.V), want_wc=True)
+        dev = None if rows is None else rows(
+            tape, n1, n, len(self.V), padded_n
+        )
+        if dev is None:
+            wL, wR, wO, wV, wc = tape.flatten(z, n, len(self.V), want_wc=True)
+        else:
+            dev.flatten(z, y.invert())
 
         t.validate_and_append_point(b"T_1", proof.T_1)
         t.validate_and_append_point(b"T_3", proof.T_3)
@@ -240,52 +256,60 @@ class Verifier:
 
         w = t.challenge_scalar(b"w")
 
-        u_sq, u_inv_sq, s_arr = proof.ipp_proof.verification_scalars_arrays(
-            padded_n, t
-        )
-        s_inv_arr = np.ascontiguousarray(s_arr[::-1])
         a = proof.ipp_proof.a
         b = proof.ipp_proof.b
-
-        y_inv = y.invert()
-        yinv_pow = scvec.powers(y_inv, padded_n)
-
-        # delta = <y^-n o wR, wL>
-        delta = scvec.inner(scvec.mul(yinv_pow[:n], wR), wL)
 
         # random combining factor for the two checks
         r = Scalar.from_bytes_mod_order_wide(secrets.token_bytes(64))
 
         xx = x * x
-        u_g = np.concatenate(
-            [
-                np.tile(scvec.scalar_to_row(Scalar.one()), (n1, 1)),
-                np.tile(scvec.scalar_to_row(u), (n2 + pad, 1)),
-            ]
-        )
+        if dev is None:
+            u_sq, u_inv_sq, s_arr = proof.ipp_proof.verification_scalars_arrays(
+                padded_n, t
+            )
+            s_inv_arr = np.ascontiguousarray(s_arr[::-1])
 
-        def _pad_wire(wv: np.ndarray) -> np.ndarray:
-            if pad == 0:
-                return wv
-            return np.concatenate([wv, scvec.zeros(pad)])
+            y_inv = y.invert()
+            yinv_pow = scvec.powers(y_inv, padded_n)
 
-        # g_i = u_g_i * (x*y^-i*wR_i - a*s_i)
-        g_scalars = scvec.mul(
-            u_g,
-            scvec.sub(
-                scvec.mul(scvec.scale(yinv_pow, x), _pad_wire(wR)),
-                scvec.scale(s_arr, a),
-            ),
-        )
-        # h_i = u_g_i * (y^-i*(x*wL_i + wO_i - b*s_inv_i) - 1)
-        ones = np.tile(scvec.scalar_to_row(Scalar.one()), (padded_n, 1))
-        h_inner = scvec.sub(
-            scvec.add(
-                scvec.scale(_pad_wire(wL), x), _pad_wire(wO)
-            ),
-            scvec.scale(s_inv_arr, b),
-        )
-        h_scalars = scvec.mul(u_g, scvec.sub(scvec.mul(yinv_pow, h_inner), ones))
+            # delta = <y^-n o wR, wL>
+            delta = scvec.inner(scvec.mul(yinv_pow[:n], wR), wL)
+
+            u_g = np.concatenate(
+                [
+                    np.tile(scvec.scalar_to_row(Scalar.one()), (n1, 1)),
+                    np.tile(scvec.scalar_to_row(u), (n2 + pad, 1)),
+                ]
+            )
+
+            def _pad_wire(wv: np.ndarray) -> np.ndarray:
+                if pad == 0:
+                    return wv
+                return np.concatenate([wv, scvec.zeros(pad)])
+
+            # g_i = u_g_i * (x*y^-i*wR_i - a*s_i)
+            g_scalars = scvec.mul(
+                u_g,
+                scvec.sub(
+                    scvec.mul(scvec.scale(yinv_pow, x), _pad_wire(wR)),
+                    scvec.scale(s_arr, a),
+                ),
+            )
+            # h_i = u_g_i * (y^-i*(x*wL_i + wO_i - b*s_inv_i) - 1)
+            ones = np.tile(scvec.scalar_to_row(Scalar.one()), (padded_n, 1))
+            h_inner = scvec.sub(
+                scvec.add(
+                    scvec.scale(_pad_wire(wL), x), _pad_wire(wO)
+                ),
+                scvec.scale(s_inv_arr, b),
+            )
+            h_scalars = scvec.mul(u_g, scvec.sub(scvec.mul(yinv_pow, h_inner), ones))
+        else:
+            # the host replays only the IPP's challenges, and fetches
+            # wV, wc and delta
+            u_sq, u_inv_sq = dev.challenges(proof.ipp_proof, padded_n, t, x, u)
+            wV, wc, delta = dev.sums()
+            g_scalars = h_scalars = None
 
         B_scalar = w * (proof.t_x - a * b) + r * (xx * (wc + delta) - proof.t_x)
         # The reconstructed P carries e_blinding*B_blinding which the
@@ -339,6 +363,7 @@ class Verifier:
             ),
             tail_points=tail_points,
             padded_n=padded_n,
+            rows=dev,
         )
 
 
@@ -359,6 +384,7 @@ class VerificationJob:
     tail_sc: np.ndarray          # (2*rounds, 4) for L_j.., R_j..
     tail_points: list
     padded_n: int
+    rows: object = None          # the device's G/H rows (g, h None)
 
 
 def _run_msm(backend, scalars_arr, head_points, gens, padded_n, tail_points):

@@ -74,6 +74,11 @@ SIGNATURES = {
     "bp_poseidon_permute": [_VP] * 5 + [_I] * 4 + [_VP],
     "bp_poseidon_chain": [_VP] * 5 + [_I] * 5 + [_VP],
     "bp_sc_mul_test": [_VP, _VP, _VP, _I, _I, _VP],
+    "bp_sc_powers": [_VP, _VP, _VP, _I, _I, _VP],
+    "bp_tape_flatten": [_VP] * 5 + [_I, _VP],
+    "bp_tape_sums_partials": [_I, _I],
+    "bp_tape_sums": [_VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP],
+    "bp_gh_rows": [_VP] * 5 + [_I, _I, _I, _VP],
 }
 
 

@@ -6,8 +6,8 @@ outputs with ``torch.empty`` and then
 * for CPU tensors, runs the plain torch version beside it (this is what
   the CPU tests exercise);
 * for CUDA tensors, launches its kernel from ``csrc/msm_fold.cu``,
-  ``csrc/win.cu``, ``csrc/fold_w3h.cu``, ``csrc/oracle.cu`` or
-  ``csrc/poseidon.cu`` on the current stream of the
+  ``csrc/win.cu``, ``csrc/fold_w3h.cu``, ``csrc/oracle.cu``,
+  ``csrc/poseidon.cu`` or ``csrc/verify_rows.cu`` on the current stream of the
   tensors' device (from any thread), raises if the launch failed, and
   adds one to ``LAUNCHES[name]`` and to the ``launches`` count of the
   innermost open span (``utils/metrics``).  There is no fallback to the
@@ -257,6 +257,28 @@ staged in shared memory once a block; the chain's accumulator stays in
 registers.  The plain versions are the round loop the port ran before,
 on ``field.mul_mod_plain``: equal words.
 
+The verifier's G/H coefficient rows (``csrc/verify_rows.cu``, driven by
+``ops/verify_rows.py``) have no TPU counterpart: the JAX package builds
+them on the host (``core/verifier.py``), as the port did.  Each agrees
+with its plain version word for word, and the plain versions with the
+host's arrays row for row (every value canonical mod l):
+
+``sc_powers``: out[kR + t] = lo[t] * prod over the set bits b of k of
+hi[b], R = ``SP_RUN`` consecutive outputs a thread (the bit product of
+the run's base, then R products): the powers z^1..z^m and y^0..y^-(N-1)
+(host tables base^(R 2^b), base^(e0 + t)) and the IPP's s vector (hi the
+challenges' squares by bit, lo its first R entries).  ``tape_flatten``:
+one thread a wire of the constraint tape in CSR form, summing
+z^(c+1) * coeff over its terms, products summed unreduced and reduced
+every ``TS_REDUCE`` (wL, wR, wO and wV in one launch).  ``tape_sums``: wc
+(the constant terms) and delta = <y^-n o wR, wL>, block partials of
+``TS_SPAN`` items, then one block a sum (two kernels, one launch count).
+``gh_rows``: one thread a row, g_i and h_i from y^-i, s_i, s_(N-1-i), the
+wires and the challenges (seven products), each written as the w5
+walker's words (``chunks.w5_words``).  Bound: the mod-l products' 32-bit
+multiplies (``sc_l.cuh``'s Barrett reduction, about 190 a product), then
+bytes.
+
 Every launch makes its tensors' device current first (``_launch``): the
 library launches on the calling thread's current device, and a pool
 thread or a backend on a second card need not have it current.
@@ -267,6 +289,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from ..utils import metrics
@@ -283,6 +306,7 @@ LAUNCHES = {
     "padd": 0, "pdbl": 0, "smul_lanes": 0, "msm_block_totals": 0,
     "msm_chunk_acc": 0, "fold_grid": 0, "mul_fp": 0, "mul_fq": 0,
     "poseidon_permute": 0, "poseidon_chain": 0,
+    "sc_powers": 0, "tape_flatten": 0, "tape_sums": 0, "gh_rows": 0,
 }
 _COUNT_LOCK = threading.Lock()  # batched IPP rounds launch from a pool
 TBL5 = 16
@@ -1384,4 +1408,185 @@ def sc_mul_test(a: torch.Tensor, b: torch.Tensor, reps: int = 1
     out = torch.empty((n, 8), dtype=torch.int32, device=dev)
     _launch("sc_mul_test", dev, "bp_sc_mul_test", _ptr(a), _ptr(b), _ptr(out),
             n, reps, count=False)
+    return out
+
+
+# ------------------------------------------------------ verifier rows
+# csrc/verify_rows.cu's geometry (the test suite holds these equal to its
+# #defines): sc_powers' run, tape_sums' items a block, the products summed
+# before a reduction
+SP_RUN = 8
+TS_SPAN = 256 * 8
+TS_REDUCE = 32
+
+
+def _check16(name: str, *ts: torch.Tensor) -> None:
+    """The verifier-row kernels load and store 16-byte vectors."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a tensor is not 16-byte aligned")
+
+
+def _sum_l(x: torch.Tensor, seg: torch.Tensor, nseg: int) -> torch.Tensor:
+    """(nseg, 8): the sums mod l of the canonical rows of x by segment
+    `seg` (at most 2^19 rows a segment)."""
+    acc = torch.zeros((nseg, 8), dtype=torch.int64, device=x.device)
+    acc.index_add_(0, seg, F._u(x))
+    return F.FQ._reduce(F._pad_limbs(acc, 9))
+
+
+def sc_powers_plain(hi, lo, m: int) -> torch.Tensor:
+    K = -(-m // SP_RUN)
+    k = torch.arange(K, device=hi.device)
+    p = F.FQ.constant(1, hi.device).expand(K, 8)
+    for b in range(hi.shape[0]):
+        bit = ((k >> b) & 1).bool()[:, None]
+        p = torch.where(bit, mul_fq_plain(p, hi[b].expand(K, 8)), p)
+    out = mul_fq_plain(p[:, None].expand(K, SP_RUN, 8),
+                       lo[None].expand(K, SP_RUN, 8))
+    return out.reshape(K * SP_RUN, 8)[:m].contiguous()
+
+
+def sc_powers(hi: torch.Tensor, lo: torch.Tensor, m: int) -> torch.Tensor:
+    """(m, 8) new tensor: out[k * SP_RUN + t] = lo[t] * prod of hi[b] over
+    the set bits b of k, mod l, canonical; hi (nb, 8) covers every bit of
+    k < ceil(m / SP_RUN), lo (SP_RUN, 8)."""
+    dev = hi.device
+    nb = hi.shape[0]
+    _check(hi, "hi", (nb, 8), dev)
+    _check(lo, "lo", (SP_RUN, 8), dev)
+    if m < 0 or (m > SP_RUN and (-(-m // SP_RUN) - 1) >> nb):
+        raise ValueError(f"sc_powers: {nb} bits do not cover {m} outputs")
+    if _route(dev) == "plain":
+        return sc_powers_plain(hi, lo, m)
+    out = torch.empty((m, 8), dtype=torch.int32, device=dev)
+    _check16("sc_powers", hi, lo, out)
+    _launch("sc_powers", dev, "bp_sc_powers", _ptr(hi), _ptr(lo), _ptr(out),
+            m, nb)
+    return out
+
+
+def tape_flatten_plain(off, cidx, coeff, zp) -> torch.Tensor:
+    W = off.shape[0] - 1
+    counts = (off[1:] - off[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(W, device=off.device), counts)
+    return _sum_l(mul_fq_plain(zp[cidx.long()], coeff), seg, W)
+
+
+def tape_flatten(off: torch.Tensor, cidx: torch.Tensor, coeff: torch.Tensor,
+                 zp: torch.Tensor) -> torch.Tensor:
+    """(W, 8) new tensor: row w = sum of zp[cidx[t]] * coeff[t] mod l over
+    the terms t in [off[w], off[w + 1]) of a tape in CSR form (W + 1
+    offsets, ascending from 0 to T; constraint indices below zp's rows)."""
+    dev = off.device
+    W, T, m = off.shape[0] - 1, cidx.shape[0], zp.shape[0]
+    _check(off, "off", (W + 1,), dev)
+    _check(cidx, "cidx", (T,), dev)
+    _check(coeff, "coeff", (T, 8), dev)
+    _check(zp, "zp", (m, 8), dev)
+    if _route(dev) == "plain":
+        return tape_flatten_plain(off, cidx, coeff, zp)
+    out = torch.empty((W, 8), dtype=torch.int32, device=dev)
+    _check16("tape_flatten", coeff, zp, out)
+    _launch("tape_flatten", dev, "bp_tape_flatten", _ptr(off), _ptr(cidx),
+            _ptr(coeff), _ptr(zp), _ptr(out), W)
+    return out
+
+
+def tape_sums_plain(ccidx, ccoeff, zp, wires, yinv, n: int) -> torch.Tensor:
+    dev = zp.device
+    wc = mul_fq_plain(zp[ccidx.long()], ccoeff)
+    dl = mul_fq_plain(mul_fq_plain(yinv[:n], wires[n : 2 * n]), wires[:n])
+    seg = torch.cat([torch.zeros(wc.shape[0], dtype=torch.int64, device=dev),
+                     torch.ones(n, dtype=torch.int64, device=dev)])
+    return _sum_l(torch.cat([wc, dl]), seg, 2)
+
+
+def tape_sums(ccidx: torch.Tensor, ccoeff: torch.Tensor, zp: torch.Tensor,
+              wires: torch.Tensor, yinv: torch.Tensor, n: int
+              ) -> torch.Tensor:
+    """(2, 8) new tensor: wc = sum of zp[ccidx[t]] * ccoeff[t] over the
+    constant terms, and delta = sum_{i < n} yinv[i] * wR[i] * wL[i] with
+    wL, wR the first two n-row blocks of `wires`, mod l."""
+    dev = zp.device
+    tc, m = ccidx.shape[0], zp.shape[0]
+    _check(ccidx, "ccidx", (tc,), dev)
+    _check(ccoeff, "ccoeff", (tc, 8), dev)
+    _check(zp, "zp", (m, 8), dev)
+    _check(wires, "wires", (wires.shape[0], 8), dev)
+    _check(yinv, "yinv", (yinv.shape[0], 8), dev)
+    if wires.shape[0] < 2 * n or yinv.shape[0] < n:
+        raise ValueError(f"tape_sums: {n} rows need 2n wires and n powers")
+    if _route(dev) == "plain":
+        return tape_sums_plain(ccidx, ccoeff, zp, wires, yinv, n)
+    lib = build.load()
+    partials = torch.empty((max(lib.bp_tape_sums_partials(tc, n), 1), 8),
+                           dtype=torch.int32, device=dev)
+    out = torch.empty((2, 8), dtype=torch.int32, device=dev)
+    _check16("tape_sums", ccoeff, zp, wires, yinv, partials, out)
+    _launch("tape_sums", dev, "bp_tape_sums", _ptr(ccidx), _ptr(ccoeff), tc,
+            _ptr(zp), _ptr(wires), _ptr(yinv), n, _ptr(partials), _ptr(out))
+    return out
+
+
+def _w5_codes(v: torch.Tensor) -> torch.Tensor:
+    """(m, 8) canonical words -> (m, 16) w5 words: ``chunks.w5_words``'
+    encoding, the recode (v + C) ^ C in torch on v's device."""
+    from . import chunks as ck  # imports this module
+
+    c5 = torch.from_numpy(ck._W5_C.view("<u4").astype(np.int64)).to(v.device)
+    t = F._i32(F._norm32(F._u(v) + c5) ^ c5)
+    return ck._digit5_bytes(t.view(torch.int64))
+
+
+def gh_scalars_plain(wires, yinv, s, consts, n: int, n1: int):
+    """The canonical (N, 8) rows g and h that ``gh_rows`` encodes."""
+    N = yinv.shape[0]
+    dev = yinv.device
+    i = torch.arange(N, device=dev)
+    wl, wr, wo = (torch.cat([wires[k * n : (k + 1) * n],
+                             torch.zeros((N - n, 8), dtype=torch.int32,
+                                         device=dev)]) for k in range(3))
+    seg = (i >= n1)[:, None]
+    cx, ca, cu = (torch.where(seg, consts[3 + k], consts[k]) for k in range(3))
+    x, b = consts[6].expand(N, 8), consts[7].expand(N, 8)
+    g = F.FQ.sub(mul_fq_plain(mul_fq_plain(cx, yinv), wr), mul_fq_plain(ca, s))
+    inner = F.FQ.sub(F.FQ.add(mul_fq_plain(x, wl), wo),
+                     mul_fq_plain(b, s.flip(0)))
+    h = F.FQ.sub(mul_fq_plain(mul_fq_plain(cu, yinv), inner), cu)
+    return g, h
+
+
+def gh_rows_plain(wires, yinv, s, consts, n: int, n1: int) -> torch.Tensor:
+    g, h = gh_scalars_plain(wires, yinv, s, consts, n, n1)
+    return _w5_codes(torch.cat([g, h]))
+
+
+def gh_rows(wires: torch.Tensor, yinv: torch.Tensor, s: torch.Tensor,
+            consts: torch.Tensor, n: int, n1: int) -> torch.Tensor:
+    """(2N, 16) new tensor: the w5 words of the verifier's G coefficients
+    g_i (rows [0, N)) and H coefficients h_i (rows [N, 2N)), N = yinv's
+    rows:
+
+      g_i = cx_i yinv_i wR_i - ca_i s_i
+      h_i = cu_i yinv_i (x wL_i + wO_i - b s_(N-1-i)) - cu_i
+
+    with wL, wR, wO the first three n-row blocks of `wires` (zero from n
+    on) and consts (8, 8) = [x, a, 1, u x, u a, u, x, b]: (cx, ca, cu) the
+    first three below n1, the next three from n1 on."""
+    dev = yinv.device
+    N = yinv.shape[0]
+    _check(yinv, "yinv", (N, 8), dev)
+    _check(s, "s", (N, 8), dev)
+    _check(consts, "consts", (8, 8), dev)
+    _check(wires, "wires", (wires.shape[0], 8), dev)
+    if not 0 <= n1 <= n <= N or wires.shape[0] < 3 * n:
+        raise ValueError(f"gh_rows: n1={n1}, n={n}, N={N}, "
+                         f"{wires.shape[0]} wires")
+    if _route(dev) == "plain":
+        return gh_rows_plain(wires, yinv, s, consts, n, n1)
+    out = torch.empty((2 * N, 16), dtype=torch.int32, device=dev)
+    _check16("gh_rows", wires, yinv, s, consts, out)
+    _launch("gh_rows", dev, "bp_gh_rows", _ptr(wires), _ptr(yinv), _ptr(s),
+            _ptr(consts), _ptr(out), n, n1, N)
     return out

@@ -31,6 +31,13 @@ most 128 of them), and their rounds run while the side n >= COMB_MIN_N
   computes every job's L and R (the flotilla);
 * every other MSM is one ``msm_w4`` launch.
 
+With ``w5`` and ``winmsm`` on, a verification in the grid range gets its
+G/H coefficient rows from the card (:meth:`TorchBackend.verify_rows`,
+``ops/verify_rows.py``: ``sc_powers``, ``tape_flatten``, ``tape_sums``
+and ``gh_rows`` from a device copy of the constraint tape), and
+``msm_gens`` walks the words ``gh_rows`` writes; elsewhere, and in
+``batch_verify``, the verifier builds the rows on the host.
+
 Under the other flags:
 
 * ``w5`` off: the shared tables are ``table_w4`` tables walked by
@@ -74,6 +81,7 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, fields
 
@@ -98,6 +106,7 @@ from . import build
 from . import chunks as ck
 from . import cuda_curve as cc
 from . import field as F
+from . import verify_rows as vr
 
 MIN_DEVICE_N = DEFAULT_CONFIG.engine.pallas_min_device_n
 # Frozen-tail side cap (see the frozen-tail helpers below).
@@ -118,6 +127,9 @@ COMB_MIN_N = CHUNK
 # A flotilla round walks 2 segments per job, at most GRID_CHUNKS of them
 # (pallas_backend.py:474).
 FLOTILLA_MAX_SEGMENTS = GRID_CHUNKS
+# Device copies of constraint tapes kept for the verifier's rows (the
+# newest; a tape of 2^18 multipliers holds about 25 MB).
+TAPE_CACHE = 2
 
 
 @dataclass(frozen=True)
@@ -189,14 +201,18 @@ class TorchBackend:
         self.route = Route.from_env() if route is None else route
         self._gens_cache: dict = {}
         self._point_cache: dict = {}
+        self._tapes: dict = {}
+        self._tapes_lock = threading.Lock()
 
     def evict_gens(self) -> None:
         """Free every cached generator tensor and shared table (the cache is
         keyed by ``id(gens_share._gens)``, so dead gens objects can never
         be hit again yet still pin device memory: 1 GiB of tables at
-        2^18)."""
+        2^18), and the device tapes."""
         self._gens_cache.clear()
         self._point_cache.clear()
+        with self._tapes_lock:
+            self._tapes.clear()
 
     # -------------------------------------------------- generator caching
     def _gens(self, gens_share, n: int, which: str) -> torch.Tensor:
@@ -227,6 +243,30 @@ class TorchBackend:
             got = cc.table_w5(pts) if w5 else cc.table_w4(pts)
             self._gens_cache[key] = got
         return got
+
+    def verify_rows(self, tape, n1: int, n: int, nv: int, padded_n: int):
+        """The verifier's G/H rows for a proof of padded size `padded_n`
+        over `tape` (n1 phase-1 multipliers of n, nv commitments), built on
+        this backend's device: a :class:`verify_rows.VerifyRows` that
+        ``msm_gens`` takes in place of the scalar rows.  None where the
+        rows would walk no w5 table (a size outside the walker range, or
+        ``winmsm`` or ``w5`` off): those keep the host's rows.  The
+        device copy of a tape is made at its first verification and kept
+        (the newest ``TAPE_CACHE``, keyed by the tape object, which the
+        cache holds)."""
+        route = self.route
+        if not (route.winmsm and route.w5 and self.walks(padded_n)
+                and 2 * padded_n >= self.min_device_n):
+            return None
+        key = (id(tape), n, nv)
+        with self._tapes_lock:
+            got = self._tapes.pop(key, None)
+            if got is None:
+                got = (tape, vr.DeviceTape(tape, n, nv, self.device))
+            self._tapes[key] = got
+            while len(self._tapes) > TAPE_CACHE:
+                del self._tapes[next(iter(self._tapes))]
+        return vr.VerifyRows(got[1], n1, padded_n)
 
     def walks(self, n: int) -> bool:
         """Whether n shared generators take a grid route (the reference's
@@ -295,7 +335,14 @@ class TorchBackend:
         ``msm_w4``, G and H each a walk over the shared table or, with
         ``winmsm`` off, one ``msm_grid`` (pallas_backend.py:235-261);
         otherwise one ``msm_w4`` launch.  A span ``msm_gens``, its
-        children ``seam.encode`` / ``seam.launch`` / ``seam.fetch``."""
+        children ``seam.encode`` / ``seam.launch`` / ``seam.fetch``.
+        `scalars` may be the device rows of :meth:`verify_rows` instead
+        (:meth:`_msm_gens_rows`); the span counts the rows built on the
+        device, ``device_rows``."""
+        if isinstance(scalars, vr.VerifyRows):
+            return self._msm_gens_rows(scalars, head_points, gens_share,
+                                       padded_n, tail_points)
+        metrics.count("device_rows", 0)
         nh, nt = len(head_points), len(tail_points)
         total = nh + 2 * padded_n + nt
         arr = _as_array(scalars)
@@ -333,6 +380,30 @@ class TorchBackend:
                 words = ck.w4_words(arr, dev)
             with metrics.span("seam.launch"):
                 acc = ck.msm_chain(pts, words)
+        with metrics.span("seam.fetch"):
+            return ck.fetch_points([acc])[0]
+
+    def _msm_gens_rows(self, rows, head_points, gens_share, padded_n,
+                       tail_points) -> RistrettoPoint:
+        """``msm_gens`` over device rows: ``gh_rows`` writes the G and H
+        walks' w5 words on the device (span ``seam.rows``), the head and
+        tail scalars are encoded on the host meanwhile, then the chain
+        head ``msm_w4`` -> G -> H -> tail ``msm_w4``."""
+        dev, N = self.device, padded_n
+        metrics.count("device_rows", 2 * N)
+        tables = [self._gens_table(gens_share, N, w) for w in "GH"]
+        with metrics.span("seam.rows"):
+            words = rows.words()
+        with metrics.span("seam.encode"):
+            head = F.from_points(head_points, dev)
+            head_words = ck.w4_words(rows.head, dev)
+            tail = F.from_points(tail_points, dev)
+            tail_words = ck.w4_words(rows.tail, dev)
+        with metrics.span("seam.launch"):
+            acc = ck.msm_chain(head, head_words)
+            acc = self.shared_walk(tables[0], words, N, acc)
+            acc = self.shared_walk(tables[1], words, N, acc, woff=N)
+            acc = ck.msm_chain(tail, tail_words, acc)
         with metrics.span("seam.fetch"):
             return ck.fetch_points([acc])[0]
 

@@ -112,6 +112,24 @@ parent, change, change, parent in one call).  Where the hasher has
 ``chain``, it also times ``witness_transform``'s fold in turns as one
 ``chain`` launch and as W - 1 ``hash_2`` calls (``chain_ms``,
 ``hash_2_loop_ms``; each digest checked against the step's).
+
+    python3 chip_profile.py --rows [--out rows.json]
+
+times the verifier's G/H rows on the card for ``chip_smoke.py``'s
+depth-253 VSMT-2 proof (2^18 rows) and a depth-128 VSMT-4 proof (2^17):
+each row kernel (``sc_powers`` for z^1..z^m, y^-i and s, ``tape_flatten``,
+``tape_sums``, ``gh_rows``), equal to its plain version, by CUDA events a
+call and the profiler's device time, beside its plain version's time (one
+call) and its bound (``chip_smoke.rows_work``); the tape's device copy
+(``DeviceTape``) built three times, on the host alone and with its upload;
+then verifications in turns, host rows (``chip_smoke.HostRows``: the
+parent's path), device rows with the tape's copy cached, and device rows
+over a new tape object (``cold``: the copy built and uploaded first, as
+for a verifier built through the gadget API), four each: wall ms and the
+program's spans of each (``verify.scalars``, its ``seam.fetch``,
+``msm_gens`` and its ``seam.rows`` / ``seam.encode`` / ``seam.launch`` /
+``seam.fetch``) and the bytes each copies to the card; and the host's
+decompression of the proof's points alone.
 """
 
 from __future__ import annotations
@@ -607,6 +625,8 @@ def main() -> int:
                     help="run part 4 (the batch of 8) only")
     ap.add_argument("--step", action="store_true",
                     help="time proving_step at phase 10 (b)'s shape only")
+    ap.add_argument("--rows", action="store_true",
+                    help="time the verifier's G/H rows on the card only")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -634,6 +654,14 @@ def main() -> int:
         return 0
     if args.step:
         out.update(step(bp, torch, cs, cc, F))
+        print(json.dumps(out), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+        return 0
+    if args.rows:
+        cs.phase_device(torch)
+        out.update(verify_rows(bp, torch, cs, cc))
         print(json.dumps(out), flush=True)
         if args.out:
             with open(args.out, "w") as f:
@@ -815,6 +843,205 @@ def batch8(bp, torch, cs, gens, params, tree) -> dict:
         )
     print(json.dumps(res), flush=True)
     return res
+
+def _scalars_split(bp, torch, case, backend, reps: int = 5) -> dict:
+    """The device job (``Verifier._verification_job`` with device rows,
+    the ``verify.scalars`` phase) split by stubbing its parts, medians of
+    `reps` ms: ``job``; ``no_decompress`` with point decompression a
+    stub; ``transcript`` with the rows a stand-in too that launches
+    nothing (the replay, the IPP's challenges and the head scalars).
+    Decompression is job - no_decompress, the device rows' host side
+    (launches, tables, the sums' wait) no_decompress - transcript."""
+    import statistics
+    from unittest import mock
+
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.core import verifier as vmod
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import verify_rows as vr
+
+    class NoRows(vr.VerifyRows):
+        def __init__(self, nv):
+            self.wV = np.zeros((nv, 4), np.uint64)
+
+        def flatten(self, z, y_inv):
+            pass
+
+        def sums(self):
+            return self.wV, bp.Scalar.zero(), bp.Scalar.zero()
+
+    ident = bp.RistrettoPoint.identity()
+    nodec = (mock.patch.object(vmod.RistrettoPoint, "decompress",
+                               staticmethod(lambda b: ident)),
+             mock.patch.object(vmod, "_decompress_allow_identity",
+                               lambda b: ident))
+
+    def job(stub_points: bool, stub_rows: bool) -> float:
+        v = case.verifier()
+        rows = backend.verify_rows
+        if stub_rows:
+            def rows(*a):
+                return NoRows(len(v.V))
+        with contextlib.ExitStack() as stack:
+            if stub_points:
+                for p in nodec:
+                    stack.enter_context(p)
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            v._verification_job(case.proof, bp.PedersenGens.default(),
+                                case.gens, rows)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - a)
+
+    got = {"job": [], "no_decompress": [], "transcript": []}
+    for _ in range(reps):
+        got["job"].append(job(False, False))
+        got["no_decompress"].append(job(True, False))
+        got["transcript"].append(job(True, True))
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def _verify_turn(bp, torch, cs, case, backend, turn: str) -> dict:
+    """One verification of `case` on `turn`'s path, with the program's
+    spans: ``host`` (the backend's ``verify_rows`` hidden: host rows, the
+    parent's path), ``device`` (the tape's device copy cached) or
+    ``cold`` (a new tape object, as a verifier built through the gadget
+    API brings: its ``DeviceTape`` is built and uploaded first)."""
+    import copy
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.utils import metrics
+
+    v = case.verifier()
+    if turn == "cold":
+        v._tape_memo = copy.copy(v._tape_memo)
+    be = cs.HostRows(backend) if turn == "host" else backend
+    metrics.take()
+    metrics.enable()
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    ok = cs.verdict(bp, v, case.proof, case.gens, be)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - a)
+    metrics.disable()
+    spans = metrics.take()
+    assert ok, turn
+    parts = collections.defaultdict(float)
+    for x in spans:
+        par = next((y.name for y in spans if y.id == x.parent), "")
+        key = x.name if par in ("", "verify") else f"{par}/{x.name}"
+        parts[key] += 1e3 * (x.end - x.start)
+    return dict(
+        wall_ms=wall, spans_ms=dict(parts),
+        h2d_bytes=sum(x.counts.get("h2d_bytes", 0) for x in spans),
+        device_rows=sum(x.counts.get("device_rows", 0) for x in spans),
+        launches=sum(x.counts.get("launches", 0) for x in spans))
+
+
+def verify_rows(bp, torch, cs, cc) -> dict:
+    """--rows: the row kernels at the cells' shapes, and verifications
+    with host, device and cold-tape device rows in turns (see the module
+    docstring)."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import verify_rows as vr
+
+    dev = torch.device("cuda", 0)
+    backend = bp.TorchBackend(dev)
+    rng = np.random.RandomState(cs.SEED + 18)
+    out = {}
+    for name, make in (
+            ("vsmt2-d253", lambda: cs.vsmt2_case(bp, cs.DEPTH, backend)),
+            ("vsmt4-d128", lambda: cs.vsmt4_case(bp, 128, backend))):
+        case = make()
+        v = case.verifier()
+        tape = v._tape_memo
+        n, nv = v.num_vars, len(v.V)
+        N = 1 << (n - 1).bit_length()
+        rows = backend.verify_rows(tape, n, n, nv, N)
+        sc = [bp.Scalar.from_bytes_mod_order_wide(rng.bytes(64))
+              for _ in range(6 + N.bit_length())]
+        t = rows.tape
+        zt = vr.power_tables(sc[0], 1, t.m, dev)
+        yt = vr.power_tables(sc[1], 0, N, dev)
+        st = vr.s_tables([u * u for u in sc[7:]], sc[6], dev)
+        zp = cc.sc_powers(*zt, t.m)
+        wires = cc.tape_flatten(t.off, t.cidx, t.coeff, zp)
+        yinv = cc.sc_powers(*yt, N)
+        s = cc.sc_powers(*st, N)
+        consts = vr._words(sc[2:6] + sc[2:6], dev)
+        T, W, tc = t.cidx.shape[0], t.off.shape[0] - 1, t.ccidx.shape[0]
+        work = cs.rows_work(cc, t.m, n, N, T, W, tc)
+        calls = {
+            "sc_powers z": ("sc_powers_z", lambda: cc.sc_powers(*zt, t.m),
+                            lambda: cc.sc_powers_plain(*zt, t.m)),
+            "sc_powers y": ("sc_powers", lambda: cc.sc_powers(*yt, N),
+                            lambda: cc.sc_powers_plain(*yt, N)),
+            "sc_powers s": ("sc_powers", lambda: cc.sc_powers(*st, N),
+                            lambda: cc.sc_powers_plain(*st, N)),
+            "tape_flatten": (
+                "tape_flatten",
+                lambda: cc.tape_flatten(t.off, t.cidx, t.coeff, zp),
+                lambda: cc.tape_flatten_plain(t.off, t.cidx, t.coeff, zp)),
+            "tape_sums": (
+                "tape_sums",
+                lambda: cc.tape_sums(t.ccidx, t.ccoeff, zp, wires, yinv, n),
+                lambda: cc.tape_sums_plain(t.ccidx, t.ccoeff, zp, wires,
+                                           yinv, n)),
+            "gh_rows": (
+                "gh_rows",
+                lambda: cc.gh_rows(wires, yinv, s, consts, n, n),
+                lambda: cc.gh_rows_plain(wires, yinv, s, consts, n, n)),
+        }
+        kern = {}
+        for key, (wkey, fn, plain) in calls.items():
+            want, pms = cs.timed_once(torch, plain)
+            assert torch.equal(fn(), want), f"{name} {key} != plain"
+            ms = cs.time_ms(torch, fn, 20)
+            by = cs.kernel_ms(torch, fn)
+            kern[key] = dict(ms=ms, plain_ms=pms, device_ms=by,
+                             **cs.bound(*work[wkey]))
+            print(f"  {name} {key}: {ms:.4f} ms (device {by}), plain "
+                  f"{pms:.1f} ms, bound {kern[key]['bound_ms']:.4f} ms by "
+                  f"{kern[key]['bound_by']}", flush=True)
+        build = {"host_ms": [], "total_ms": []}
+        for _ in range(3):
+            for key, where in (("host_ms", "cpu"), ("total_ms", dev)):
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                vr.DeviceTape(tape, n, nv, where)
+                torch.cuda.synchronize()
+                build[key].append(1e3 * (time.perf_counter() - a))
+        ver = {"host": [], "device": [], "cold": []}
+        for turn in ("host", "device", "cold") * 4:
+            ver[turn].append(_verify_turn(bp, torch, cs, case, backend, turn))
+        pts = ([case.proof.A_I1, case.proof.A_O1, case.proof.S1]
+               + list(case.verifier().V)
+               + [case.proof.T_1, case.proof.T_3, case.proof.T_4,
+                  case.proof.T_5, case.proof.T_6]
+               + case.proof.ipp_proof.L_vec + case.proof.ipp_proof.R_vec)
+        dec = []
+        for _ in range(3):
+            a = time.perf_counter()
+            for p in pts:
+                bp.RistrettoPoint.decompress(p)
+            dec.append(1e3 * (time.perf_counter() - a))
+        split = _scalars_split(bp, torch, case, backend)
+        med = {k: float(np.median([r["wall_ms"] for r in ver[k]]))
+               for k in ver}
+        print(f"  {name} verify wall median host {med['host']:.1f} ms, "
+              f"device {med['device']:.1f} ms, cold tape {med['cold']:.1f} "
+              f"ms; DeviceTape build {build}; decompressing {len(pts)} "
+              f"points {dec} ms; the device job split {split}", flush=True)
+        for k in ver:
+            print(f"  {name} {k} verify spans: "
+                  f"{json.dumps(ver[k][-1])}", flush=True)
+        out[name] = dict(n=n, N=N, terms=T, wires=W, const_terms=tc,
+                         constraints=t.m, kernels=kern, verify=ver,
+                         verify_median_ms=med, tape_build_ms=build,
+                         decompress_ms=dec, decompress_points=len(pts),
+                         scalars_split=split)
+        backend.evict_gens()
+    return out
 
 
 if __name__ == "__main__":

@@ -96,15 +96,21 @@ non-zero and prints no result):
 4. the depth-253 proof: one cold prove, two warm proves, the port's
    verifier; every kernel of the default route but the flotilla's must
    have launched (launch counts over the cold prove, the verify and the
-   warm proves); then the same prover and rng, each on a fresh backend,
+   warm proves), the verifier's row kernels among them
+   (``route_kernels`` with a verify); then the same prover and rng, each on a fresh backend,
    on the default route, with w3h, winmsm, w5, and pairwalk with wrapmsm
    off (``Route``), and on the chunk-list route (``combined_off``:
    msm_w4 segments and fold_bits from round 2), each cold and warm (wall
    time, device-synchronised): every proof byte-identical, verified on
    the winmsm-off and w5-off routes, each route's launches the kernels
    of its route and none of another's (``route_kernels``), and each
-   route-flag kernel launched; a tampered proof and a wrong root must
+   route-flag kernel launched (the row kernels on no route but a
+   default-flag verify); a tampered proof and a wrong root must
    raise VerificationError.
+4b. the verifier's G/H row kernels (``sc_powers``, ``tape_flatten``,
+   ``tape_sums``, ``gh_rows``) against their plain versions on the card
+   at phase 4's 2^18 shape, over its tape's CSR: equal word for word,
+   each timed beside its plain version and its bound (``rows_work``).
 5. the depth-253 batch of eight (different leaves, deterministic prover
    randomness) through ``prove_provers`` as a user calls it (the default
    host pool: each prover's rng is private, so the pool cannot change
@@ -112,7 +118,8 @@ non-zero and prints no result):
    ``batch_verify`` of the eight; proof 0 equals, byte for byte, the
    same prover re-proved alone; a batch holding one tampered proof must
    raise VerificationError.  Launch counts are taken over the batch's
-   prove and verify.
+   prove and verify (none of the row kernels: ``batch_verify`` builds
+   its rows on the host).
 6. the equivalence gate of ``bench.py`` stage 5 (:482-627): its depth-8
    VSMT-2 circuit (4,544 multipliers padded to 8192, prover rng 42,
    commitments rng 7) proved under the reference's seven route combos,
@@ -231,7 +238,9 @@ product reduced), and a chain floor,
 times the depth probe's ``sc_mul_latency_ns``; mul_fq / mul_fp their
 times (CUDA events over back-to-back calls), device times a launch
 (``device_ms_288`` ..., the profiler's) and byte bounds at their callers'
-sizes (``ms_288`` ...);
+sizes (``ms_288`` ...); the row kernels their phase-4b records at 2^18
+rows (``sc_powers`` also at z^1..z^m, ``*_z``, and for s, ``ms_s``;
+``gh_rows`` with n1 = n / 2, ``ms_half_phase1``);
 ``library_ms`` null: no PyTorch call computes these functions), and the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -252,6 +261,7 @@ _WIN = f"{PKG}/csrc/win.cu"
 _W3H = f"{PKG}/csrc/fold_w3h.cu"
 _OR = f"{PKG}/csrc/oracle.cu"
 _PS = f"{PKG}/csrc/poseidon.cu"
+_VR = f"{PKG}/csrc/verify_rows.cu"
 SOURCES = {
     "msm_w4": _WIN, "msm_w4_pair": _WIN, "fold_bits": _W4, "msm_lane": _WIN,
     "table_w5": _WIN, "msm_win5": _WIN, "table_w4": _WIN,
@@ -263,8 +273,10 @@ SOURCES = {
     "msm_block_totals": _WIN,  # the windowed w4 MSM over bit words
     "msm_chunk_acc": _WIN, "fold_grid": _W4, "mul_fp": _OR, "mul_fq": _OR,
     "poseidon_permute": _PS, "poseidon_chain": _PS,  # poseidon_perm's entries
+    "sc_powers": _VR, "tape_flatten": _VR, "tape_sums": _VR, "gh_rows": _VR,
 }
 _PC = "bulletproofs_r1cs_gadgets_tpu/ops/pallas_curve.py"
+_JV = "bulletproofs_r1cs_gadgets_tpu/core/verifier.py"
 REPLACES = {
     "msm_w4": f"{_PC}:369",
     "msm_w4_pair": f"{_PC}:768",
@@ -292,6 +304,11 @@ REPLACES = {
     # mul_fq as the port's Poseidon called it, three launches a round
     "poseidon_permute": "bulletproofs_r1cs_gadgets_tpu/ops/pallas_field.py:200",
     "poseidon_chain": "bulletproofs_r1cs_gadgets_tpu/ops/pallas_field.py:200",
+    # the verifier's G/H rows, which the JAX package builds on the host
+    "sc_powers": f"{_JV}:247",
+    "tape_flatten": f"{_JV}:222",
+    "tape_sums": f"{_JV}:250",
+    "gh_rows": f"{_JV}:269",
 }
 # the kernels the route flags add (ported in the same slice): every one
 # must launch in phase 6 and on the full-width routes
@@ -305,6 +322,9 @@ ORACLE_KERNELS = ("padd", "pdbl", "smul_lanes", "msm_block_totals",
 # package calls the Pallas mul_fq); phase 2 still holds it to its plain
 # version and times it
 OFF_PATH = ("mul_fq",)
+# the verifier's G/H row kernels: a verify on the default route launches
+# them (phase 4b holds them to their plain versions)
+ROWS_KERNELS = ("sc_powers", "tape_flatten", "tape_sums", "gh_rows")
 KERNELS = tuple(REPLACES)
 GOLDEN = os.path.join(ROOT, PKG, "golden", "vsmt2_depth4.json")
 SEED = 20261016
@@ -347,12 +367,22 @@ GATE_COMBOS = {
 }
 
 
-def route_kernels(route, combined: bool = True):
-    """(launched, not launched): the kernels a proof and a verify on
-    `route` must launch and must not, for a padded size whose IPP reaches
-    the combined layout (at least 4 * COMB_MIN_N).  `combined` False is
-    the chunk-list route (``combined_off``, default flags): round 1 over
-    the shared tables, then ``msm_w4`` segments and ``fold_bits``."""
+def route_kernels(route, combined: bool = True, verify: bool = False):
+    """(launched, not launched): the kernels a proof (and with `verify`
+    a verify) on `route` must launch and must not, for a padded size
+    whose IPP reaches the combined layout (at least 4 * COMB_MIN_N).
+    `combined` False is the chunk-list route (``combined_off``, default
+    flags): round 1 over the shared tables, then ``msm_w4`` segments and
+    ``fold_bits``.  A verify builds its G/H rows on the card
+    (ROWS_KERNELS) with ``w5`` and ``winmsm`` on; a proof never does."""
+    on, off = _proof_kernels(route, combined)
+    rows = set(ROWS_KERNELS)
+    if verify and route.w5 and route.winmsm:
+        return on | rows, off
+    return on, off | rows
+
+
+def _proof_kernels(route, combined: bool):
     if not combined:
         return ({"table_w5", "msm_win5", "msm_w4", "fold_bits"},
                 {"fold_w3h", "fold_w3h_comb", "table_w4", "msm_win_pair",
@@ -372,10 +402,12 @@ def route_kernels(route, combined: bool = True):
     return on, off - on
 
 
-def check_route(tag: str, ran: dict, route, combined: bool = True) -> None:
+def check_route(tag: str, ran: dict, route, combined: bool = True,
+                verify: bool = False) -> None:
     """Fail unless the launch counts `ran` of one route's run (a proof,
-    or a proof and a verify) hold route_kernels(route, combined)."""
-    on, off = route_kernels(route, combined)
+    or with `verify` a proof and a verify) hold
+    route_kernels(route, combined, verify)."""
+    on, off = route_kernels(route, combined, verify)
     missing = sorted(k for k in on if not ran.get(k, 0))
     stray = sorted(k for k in off if ran.get(k, 0))
     assert not missing and not stray, \
@@ -814,6 +846,120 @@ def tampered(bp, proof):
     raw = bytearray(proof.to_bytes())
     raw[len(raw) - 64] ^= 1
     return bp.R1CSProof.from_bytes(bytes(raw))
+
+
+class Case:
+    """A proof and fresh verifiers for it: ``verifier()`` for its
+    statement, ``wrong()`` for a false one."""
+
+    def __init__(self, proof, gens, verifier, wrong):
+        self.proof, self.gens = proof, gens
+        self.verifier, self.wrong = verifier, wrong
+
+
+def vsmt2_case(bp, depth: int, backend=None) -> Case:
+    """The VSMT-2 membership proof of leaf 7 at `depth` (prover seed 11),
+    and the same proof against a root that is not the tree's."""
+    params, tree = build_tree(bp, depth)
+    comp, tape, comms, prover = synthesize(bp, params, tree, depth, 11)
+    n = comp.num_multipliers
+    gens = bp.BulletproofGens(1 << (n - 1).bit_length())
+    proof = prover.prove(gens, backend=backend)
+    other = comp.tape(bp.Scalar((tree.root.v + 1) % bp.L))
+    return Case(proof, gens, lambda: verifier_for(bp, comp, tape, comms),
+                lambda: verifier_for(bp, comp, other, comms))
+
+
+def vsmt4_case(bp, depth: int, backend=None) -> Case:
+    """A VSMT-4 membership proof of leaf 7 at `depth` (the benchmark's
+    circuit, prover seeds 3 and 4), and the same proof against a root
+    that is not the tree's."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.models.compiled import (
+        CompiledVSMT4,
+    )
+    from bulletproofs_r1cs_gadgets_tpu_torch.models.vsmt4 import (
+        VanillaSparseMerkleTree4,
+    )
+
+    pc = bp.PedersenGens.default()
+    params = bp.PoseidonParams(6, 4, 4, 140)
+    tree = VanillaSparseMerkleTree4(params, depth=depth)
+    for i in range(1, 11):
+        tree.update(bp.Scalar(i), bp.Scalar(i))
+    k, path = bp.Scalar(7), []
+    leaf = tree.get(k, path)
+    nodes = [x for level in path for x in level]
+    comp = CompiledVSMT4(params, depth)
+    prover = bp.Prover(pc, bp.Transcript(b"VSMT"),
+                       rng=np.random.RandomState(3))
+    comms = comp.commit_prover(prover, leaf, k, nodes,
+                               rng=np.random.RandomState(4))
+    tape = comp.tape(tree.root)
+    prover.load_compiled(tape, *comp.witness(leaf, k, nodes))
+    n = comp.num_multipliers
+    gens = bp.BulletproofGens(1 << (n - 1).bit_length())
+    proof = prover.prove(gens, backend=backend)
+    other = comp.tape(bp.Scalar((tree.root.v + 1) % bp.L))
+
+    def verifier(t):
+        v = bp.Verifier(bp.Transcript(b"VSMT"))
+        comp.commit_verifier(v, comms, pc)
+        v.load_compiled(t, n)
+        return v
+
+    return Case(proof, gens, lambda: verifier(tape), lambda: verifier(other))
+
+
+def verdict(bp, verifier, proof, gens, backend) -> bool:
+    """Whether `verifier` accepts `proof` through `backend`."""
+    try:
+        verifier.verify(proof, bp.PedersenGens.default(), gens,
+                        backend=backend)
+    except bp.VerificationError:
+        return False
+    return True
+
+
+class HostRows:
+    """A backend with `inner`'s ``verify_rows`` hidden: the verifier builds
+    the G/H rows on the host, as the JAX package does, and hands them to
+    `inner`'s ``msm_gens``."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        if name == "verify_rows":
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+
+# the verifier-row kernels' work at a verification's shapes, for their
+# bounds (``bound``): mod-l multiplies ("sc"; "sc_prod" a product summed
+# unreduced, "sc_red" a reduction) and the bytes read and written
+def _popcounts(K: int) -> int:
+    return sum(bin(k).count("1") for k in range(K))
+
+
+def rows_work(cc, m: int, n: int, N: int, T: int, W: int, tc: int) -> dict:
+    """{kernel: (ops, bytes)} for m constraints, n multipliers padded to N,
+    T tape terms over W wires and tc constant terms: ``sc_powers`` (the
+    bit products of its runs' bases, then a product an output) for z^1..z^m
+    (``sc_powers_z``) and for N outputs (y^-i; s the same),
+    ``tape_flatten``, ``tape_sums`` and ``gh_rows`` (seven products a
+    row)."""
+    R = cc.SP_RUN
+    return {
+        "sc_powers_z": ({"sc": _popcounts(-(-m // R)) + m}, 32 * m),
+        "sc_powers": ({"sc": _popcounts(-(-N // R)) + N}, 32 * N),
+        "tape_flatten": ({"sc_prod": T, "sc_red": W}, 68 * T + 36 * W),
+        "tape_sums": ({"sc_prod": tc + n, "sc": n,
+                       "sc_red": -(-tc // cc.TS_SPAN) * 256
+                       + -(-n // cc.TS_SPAN) * 256}, 68 * tc + 96 * n),
+        "gh_rows": ({"sc": 7 * N}, 320 * N),
+    }
 
 
 # ------------------------------------------------------------- phases
@@ -1825,6 +1971,7 @@ def phase_full(bp, torch, cc, gens, params, tree):
         warm.append(time.time() - t0)
     out["warm_prove_s"] = warm
     out["launches"] = dict(cc.LAUNCHES)
+    check_route("default", out["launches"], bp.Route(), verify=True)
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"  cold prove {out['cold_prove_s']:.2f} s, warm "
         f"{warm[0]:.2f} / {warm[1]:.2f} s, verify {out['verify_s']:.2f} s, "
@@ -1908,13 +2055,94 @@ def phase_full_routes(bp, torch, cc, gens, comp, tape, comms, prover, snap):
             )
         be.evict_gens()
         ran = {k: cc.LAUNCHES[k] - before[k] for k in cc.LAUNCHES}
-        check_route(name, ran, route, combined=over is not None)
+        check_route(name, ran, route, combined=over is not None,
+                    verify="verify_ms" in times[name])
         log(f"  route {name}: byte-identical, {times[name]}, launches "
             f"{ {k: v for k, v in ran.items() if v} }")
     launches = dict(cc.LAUNCHES)
     for name in FLAG_KERNELS:
         assert launches[name] > 0, f"kernel {name} not launched on a route"
     return times, launches, want
+
+
+def phase_kernels_rows(bp, torch, cc, case, dev) -> dict:
+    """The verifier-row kernels (``csrc/verify_rows.cu``) against their
+    plain versions on the same CUDA tensors, at phase 4's VSMT-2 depth-253
+    shape: its tape's CSR on the card (``DeviceTape``: 334,973
+    constraints, 143,704 multipliers padded to 2^18), random z, y^-1,
+    x, a, u, b and IPP challenges.  ``sc_powers`` for z^1..z^m, y^-i and
+    the IPP's s vector, ``tape_flatten``, ``tape_sums``, and ``gh_rows``
+    with n1 = n (the circuit's one phase) and n1 = n / 2 (u_g = u from n1
+    on): every output equal word for word.  Each record: CUDA-event ms a
+    call (20 calls after a warm-up), the plain version's ms (one call,
+    synchronised), bound (rows_work), and for ``sc_powers`` the same at
+    z^1..z^m (``*_z``) and s (``ms_s``)."""
+    import numpy as np
+
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import verify_rows as vr
+
+    comp, tape, comms, _, _ = case
+    v = verifier_for(bp, comp, tape, comms)
+    n, nv = v.num_vars, len(v.V)
+    N = 1 << (n - 1).bit_length()
+    t = vr.DeviceTape(tape, n, nv, dev)
+    rng = np.random.RandomState(SEED + 18)
+    sc = [bp.Scalar.from_bytes_mod_order_wide(rng.bytes(64))
+          for _ in range(6 + N.bit_length())]
+    z, y_inv, x, a, u, b, all_inv = sc[:7]
+    u_sq = [c * c for c in sc[7:]]
+    assert 1 << len(u_sq) == N
+    consts = vr._words([x, a, bp.Scalar.one(), u * x, u * a, u, x, b], dev)
+    zt = vr.power_tables(z, 1, t.m, dev)
+    yt = vr.power_tables(y_inv, 0, N, dev)
+    st = vr.s_tables(u_sq, all_inv, dev)
+    zp = cc.sc_powers(*zt, t.m)
+    wires = cc.tape_flatten(t.off, t.cidx, t.coeff, zp)
+    yinv = cc.sc_powers(*yt, N)
+    s = cc.sc_powers(*st, N)
+    calls = {
+        "sc_powers_z": (lambda: cc.sc_powers(*zt, t.m),
+                        lambda: cc.sc_powers_plain(*zt, t.m)),
+        "sc_powers": (lambda: cc.sc_powers(*yt, N),
+                      lambda: cc.sc_powers_plain(*yt, N)),
+        "sc_powers_s": (lambda: cc.sc_powers(*st, N),
+                        lambda: cc.sc_powers_plain(*st, N)),
+        "tape_flatten": (
+            lambda: cc.tape_flatten(t.off, t.cidx, t.coeff, zp),
+            lambda: cc.tape_flatten_plain(t.off, t.cidx, t.coeff, zp)),
+        "tape_sums": (
+            lambda: cc.tape_sums(t.ccidx, t.ccoeff, zp, wires, yinv, n),
+            lambda: cc.tape_sums_plain(t.ccidx, t.ccoeff, zp, wires, yinv,
+                                       n)),
+        "gh_rows": (lambda: cc.gh_rows(wires, yinv, s, consts, n, n),
+                    lambda: cc.gh_rows_plain(wires, yinv, s, consts, n, n)),
+        "gh_rows_n1": (
+            lambda: cc.gh_rows(wires, yinv, s, consts, n, n // 2),
+            lambda: cc.gh_rows_plain(wires, yinv, s, consts, n, n // 2)),
+    }
+    work = rows_work(cc, t.m, n, N, t.cidx.shape[0], t.off.shape[0] - 1,
+                     t.ccidx.shape[0])
+    got = {}
+    for key, (fn, plain) in calls.items():
+        want, pms = timed_once(torch, plain)
+        assert torch.equal(fn(), want), f"{key} != plain at depth {DEPTH}"
+        got[key] = dict(ms=time_ms(torch, fn, 20), plain_ms=pms)
+        if key in work:
+            got[key].update(bound(*work[key]))
+        log(f"  {key}: kernel {got[key]['ms']:.4f} ms, plain {pms:.1f} ms"
+            + (f", bound {got[key]['bound_ms']:.4f} ms "
+               f"({got[key]['bound_by']})" if key in work else "")
+            + ", equal")
+    records = {k: dict(got[k], max_abs_err=0) for k in ROWS_KERNELS}
+    sp = records["sc_powers"]
+    for k, v in got["sc_powers_z"].items():
+        sp[f"{k}_z"] = v
+    sp["ms_s"], sp["plain_ms_s"] = (got["sc_powers_s"]["ms"],
+                                    got["sc_powers_s"]["plain_ms"])
+    records["gh_rows"]["ms_half_phase1"] = got["gh_rows_n1"]["ms"]
+    for r in records.values():
+        r.update(m=t.m, n=n, N=N, library_ms=None)
+    return records
 
 
 def phase_batch(bp, torch, cc, gens, params, tree):
@@ -1966,6 +2194,8 @@ def phase_batch(bp, torch, cc, gens, params, tree):
                  "fold_w3h_comb", "table_w4", "msm_win_pair"):
         assert out["launches"][name] > 0, \
             f"kernel {name} was not launched on the batched path"
+    for name in ROWS_KERNELS:  # batch_verify builds its rows on the host
+        assert not out["launches"][name], f"batch_verify launched {name}"
 
     prover = provers[0]
     prover.restore(snaps[0])
@@ -2206,16 +2436,13 @@ def phase_placement(bp, torch, cc, F, gens, reuse):
     return out
 
 
-class Capture:
-    """A backend that records the verifier's mega-MSM scalars and passes
-    every call to `inner`."""
+class Capture(HostRows):
+    """A backend that records the verifier's mega-MSM scalars, built on
+    the host (HostRows), and passes every call to `inner`."""
 
     def __init__(self, inner):
-        self.inner = inner
+        super().__init__(inner)
         self.gens_scalars = None
-
-    def __getattr__(self, name):
-        return getattr(self.inner, name)
 
     def msm_gens(self, scalars, head_points, gens_share, padded_n, tail_points):
         self.gens_scalars = (scalars, len(head_points), padded_n)
@@ -2298,7 +2525,7 @@ def phase_sharded(bp, torch, cc, F, gens, case):
         raise AssertionError("sharded verifier accepted a tampered proof")
     log(f"  depth-253 proof verified through ShardedWalkVerifyBackend: cold "
         f"{cold:.1f} ms, warm {out['sharded_verify_ms']:.1f} ms; "
-        f"TorchBackend warm {out['torch_verify_ms']:.1f} ms")
+        f"TorchBackend warm (host rows) {out['torch_verify_ms']:.1f} ms")
     # the path's launches: the sharded MSMs (a, b) and the cold verify
     out["launches"] = {k: sharded_msm[k] + verify_launches[k]
                        for k in cc.LAUNCHES}
@@ -3552,6 +3779,9 @@ def main() -> int:
             params, tree = build_tree(bp, DEPTH)
         with Phase("4 full proof"):
             full = phase_full(bp, torch, cc, gens, params, tree)
+        with Phase("4b verifier rows vs plain"):
+            records.update(phase_kernels_rows(bp, torch, cc, full["case"],
+                                              dev))
         with Phase("5 batch"):
             batch = phase_batch(bp, torch, cc, gens, params, tree)
         with Phase("6 equivalence gate"):

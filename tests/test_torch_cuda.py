@@ -11,7 +11,9 @@ carry-chain multiply and squaring against ``fe_mul`` on edge operands),
 and a proof, a proof on the combined IPP route (its threshold
 lowered) and a batch of three proofs (``prove_provers``) through
 ``TorchBackend("cuda")`` against the host engine's bytes; the equivalence
-gate's depth-8 proof on the default route and with ``winmsm`` off.  On a
+gate's depth-8 proof on the default route and with ``winmsm`` off; the
+verifier's G/H row kernels against their plain versions and the host's
+rows at VSMT-2 depth 4 and VSMT-4 depth 128, and on edge shapes.  On a
 machine with two cards: a two-shard ``ShardedWalkMsm`` over cuda:0 and
 cuda:1, and a backend on cuda:1 driven from the main thread (cuda:0
 current) and from pool threads, byte-identical to cuda:0 (skipped on one
@@ -101,6 +103,7 @@ def test_kernels_match_plain_on_card(cuda_device):
         "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
         "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
         "mul_fp": 0, "mul_fq": 0, "poseidon_permute": 0, "poseidon_chain": 0,
+        "sc_powers": 0, "tape_flatten": 0, "tape_sums": 0, "gh_rows": 0,
     }
 
 
@@ -136,6 +139,7 @@ def test_w5_and_lane_kernels_match_plain_on_card(cuda_device):
         "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
         "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
         "mul_fp": 0, "mul_fq": 0, "poseidon_permute": 0, "poseidon_chain": 0,
+        "sc_powers": 0, "tape_flatten": 0, "tape_sums": 0, "gh_rows": 0,
     }
 
 
@@ -169,6 +173,7 @@ def test_combined_layout_kernels_match_plain_on_card(cuda_device):
         "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
         "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
         "mul_fp": 0, "mul_fq": 0, "poseidon_permute": 0, "poseidon_chain": 0,
+        "sc_powers": 0, "tape_flatten": 0, "tape_sums": 0, "gh_rows": 0,
     }
 
 
@@ -210,6 +215,7 @@ def test_route_flag_kernels_match_plain_on_card(cuda_device):
         "msm_grid_local": 0, "padd": 0, "pdbl": 0, "smul_lanes": 0,
         "msm_block_totals": 0, "msm_chunk_acc": 0, "fold_grid": 0,
         "mul_fp": 0, "mul_fq": 0, "poseidon_permute": 0, "poseidon_chain": 0,
+        "sc_powers": 0, "tape_flatten": 0, "tape_sums": 0, "gh_rows": 0,
     }
 
 
@@ -973,3 +979,66 @@ def test_backend_on_second_card_from_any_thread(two_cards):
     assert [p.to_bytes() for p in placed] == [p.to_bytes() for p in want]
     assert torch.cuda.current_device() == 0
     _verify(comms, alone, be1)
+
+
+def test_verify_rows_edges_on_card(cuda_device):
+    """The verifier-row kernels against the host's arrays on edge shapes:
+    ``sc_powers`` around its run, ``tape_flatten`` with a wire of more
+    than ``TS_REDUCE`` terms and empty wires, ``tape_sums`` over several
+    blocks and with no constant terms."""
+    import test_torch_verify_rows as tvr
+
+    tvr.edge_checks(cuda_device)
+
+
+@pytest.mark.parametrize("circuit", ["vsmt2-d4", "vsmt4-d128"])
+def test_verify_rows_match_plain_on_card(cuda_device, circuit, monkeypatch):
+    """The verifier's G/H rows on the card at VSMT-2 depth 4 (padded 4,096)
+    and VSMT-4 depth 128 (padded 2^17, a benchmark cell's): each kernel's
+    output equals its plain version on the same CUDA tensors, word for
+    word, and the words equal ``w5_words`` of the host job's g and h; a
+    verification through them accepts, counts 2N ``device_rows`` on its
+    ``msm_gens`` span, and rejects a flipped byte and a wrong root."""
+    import chip_smoke as cs
+    import bulletproofs_r1cs_gadgets_tpu_torch as bp
+    import test_torch_verify_rows as tvr
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import verify_rows as vr
+    from bulletproofs_r1cs_gadgets_tpu_torch.utils import metrics
+
+    dev = cuda_device
+    backend = TorchBackend(dev)
+    case = (cs.vsmt2_case(bp, cs.SMALL_DEPTH, backend)
+            if circuit == "vsmt2-d4" else cs.vsmt4_case(bp, 128, backend))
+    host, job, rows, _ = tvr.jobs(case, backend, monkeypatch)
+    t, n, N = rows.tape, rows.n, rows.N
+    tables = [vr.power_tables(rows.z, 1, t.m, dev),
+              vr.power_tables(rows.y_inv, 0, N, dev),
+              vr.s_tables(*rows._s, dev)]
+    zp, yinv, s = (cc.sc_powers(hi, lo, m)
+                   for (hi, lo), m in zip(tables, (t.m, N, N)))
+    for (hi, lo), m, got in zip(tables, (t.m, N, N), (zp, yinv, s)):
+        assert torch.equal(got, cc.sc_powers_plain(hi, lo, m))
+    assert torch.equal(yinv, rows.yinv)
+    assert torch.equal(rows.wires,
+                       cc.tape_flatten_plain(t.off, t.cidx, t.coeff, zp))
+    sums = cc.tape_sums(t.ccidx, t.ccoeff, zp, rows.wires, yinv, n)
+    assert torch.equal(sums, cc.tape_sums_plain(t.ccidx, t.ccoeff, zp,
+                                                rows.wires, yinv, n))
+    consts = vr._words(rows._consts, dev)
+    words = rows.words()
+    assert torch.equal(words, cc.gh_rows_plain(rows.wires, yinv, s, consts,
+                                               n, rows.n1))
+    assert torch.equal(words, torch.cat([ck.w5_words(host.g, dev),
+                                         ck.w5_words(host.h, dev)]))
+    metrics.take()
+    metrics.enable()
+    try:
+        assert cs.verdict(bp, case.verifier(), case.proof, case.gens, backend)
+        spans = metrics.take()
+    finally:
+        metrics.disable()
+        metrics.take()
+    assert tvr._device_rows(spans) == [2 * N]
+    assert not cs.verdict(bp, case.verifier(), cs.tampered(bp, case.proof),
+                          case.gens, backend)
+    assert not cs.verdict(bp, case.wrong(), case.proof, case.gens, backend)

@@ -32,6 +32,7 @@ import pathlib
 import random
 import re
 import secrets
+import textwrap
 
 import numpy as np
 import pytest
@@ -363,6 +364,89 @@ RENAMED = ("native/__init__.py", "native/bptpu_native.cpp", "native/build.py")
 _IMPORT_METRICS = ("from ..utils.stats import CircuitStats\n",
                    "from ..utils import metrics\n"
                    "from ..utils.stats import CircuitStats\n")
+# ... the verifier's G/H rows built on the backend's device when it offers
+# them (``ops/verify_rows.py``): the job takes the backend's
+# ``verify_rows``, and its host-only work, from the IPP's s vector to h,
+# runs under ``if dev is None:`` beside the device branch, with a, b, r
+# and x^2 drawn before the branch ...
+_DEVICE_BRANCH = (
+    "        else:\n"
+    "            # the host replays only the IPP's challenges, and fetches\n"
+    "            # wV, wc and delta\n"
+    "            u_sq, u_inv_sq = dev.challenges(proof.ipp_proof, padded_n,"
+    " t, x, u)\n"
+    "            wV, wc, delta = dev.sums()\n"
+    "            g_scalars = h_scalars = None\n\n")
+
+
+def _host_rows_branch(jax: str) -> tuple[str, str]:
+    """(the JAX verifier's G/H work, the port's two branches of it)."""
+    start = jax.index("        u_sq, u_inv_sq, s_arr = ")
+    block = jax[start : jax.index("        B_scalar = w * (", start)]
+    ab, r, xx = ("        a = proof.ipp_proof.a\n"
+                 "        b = proof.ipp_proof.b\n",
+                 "        # random combining factor for the two checks\n"
+                 "        r = Scalar.from_bytes_mod_order_wide("
+                 "secrets.token_bytes(64))\n\n",
+                 "        xx = x * x\n")
+    host = block
+    for text in (ab, r, xx):
+        assert host.count(text) == 1, text
+        host = host.replace(text, "")
+    return block, (ab + "\n" + r + xx + "        if dev is None:\n"
+                   + textwrap.indent(host.rstrip("\n") + "\n", "    ")
+                   + _DEVICE_BRANCH)
+
+
+_DEVICE_ROWS = (
+    ("        job = self._verification_job(proof, pc_gens, bp_gens)\n"
+     "        scalars_arr = np.concatenate(\n"
+     "            [\n"
+     "                job.head_sc,\n"
+     "                job.B_scalar_row[None, :],\n"
+     "                job.B_blinding_row[None, :],\n"
+     "                job.g, job.h, job.tail_sc,\n"
+     "            ]\n"
+     "        )\n",
+     "        job = self._verification_job(\n"
+     "            proof, pc_gens, bp_gens, getattr(backend, \"verify_rows\", None)\n"
+     "        )\n"
+     "        if job.rows is not None:\n"
+     "            # the backend's device builds g and h (ops/verify_rows.py)\n"
+     "            scalars_arr = job.rows.with_scalars(job)\n"
+     "        else:\n"
+     "            scalars_arr = np.concatenate(\n"
+     "                [\n"
+     "                    job.head_sc,\n"
+     "                    job.B_scalar_row[None, :],\n"
+     "                    job.B_blinding_row[None, :],\n"
+     "                    job.g, job.h, job.tail_sc,\n"
+     "                ]\n"
+     "            )\n"),
+    ("        bp_gens: BulletproofGens,\n    ) -> \"VerificationJob\":\n",
+     "        bp_gens: BulletproofGens,\n        rows=None,\n"
+     "    ) -> \"VerificationJob\":\n"),
+    ("        (the shared G/H generator segments collapse across the batch).\n",
+     "        (the shared G/H generator segments collapse across the batch).\n"
+     "        With `rows` (a backend's ``verify_rows``) that builds this size's\n"
+     "        G/H rows on its device, the job's ``g`` and ``h`` are None and its\n"
+     "        ``rows`` builds them: the host replays only the IPP's challenges.\n"),
+    ("        wL, wR, wO, wV, wc = tape.flatten(z, n, len(self.V), want_wc=True)\n",
+     "        dev = None if rows is None else rows(\n"
+     "            tape, n1, n, len(self.V), padded_n\n"
+     "        )\n"
+     "        if dev is None:\n"
+     "            wL, wR, wO, wV, wc = tape.flatten(z, n, len(self.V), want_wc=True)\n"
+     "        else:\n"
+     "            dev.flatten(z, y.invert())\n"),
+    _host_rows_branch((ROOT / JAX_PKG / "core" / "verifier.py").read_text()),
+    ("            padded_n=padded_n,\n        )\n\n\nfrom dataclasses",
+     "            padded_n=padded_n,\n            rows=dev,\n        )\n\n\n"
+     "from dataclasses"),
+    ("    tail_points: list\n    padded_n: int\n",
+     "    tail_points: list\n    padded_n: int\n"
+     "    rows: object = None          # the device's G/H rows (g, h None)\n"),
+)
 TRACED = {
     "core/prover.py": (
         _IMPORT_METRICS,
@@ -407,7 +491,7 @@ TRACED = {
          "        head_points = job.head_points"
          " + [pc_gens.B, pc_gens.B_blinding]\n"
          "        metrics.mark(None)\n"),
-    ),
+    ) + _DEVICE_ROWS,
 }
 # ... and these two are the port's own (the loader builds into the port's
 # build directory under a lock; the metrics are the port's span recorder)
