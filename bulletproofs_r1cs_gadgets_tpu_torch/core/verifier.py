@@ -398,6 +398,7 @@ def _run_msm(backend, scalars_arr, head_points, gens, padded_n, tail_points):
     return multiscalar_mul(scvec.to_scalars(scalars_arr), points)
 
 
+@metrics.traced("batch_verify")
 def batch_verify(
     verifiers: list,
     proofs: list[R1CSProof],
@@ -433,12 +434,14 @@ def batch_verify(
         raise ValueError("verifiers/proofs length mismatch")
     if not proofs:
         return
+    metrics.count("proofs", len(proofs))
     # Each job replays one verifier's transcript and flattens its tape —
     # independent state, heavy parts in GIL-releasing C — so build them
     # on a thread pool.
     import os
     from concurrent.futures import ThreadPoolExecutor
 
+    metrics.mark("batch_verify.jobs")
     _workers = max(1, min((os.cpu_count() or 4) - 1, len(proofs)))
     with ThreadPoolExecutor(max_workers=_workers) as pool:
         jobs = list(
@@ -447,6 +450,7 @@ def batch_verify(
                 zip(verifiers, proofs),
             )
         )
+    metrics.mark("batch_verify.combine")
     max_pad = max(j.padded_n for j in jobs)
 
     def _pad(arr: np.ndarray) -> np.ndarray:
@@ -480,6 +484,7 @@ def batch_verify(
 
     scalars_arr = np.concatenate([head_sc, B_row, Bb_row, g, h, tail_sc])
     points = head_points + [pc_gens.B, pc_gens.B_blinding]
+    metrics.mark(None)
     mega = _run_msm(
         backend, scalars_arr, points, bp_gens.share(0), max_pad, tail_points
     )
@@ -491,6 +496,7 @@ def batch_verify(
         )
     # Re-run each equation alone to report which proofs are bad (jobs
     # already hold the reduced equations; transcripts are consumed).
+    metrics.mark("batch_verify.recheck")
     bad = []
     for i, j in enumerate(jobs):
         single = _run_msm(
@@ -504,6 +510,7 @@ def batch_verify(
         )
         if not single.is_identity():
             bad.append(i)
+    metrics.count("bad", len(bad))
     raise VerificationError(
         f"batch verification failed; invalid proof indices: {bad}"
     )

@@ -525,18 +525,31 @@ class TorchBackend:
         the jobs' host stages; each job's transcript order is unchanged,
         only device work interleaves.
 
-        Each job is a span ``ipp_create`` (a child of the caller's open
+        One job is a span ``ipp_create`` (a child of the caller's open
         span, or a proof of its own), each of its rounds an ``ipp.round``
         with children ``ipp.scalars``, ``seam.encode``, ``seam.launch``,
-        ``seam.fetch`` (the round's one sync, shared by the batch) and
-        ``ipp.finish``."""
+        ``seam.fetch`` (the round's sync) and ``ipp.finish``.  Several
+        jobs are one span ``ipp_create`` for the batch, each job an
+        ``ipp.job`` child of it with its rounds as above, and the blocks
+        a round shares (the flotilla's pack, words and launch, the one
+        sync) are children of the batch's span, recorded once, so the
+        batch's seam time and sync time are each counted once."""
+        if len(jobs) < 2:
+            return self._ipp_jobs(jobs, None)
+        with metrics.span("ipp_create", root=True) as batch:
+            return self._ipp_jobs(jobs, batch)
+
+    def _ipp_jobs(self, jobs: list[tuple], batch) -> list[InnerProductProof]:
+        """:meth:`ipp_create_batch`'s work; `batch` is the batch's open
+        span (None for one job, or when nothing is recorded)."""
+        job_span = "ipp_create" if batch is None else "ipp.job"
         out: list = [None] * len(jobs)
         states: list[tuple[int, _IppJob]] = []
         for idx, job in enumerate(jobs):
             (transcript, Q, G_factors, H_factors, gens_share, padded_n,
              a, b) = job[:8]
             if padded_n < self.min_device_n:
-                with metrics.span("ipp_create", root=True):
+                with metrics.span(job_span, root=True):
                     out[idx] = InnerProductProof.create(
                         _skip_domain_sep(transcript), Q,
                         scvec.to_scalars(_as_array(G_factors)),
@@ -546,7 +559,7 @@ class TorchBackend:
                         scvec.to_scalars(_as_array(b)),
                     )
             else:
-                states.append((idx, _IppJob(self, *job)))
+                states.append((idx, _IppJob(self, *job, span=job_span)))
         if states and self.device.type == "cuda":
             build.load()  # build once, before any pool thread launches
         pool = None
@@ -566,27 +579,28 @@ class TorchBackend:
                     s.round = metrics.child(s.trace, "ipp.round",
                                             round=len(s.L_vec) + 1, m=s.n // 2)
                 rounds = [s.round for s in active]
+                owners = rounds if batch is None else [batch]
                 if (self.route.flotilla and len(active) > 1
                         and all(s.frozen for s in active)
                         and 2 * len(active) <= FLOTILLA_MAX_SEGMENTS):
                     ids = tuple(id(s) for s in active)
                     if ids != flot_ids:
                         seg = max(2 * s.fzS for s in active)
-                        with metrics.shared("seam.launch", rounds):
+                        with metrics.shared("seam.launch", owners):
                             flot_pts = ck.flotilla_pack(
                                 [s.fz_pack for s in active], seg
                             )
                         flot_ids = ids
                     rows = list(run(_IppJob.frozen_rows, active))
-                    with metrics.shared("seam.encode", rounds):
+                    with metrics.shared("seam.encode", owners):
                         words = ck.flotilla_words(rows, seg, self.device)
-                    with metrics.shared("seam.launch", rounds):
+                    with metrics.shared("seam.launch", owners):
                         totals = cc.msm_lane(flot_pts, words, 2 * len(active))
-                    with metrics.shared("seam.fetch", rounds):
+                    with metrics.shared("seam.fetch", owners):
                         pts = ck.fetch_points([totals])
                 else:
                     pairs = list(run(_IppJob.round_dispatch, active))
-                    with metrics.shared("seam.fetch", rounds):
+                    with metrics.shared("seam.fetch", owners):
                         pts = ck.fetch_points(
                             [a for pair in pairs for a in pair])
                 list(run(
@@ -729,11 +743,11 @@ class _IppJob:
 
     def __init__(
         self, backend: TorchBackend, transcript, Q, G_factors, H_factors,
-        gens_share, padded_n, a, b, meta=None,
+        gens_share, padded_n, a, b, meta=None, span="ipp_create",
     ):
         # the job's span, and its open round's: handed to the pool
         # threads that run its steps
-        self.trace = metrics.begin("ipp_create")
+        self.trace = metrics.begin(span)
         self.round = None
         self.dev = backend.device
         self.max_side = backend.frozen_max_side

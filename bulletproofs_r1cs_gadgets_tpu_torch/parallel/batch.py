@@ -30,6 +30,7 @@ from ..core.verifier import Verifier, batch_verify
 from ..core.transcript import Transcript
 from ..core.pedersen import PedersenGens, BulletproofGens
 from ..core.proof import R1CSProof
+from ..utils import metrics
 
 
 @dataclass
@@ -101,6 +102,24 @@ def prove_provers(
             ))
         return [p for out in outs for p in out]
 
+    return _prove_staged(provers, bp_gens, backend, host_workers)
+
+
+def _middle(parent, prover, st, triple, bp_gens):
+    """One prover's host stages 2-5 on a pool thread, its phases (as
+    ``Prover.prove`` marks them) children of the batch's `parent`."""
+    with metrics.adopt(parent):
+        metrics.mark("prove.phase2")
+        return prover._prove_middle(st, *triple, bp_gens, metrics.mark)
+
+
+@metrics.traced("prove_batch")
+def _prove_staged(provers, bp_gens, backend, host_workers):
+    """One staged batch: a span ``prove_batch`` (count ``proofs``) with
+    children ``batch.state`` (the phase-1 states), the seam's
+    ``phase_commitments``, ``batch.middle`` (every prover's stages 2-5,
+    their phases recorded on the pool's threads) and ``ipp_create``."""
+    metrics.count("proofs", len(provers))
     # Host stages run on a thread pool: each prover's work is independent
     # and the heavy parts (C++ scvec ops, numpy encodes, flatten) release
     # the GIL, so B middles overlap on the host cores.  Per prover the
@@ -119,19 +138,23 @@ def prove_provers(
     with ThreadPoolExecutor(max_workers=workers) as pool:
         # stage 1: phase-1 blindings + witness arrays (threaded), then ALL
         # phase-1 MSMs with one fused sync
+        metrics.mark("batch.state")
         sts = list(pool.map(lambda p: p._phase1_state(bp_gens), provers))
+        metrics.mark(None)
         triples = backend.phase_commitments_batch(
             [p._phase1_msm_args(st) for p, st in zip(provers, sts)]
         )
 
         # stages 2-5 (host): challenges, flattening, l/r/t polynomials,
         # T-commitments — per proof, threaded between device stages
+        middle = metrics.begin("batch.middle")
         mids = list(
             pool.map(
-                lambda a: a[0]._prove_middle(a[1], *a[2], bp_gens),
+                lambda a: _middle(middle, *a, bp_gens),
                 zip(provers, sts, triples),
             )
         )
+        metrics.end(middle)
 
     # stage 6: all B inner-product arguments in lockstep rounds
     jobs = []

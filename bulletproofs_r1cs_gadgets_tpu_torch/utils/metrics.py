@@ -6,15 +6,19 @@ A span is one :class:`Span`: its name, start and end, its id, its parent's
 id, its proof id, the thread that opened it and its ``counts``, a small
 dict of numbers: ``launches`` (kernel launches, ``cuda_curve._count``),
 ``h2d_bytes`` (bytes handed to the backend's device, ``ops.field.upload``)
-and, on an ``ipp.round``, its ``round`` and side ``m``.  Counts land in the innermost
-open span of the thread that counts.
+and, on an ``ipp.round``, its ``round`` and side ``m``; on a batch's top
+span its ``proofs``, on a refused batch's ``batch_verify.recheck`` the
+``bad`` proofs.  Counts land in the innermost open span of the thread
+that counts.
 
 Each thread keeps a stack of open spans; a span's parent is the innermost
-one.  A span opened with ``root=True`` (``prove``, ``verify`` and the
-backend seam's calls) starts a new proof when the stack is empty: its id
-is the proof id its descendants inherit.  Other spans are recorded only
-inside a recorded parent.  Work handed to another thread carries its
-parent explicitly (:func:`begin`, :func:`child`, :func:`adopt`).
+one.  A span opened with ``root=True`` (``prove``, ``verify``, a batch's
+``prove_batch`` and ``batch_verify``, and the backend seam's calls)
+starts a new proof when the stack is empty: its id is the proof id its
+descendants inherit, so a batch's spans share the batch's id.  Other
+spans are recorded only inside a recorded parent.  Work handed to
+another thread carries its parent explicitly (:func:`begin`,
+:func:`child`, :func:`adopt`).
 
 Recording is on while a ``torch.profiler`` session is active on the
 thread that opens a root, or between :func:`enable` and :func:`disable`.

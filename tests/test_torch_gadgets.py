@@ -491,7 +491,63 @@ TRACED = {
          "        head_points = job.head_points"
          " + [pc_gens.B, pc_gens.B_blinding]\n"
          "        metrics.mark(None)\n"),
-    ) + _DEVICE_ROWS,
+    ) + _DEVICE_ROWS + (
+        # the batch verifier's top span and its phases
+        ("def batch_verify(\n    verifiers: list,",
+         "@metrics.traced(\"batch_verify\")\n"
+         "def batch_verify(\n    verifiers: list,"),
+        ("    if not proofs:\n        return\n",
+         "    if not proofs:\n        return\n"
+         "    metrics.count(\"proofs\", len(proofs))\n"),
+        ("    _workers = max(1, min(",
+         "    metrics.mark(\"batch_verify.jobs\")\n    _workers = max(1, min("),
+        ("    max_pad = max(j.padded_n for j in jobs)\n",
+         "    metrics.mark(\"batch_verify.combine\")\n"
+         "    max_pad = max(j.padded_n for j in jobs)\n"),
+        ("    points = head_points + [pc_gens.B, pc_gens.B_blinding]\n"
+         "    mega = _run_msm(",
+         "    points = head_points + [pc_gens.B, pc_gens.B_blinding]\n"
+         "    metrics.mark(None)\n    mega = _run_msm("),
+        ("    bad = []\n",
+         "    metrics.mark(\"batch_verify.recheck\")\n    bad = []\n"),
+        ("            bad.append(i)\n",
+         "            bad.append(i)\n    metrics.count(\"bad\", len(bad))\n"),
+    ),
+    # the batch's top span ``prove_batch`` over the staged path (moved into
+    # ``_prove_staged``), its phases and the pool's per-prover phases
+    "parallel/batch.py": (
+        ("from ..core.proof import R1CSProof\n",
+         "from ..core.proof import R1CSProof\nfrom ..utils import metrics\n"),
+        ("    # Host stages run on a thread pool:",
+         "    return _prove_staged(provers, bp_gens, backend, host_workers)\n"
+         "\n\n"
+         "def _middle(parent, prover, st, triple, bp_gens):\n"
+         "    \"\"\"One prover's host stages 2-5 on a pool thread, its phases (as\n"
+         "    ``Prover.prove`` marks them) children of the batch's `parent`.\"\"\"\n"
+         "    with metrics.adopt(parent):\n"
+         "        metrics.mark(\"prove.phase2\")\n"
+         "        return prover._prove_middle(st, *triple, bp_gens, metrics.mark)\n"
+         "\n\n"
+         "@metrics.traced(\"prove_batch\")\n"
+         "def _prove_staged(provers, bp_gens, backend, host_workers):\n"
+         "    \"\"\"One staged batch: a span ``prove_batch`` (count ``proofs``) with\n"
+         "    children ``batch.state`` (the phase-1 states), the seam's\n"
+         "    ``phase_commitments``, ``batch.middle`` (every prover's stages 2-5,\n"
+         "    their phases recorded on the pool's threads) and ``ipp_create``.\"\"\"\n"
+         "    metrics.count(\"proofs\", len(provers))\n"
+         "    # Host stages run on a thread pool:"),
+        ("        sts = list(pool.map(lambda p: p._phase1_state(bp_gens), provers))\n",
+         "        metrics.mark(\"batch.state\")\n"
+         "        sts = list(pool.map(lambda p: p._phase1_state(bp_gens), provers))\n"
+         "        metrics.mark(None)\n"),
+        ("        mids = list(\n",
+         "        middle = metrics.begin(\"batch.middle\")\n        mids = list(\n"),
+        ("                lambda a: a[0]._prove_middle(a[1], *a[2], bp_gens),\n",
+         "                lambda a: _middle(middle, *a, bp_gens),\n"),
+        ("                zip(provers, sts, triples),\n            )\n        )\n",
+         "                zip(provers, sts, triples),\n            )\n        )\n"
+         "        metrics.end(middle)\n"),
+    ),
 }
 # ... and these two are the port's own (the loader builds into the port's
 # build directory under a lock; the metrics are the port's span recorder)

@@ -9,8 +9,8 @@ frozen round) must give one tree of spans: each inside its parent, all of
 one proof id, the prove's children covering it, the readers' three parts
 adding up to it; its bytes equal with recording off, when nothing is
 recorded; the ``h2d_bytes`` counts equal the bytes uploaded.  Two provers
-on two threads, and a batch through ``ipp_create_batch``'s pool, give
-disjoint trees.  A traced CPU run of ``benchmark.drive`` reads every
+on two threads give disjoint trees, and a batch through ``prove_provers``
+one tree, whose pool threads' spans are in it.  A traced CPU run of ``benchmark.drive`` reads every
 new metric, and the program's spans lie inside the benchmark's on the
 same clock.  Tolerance: exact (bytes, counts, ids); the children cover
 the prove to within 1 ms of gaps; the parts add up to 1e-9 relative.
@@ -256,9 +256,11 @@ def test_two_provers_on_two_threads_give_two_trees():
 
 @pytest.mark.parametrize("flotilla", [True, False])
 def test_a_batch_gives_a_tree_per_proof(flotilla):
-    """Through ``prove_provers``: one ``phase_commitments`` for the batch,
-    then one ``ipp_create`` tree per proof, whose steps ran on the
-    pool's threads (the flotilla's shared launch in every tree)."""
+    """Through ``prove_provers``: one ``prove_batch`` tree for the batch,
+    its phases, one ``phase_commitments`` and one ``ipp_create`` for the
+    batch, under which each proof's IPP is an ``ipp.job`` whose steps ran
+    on the pool's threads; the round's one sync (and the flotilla's
+    shared launch) recorded once, under the batch's ``ipp_create``."""
     be = TorchBackend("cpu", min_device_n=1, route=Route(flotilla=flotilla))
     provers = [_prover(seed)[0] for seed in (21, 22)]
     metrics.enable()
@@ -269,16 +271,34 @@ def test_a_batch_gives_a_tree_per_proof(flotilla):
     assert len(proofs) == 2
     spans = metrics.take()
     roots = [s for s in spans if s.parent is None]
-    assert sorted(s.name for s in roots) == [
-        "ipp_create", "ipp_create", "phase_commitments"]
+    assert [s.name for s in roots] == ["prove_batch"]
+    assert roots[0].counts["proofs"] == 2
     _disjoint(spans, roots)
-    for root in _tops(spans, "ipp_create"):
-        rounds = [s for s in spans if s.parent == root.id]
+    kids = sorted((s for s in spans if s.parent == roots[0].id),
+                  key=lambda s: s.start)
+    assert [s.name for s in kids] == [
+        "batch.state", "phase_commitments", "batch.middle", "ipp_create"]
+    middle = sorted(s.name for s in spans if s.parent == kids[2].id)
+    assert middle == sorted(2 * ["prove.phase2", "prove.flatten",
+                                 "prove.polys", "prove.ipp_inputs"])
+    ipp = kids[3]
+    jobs = [s for s in spans if s.parent == ipp.id and s.name == "ipp.job"]
+    assert len(jobs) == 2
+    assert len([s for s in spans if s.parent == ipp.id
+                and s.name == "seam.fetch"]) == 3
+    for job in jobs:
+        rounds = [s for s in spans if s.parent == job.id]
         assert [s.counts["round"] for s in rounds] == [1, 2, 3]
         for r in rounds:
-            kids = {s.name for s in spans if s.parent == r.id}
-            assert kids == {"ipp.scalars", "seam.encode", "seam.launch",
-                            "seam.fetch", "ipp.finish"}, kids
+            names = {s.name for s in spans if s.parent == r.id}
+            steps = {"ipp.scalars", "ipp.finish"}
+            if not flotilla:
+                steps |= {"seam.encode", "seam.launch"}
+            assert names == steps, names
+    parts = program_spans.split(roots[0], spans)
+    assert parts["self"] > 0 and parts["device_wait"] > 0
+    assert parts["self"] + parts["seam_host"] + parts["device_wait"] == \
+        pytest.approx(1e3 * (roots[0].end - roots[0].start), rel=1e-9)
 
 
 def test_a_traced_benchmark_run_reads_the_program_spans():
