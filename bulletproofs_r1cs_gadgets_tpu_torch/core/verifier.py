@@ -442,52 +442,74 @@ def batch_verify(
     from concurrent.futures import ThreadPoolExecutor
 
     metrics.mark("batch_verify.jobs")
+    rows = getattr(backend, "verify_rows", None)
     _workers = max(1, min((os.cpu_count() or 4) - 1, len(proofs)))
     with ThreadPoolExecutor(max_workers=_workers) as pool:
         jobs = list(
             pool.map(
-                lambda vp: vp[0]._verification_job(vp[1], pc_gens, bp_gens),
+                lambda vp: vp[0]._verification_job(
+                    vp[1], pc_gens, bp_gens, rows
+                ),
                 zip(verifiers, proofs),
             )
         )
     metrics.mark("batch_verify.combine")
-    max_pad = max(j.padded_n for j in jobs)
-
-    def _pad(arr: np.ndarray) -> np.ndarray:
-        if arr.shape[0] == max_pad:
-            return arr
-        return np.concatenate([arr, scvec.zeros(max_pad - arr.shape[0])])
-
     rhos = [Scalar.one()] + [
         Scalar.from_bytes_mod_order_wide(secrets.token_bytes(64))
         for _ in jobs[1:]
     ]
-    head_sc = np.concatenate(
-        [scvec.scale(j.head_sc, r) for j, r in zip(jobs, rhos)]
-    )
-    head_points = [p for j in jobs for p in j.head_points]
-    tail_sc = np.concatenate(
-        [scvec.scale(j.tail_sc, r) for j, r in zip(jobs, rhos)]
-    )
-    tail_points = [p for j in jobs for p in j.tail_points]
-    g = scvec.scale(_pad(jobs[0].g), rhos[0])
-    h = scvec.scale(_pad(jobs[0].h), rhos[0])
     B_row = scvec.scale(jobs[0].B_scalar_row[None, :], rhos[0])
     Bb_row = scvec.scale(jobs[0].B_blinding_row[None, :], rhos[0])
     for j, r in zip(jobs[1:], rhos[1:]):
-        g = scvec.add(g, scvec.scale(_pad(j.g), r))
-        h = scvec.add(h, scvec.scale(_pad(j.h), r))
         B_row = scvec.add(B_row, scvec.scale(j.B_scalar_row[None, :], r))
         Bb_row = scvec.add(
             Bb_row, scvec.scale(j.B_blinding_row[None, :], r)
         )
 
-    scalars_arr = np.concatenate([head_sc, B_row, Bb_row, g, h, tail_sc])
-    points = head_points + [pc_gens.B, pc_gens.B_blinding]
+    def _pad(arr: np.ndarray, max_pad: int) -> np.ndarray:
+        if arr.shape[0] == max_pad:
+            return arr
+        return np.concatenate([arr, scvec.zeros(max_pad - arr.shape[0])])
+
+    # The jobs whose G/H rows the backend's device built sum them there
+    # (ops/verify_rows.py), the others on the host: each part is one MSM
+    # over the shared generators, and the batch's MSM is their sum.
+    msms = []
+    for part in (
+        [(j, r) for j, r in zip(jobs, rhos) if j.rows is None],
+        [(j, r) for j, r in zip(jobs, rhos) if j.rows is not None],
+    ):
+        if not part:
+            continue
+        max_pad = max(j.padded_n for j, _ in part)
+        head_sc = np.concatenate([scvec.scale(j.head_sc, r) for j, r in part])
+        head_points = [p for j, _ in part for p in j.head_points]
+        tail_sc = np.concatenate([scvec.scale(j.tail_sc, r) for j, r in part])
+        tail_points = [p for j, _ in part for p in j.tail_points]
+        if not msms:
+            # the shared basepoints, once
+            head_sc = np.concatenate([head_sc, B_row, Bb_row])
+            head_points = head_points + [pc_gens.B, pc_gens.B_blinding]
+        if part[0][0].rows is not None:
+            scalars_arr = part[0][0].rows.summed(
+                [j.rows for j, _ in part], [r for _, r in part],
+                head_sc, tail_sc,
+            )
+        else:
+            g = scvec.scale(_pad(part[0][0].g, max_pad), part[0][1])
+            h = scvec.scale(_pad(part[0][0].h, max_pad), part[0][1])
+            for j, r in part[1:]:
+                g = scvec.add(g, scvec.scale(_pad(j.g, max_pad), r))
+                h = scvec.add(h, scvec.scale(_pad(j.h, max_pad), r))
+            scalars_arr = np.concatenate([head_sc, g, h, tail_sc])
+        msms.append((scalars_arr, head_points, max_pad, tail_points))
     metrics.mark(None)
-    mega = _run_msm(
-        backend, scalars_arr, points, bp_gens.share(0), max_pad, tail_points
-    )
+    mega = RistrettoPoint.identity()
+    for scalars_arr, points, max_pad, tail_points in msms:
+        mega = mega + _run_msm(
+            backend, scalars_arr, points, bp_gens.share(0), max_pad,
+            tail_points,
+        )
     if mega.is_identity():
         return
     if not identify_failures:
@@ -501,7 +523,7 @@ def batch_verify(
     for i, j in enumerate(jobs):
         single = _run_msm(
             backend,
-            np.concatenate(
+            j.rows.with_scalars(j) if j.rows is not None else np.concatenate(
                 [j.head_sc, j.B_scalar_row[None, :],
                  j.B_blinding_row[None, :], j.g, j.h, j.tail_sc]
             ),

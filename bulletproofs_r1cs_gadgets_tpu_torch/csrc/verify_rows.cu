@@ -22,20 +22,26 @@
 //   index space): wL, wR, wO, wV;
 // * tape_sums: wc = sum over the constant terms and delta = <y^-n o wR,
 //   wL>, block partials and then one block a sum;
-// * gh_rows: per row the formulas above, each result recoded into the w5
-//   walker's 51 signed base-32 digits, one code a byte (ops/chunks.py
-//   ``_signed_recode`` with ``_W5_C``, then ``_digit5_bytes``).
+// * gh_rows: per row the formulas above, summed mod l over B row sets (a
+//   batch's verifications, each with its own constants and padded size
+//   N_b <= N: a batch weighs verification b by rho_b, which scales u_g,
+//   g and h are linear in u_g, and set b adds 0 from row N_b on), each
+//   sum recoded once into the w5 walker's 51 signed base-32 digits, one
+//   code a byte (ops/chunks.py ``_signed_recode`` with ``_W5_C``, then
+//   ``_digit5_bytes``).  One verification is B = 1.
 //
 // Every value is canonical mod l (sc_l.cuh's Barrett reduction), so the
 // rows equal the host's row for row and the words equal ``w5_words``'
 // byte for byte.  What bounds them on an H100: the 32-bit multiplies of
 // the mod-l products (about 190 a product: the 8 x 8 product, Barrett's
 // 9 x 9 quotient and the 9-word q l), then bytes; at 2^18 rows about
-// 7 products and 320 B a row.
+// 7 products and 224 B read a row and row set (y^-i read for g and for
+// h), and 128 B written a row.
 //
 // Layouts (row-major, int32): scalars (n, 8) as eight little-endian
 // words; CSR offsets (W + 1), term constraint indices (T), term
-// coefficients (T, 8); w5 words (2N, 16), G's rows then H's.
+// coefficients (T, 8); w5 words (2N, 16), G's rows then H's; gh_rows' row
+// sets (B, 6) int64 (GhSet).
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -245,47 +251,81 @@ __device__ __forceinline__ void vr_store_w5(int32_t* p, const uint32_t v[8]) {
         q[j] = make_uint4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
 }
 
-// consts (8, 8): x, a, 1 (rows below n1), u x, u a, u (rows from n1), x, b
+// One row set of gh_rows: a verification's wires (wL, wR, wO the first three
+// n-row blocks), its y^-i and s (N rows each, its padded size), its
+// multipliers n and phase-1 multipliers n1 (six int64 on the host)
+struct GhSet {
+    const int32_t* wires;
+    const int32_t* yinv;
+    const int32_t* s;
+    long long n, n1, N;
+};
+
+// Row i of B row sets: g_i = sum_b g_b,i mod l over the sets, stored, then
+// h_i the same (one sum live at a time: fewer registers than both), each
+// set's consts (8, 8): cx, ca, cu (rows below n1), the same from n1 on, x,
+// b; a set adds nothing from its own N on
 __global__ void __launch_bounds__(VR_THREADS)
-gh_rows_kernel(const int32_t* __restrict__ wires, const int32_t* __restrict__ yinv,
-               const int32_t* __restrict__ s, const int32_t* __restrict__ consts,
-               int32_t* __restrict__ words, int n, int n1, int N) {
+gh_rows_kernel(const GhSet* __restrict__ sets, const int32_t* __restrict__ consts,
+               int B, int32_t* __restrict__ words, int N) {
     const int i = blockIdx.x * VR_THREADS + threadIdx.x;
     if (i >= N) return;
-    const int seg = i < n1 ? 0 : 3;
-    uint32_t y[8], cx[8], ca[8], cu[8], x[8], b[8], wl[8], wr[8], wo[8];
-    vr_load(yinv + 8 * i, y);
-    vr_load(consts + 8 * seg, cx);
-    vr_load(consts + 8 * (seg + 1), ca);
-    vr_load(consts + 8 * (seg + 2), cu);
-    vr_load(consts + 48, x);
-    vr_load(consts + 56, b);
-    if (i < n) {
-        vr_load(wires + 8 * i, wl);
-        vr_load(wires + 8 * (n + i), wr);
-        vr_load(wires + 8 * (2 * n + i), wo);
-    } else {
+    uint32_t acc[8], y[8], t[8], q[8], c[8];
+    // g += (u_g x) y^-i wR - (u_g a) s_i
 #pragma unroll
-        for (int k = 0; k < 8; ++k) wl[k] = wr[k] = wo[k] = 0u;
+    for (int k = 0; k < 8; ++k) acc[k] = 0u;
+    for (int j = 0; j < B; ++j) {
+        const GhSet set = sets[j];
+        if (i >= set.N) continue;
+        const int32_t* cj = consts + 64 * j;
+        const int seg = i < set.n1 ? 0 : 3;
+        if (i < set.n) {
+            vr_load(set.yinv + 8 * i, y);
+            vr_load(cj + 8 * seg, c);
+            sc_mul_canon(c, y, t);
+            vr_load(set.wires + 8 * (set.n + i), q);
+            sc_mul_canon(t, q, t);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 8; ++k) t[k] = 0u;
+        }
+        vr_load(set.s + 8 * i, q);
+        vr_load(cj + 8 * (seg + 1), c);
+        sc_mul_canon(c, q, q);
+        sc_sub_canon(t, q, t);
+        sc_add_canon(acc, t, acc);
     }
-    uint32_t t[8], q[8];
-    // g = (u_g x) y^-i wR - (u_g a) s_i
-    sc_mul_canon(cx, y, t);
-    sc_mul_canon(t, wr, t);
-    vr_load(s + 8 * i, q);
-    sc_mul_canon(ca, q, q);
-    sc_sub_canon(t, q, t);
-    vr_store_w5(words + 16 * i, t);
-    // h = (u_g y^-i) (x wL + wO - b s_(N-1-i)) - u_g
-    sc_mul_canon(x, wl, t);
-    sc_add_canon(t, wo, t);
-    vr_load(s + 8 * (N - 1 - i), q);
-    sc_mul_canon(b, q, q);
-    sc_sub_canon(t, q, t);
-    sc_mul_canon(cu, y, q);
-    sc_mul_canon(q, t, t);
-    sc_sub_canon(t, cu, t);
-    vr_store_w5(words + 16 * (N + i), t);
+    vr_store_w5(words + 16 * i, acc);
+    // h += (u_g y^-i) (x wL + wO - b s_(N-1-i)) - u_g
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = 0u;
+    for (int j = 0; j < B; ++j) {
+        const GhSet set = sets[j];
+        if (i >= set.N) continue;
+        const int32_t* cj = consts + 64 * j;
+        const int seg = i < set.n1 ? 0 : 3;
+        if (i < set.n) {
+            vr_load(set.wires + 8 * i, q);
+            vr_load(cj + 48, c);
+            sc_mul_canon(c, q, t);
+            vr_load(set.wires + 8 * (2 * set.n + i), q);
+            sc_add_canon(t, q, t);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 8; ++k) t[k] = 0u;
+        }
+        vr_load(set.s + 8 * (set.N - 1 - i), q);
+        vr_load(cj + 56, c);
+        sc_mul_canon(c, q, q);
+        sc_sub_canon(t, q, t);
+        vr_load(set.yinv + 8 * i, y);
+        vr_load(cj + 8 * (seg + 2), c);
+        sc_mul_canon(c, y, q);
+        sc_mul_canon(q, t, t);
+        sc_sub_canon(t, c, t);
+        sc_add_canon(acc, t, acc);
+    }
+    vr_store_w5(words + 16 * (N + i), acc);
 }
 
 static inline int vr_blocks(long long work) {
@@ -333,12 +373,14 @@ int bp_tape_sums(const int32_t* ccidx, const int32_t* ccoeff, int tc, const int3
     return (int)cudaGetLastError();
 }
 
-// words (2N, 16): the w5 words of g_i (rows [0, N)) and h_i (rows [N, 2N))
-int bp_gh_rows(const int32_t* wires, const int32_t* yinv, const int32_t* s,
-               const int32_t* consts, int32_t* words, int n, int n1, int N, void* stream) {
-    if (N > 0)
+// words (2N, 16): the w5 words of g_i (rows [0, N)) and h_i (rows [N, 2N)),
+// each summed over the B row sets (sets (B, 6) int64 with N_b <= N, consts
+// (B, 8, 8))
+int bp_gh_rows(const int64_t* sets, const int32_t* consts, int B, int32_t* words, int N,
+               void* stream) {
+    if (N > 0 && B > 0)
         gh_rows_kernel<<<vr_blocks(N), VR_THREADS, 0, (cudaStream_t)stream>>>(
-            wires, yinv, s, consts, words, n, n1, N);
+            reinterpret_cast<const GhSet*>(sets), consts, B, words, N);
     return (int)cudaGetLastError();
 }
 

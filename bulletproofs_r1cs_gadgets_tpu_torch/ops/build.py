@@ -78,7 +78,7 @@ SIGNATURES = {
     "bp_tape_flatten": [_VP] * 5 + [_I, _VP],
     "bp_tape_sums_partials": [_I, _I],
     "bp_tape_sums": [_VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP],
-    "bp_gh_rows": [_VP] * 5 + [_I, _I, _I, _VP],
+    "bp_gh_rows": [_VP, _VP, _I, _VP, _I, _VP],
 }
 
 

@@ -274,8 +274,10 @@ every ``TS_REDUCE`` (wL, wR, wO and wV in one launch).  ``tape_sums``: wc
 (the constant terms) and delta = <y^-n o wR, wL>, block partials of
 ``TS_SPAN`` items, then one block a sum (two kernels, one launch count).
 ``gh_rows``: one thread a row, g_i and h_i from y^-i, s_i, s_(N-1-i), the
-wires and the challenges (seven products), each written as the w5
-walker's words (``chunks.w5_words``).  Bound: the mod-l products' 32-bit
+wires and the challenges (seven products) of each of B row sets, summed
+mod l over the sets (a batch's verifications, each weighted by its
+constants) and written once as the w5 walker's words
+(``chunks.w5_words``).  Bound: the mod-l products' 32-bit
 multiplies (``sc_l.cuh``'s Barrett reduction, about 190 a product), then
 bytes.
 
@@ -1540,7 +1542,8 @@ def _w5_codes(v: torch.Tensor) -> torch.Tensor:
 
 
 def gh_scalars_plain(wires, yinv, s, consts, n: int, n1: int):
-    """The canonical (N, 8) rows g and h that ``gh_rows`` encodes."""
+    """The canonical (N, 8) rows g and h of one row set of ``gh_rows``,
+    consts (8, 8)."""
     N = yinv.shape[0]
     dev = yinv.device
     i = torch.arange(N, device=dev)
@@ -1557,36 +1560,68 @@ def gh_scalars_plain(wires, yinv, s, consts, n: int, n1: int):
     return g, h
 
 
-def gh_rows_plain(wires, yinv, s, consts, n: int, n1: int) -> torch.Tensor:
-    g, h = gh_scalars_plain(wires, yinv, s, consts, n, n1)
+def gh_rows_plain(sets, consts: np.ndarray) -> torch.Tensor:
+    dev = sets[0][1].device
+    N = max(yinv.shape[0] for _, yinv, _, _, _ in sets)
+    c = torch.from_numpy(np.ascontiguousarray(consts, np.int32)).to(dev)
+    g = h = torch.zeros((N, 8), dtype=torch.int32, device=dev)
+    for (wires, yinv, s, n, n1), cb in zip(sets, c):
+        gb, hb = gh_scalars_plain(wires, yinv, s, cb, n, n1)
+        Nb = gb.shape[0]
+        g = torch.cat([F.FQ.add(g[:Nb], gb), g[Nb:]])
+        h = torch.cat([F.FQ.add(h[:Nb], hb), h[Nb:]])
     return _w5_codes(torch.cat([g, h]))
 
 
-def gh_rows(wires: torch.Tensor, yinv: torch.Tensor, s: torch.Tensor,
-            consts: torch.Tensor, n: int, n1: int) -> torch.Tensor:
+def gh_rows(sets, consts: np.ndarray) -> torch.Tensor:
     """(2N, 16) new tensor: the w5 words of the verifier's G coefficients
-    g_i (rows [0, N)) and H coefficients h_i (rows [N, 2N)), N = yinv's
-    rows:
+    g_i (rows [0, N)) and H coefficients h_i (rows [N, 2N)), each summed
+    mod l over B row sets, set b = (wires, yinv, s, n, n1) with yinv and
+    s (N_b, 8), N the largest N_b, and consts[b] (8, 8) = [cx, ca, cu,
+    cx', ca', cu', x, b], host int32 words:
 
-      g_i = cx_i yinv_i wR_i - ca_i s_i
-      h_i = cu_i yinv_i (x wL_i + wO_i - b s_(N-1-i)) - cu_i
+      g_i = sum_b cx_b,i yinv_b,i wR_b,i - ca_b,i s_b,i
+      h_i = sum_b cu_b,i yinv_b,i (x_b wL_b,i + wO_b,i - b_b s_b,(N_b-1-i))
+                  - cu_b,i
 
-    with wL, wR, wO the first three n-row blocks of `wires` (zero from n
-    on) and consts (8, 8) = [x, a, 1, u x, u a, u, x, b]: (cx, ca, cu) the
-    first three below n1, the next three from n1 on."""
-    dev = yinv.device
-    N = yinv.shape[0]
-    _check(yinv, "yinv", (N, 8), dev)
-    _check(s, "s", (N, 8), dev)
-    _check(consts, "consts", (8, 8), dev)
-    _check(wires, "wires", (wires.shape[0], 8), dev)
-    if not 0 <= n1 <= n <= N or wires.shape[0] < 3 * n:
-        raise ValueError(f"gh_rows: n1={n1}, n={n}, N={N}, "
-                         f"{wires.shape[0]} wires")
+    over the sets with N_b > i (a set is padded with zero rows, as the
+    host pads a smaller proof's rows in a batch), with wL, wR, wO the
+    first three n-row blocks of the set's `wires` (zero from n on) and
+    (cx, ca, cu) the set's first three constants below its n1, the next
+    three from n1 on.  One verification is one set with [x, a, 1, u x,
+    u a, u, x, b]; a batch weighs set b by rho_b in its first six.  The
+    constants and the table of the sets' pointers go to the card in one
+    copy that does not wait for the stream."""
+    B = len(sets)
+    if B == 0:
+        raise ValueError("gh_rows: no row sets")
+    dev = sets[0][1].device
+    consts = np.ascontiguousarray(consts, np.int32)
+    if consts.shape != (B, 8, 8):
+        raise ValueError(f"consts: shape {consts.shape}, expected {(B, 8, 8)}")
+    N = max(yinv.shape[0] for _, yinv, _, _, _ in sets)
+    for wires, yinv, s, n, n1 in sets:
+        Nb = yinv.shape[0]
+        _check(yinv, "yinv", (Nb, 8), dev)
+        _check(s, "s", (Nb, 8), dev)
+        _check(wires, "wires", (wires.shape[0], 8), dev)
+        if not 0 <= n1 <= n <= Nb or wires.shape[0] < 3 * n:
+            raise ValueError(f"gh_rows: n1={n1}, n={n}, N={Nb}, "
+                             f"{wires.shape[0]} wires")
     if _route(dev) == "plain":
-        return gh_rows_plain(wires, yinv, s, consts, n, n1)
+        return gh_rows_plain(sets, consts)
+    # one int32 buffer: consts (B, 8, 8), then the GhSet table (B, 6)
+    # int64 at byte 256 B
+    buf = np.empty(B * 64 + B * 12, np.int32)
+    buf[: B * 64] = consts.reshape(-1)
+    buf[B * 64:].view(np.int64)[:] = np.array(
+        [[w.data_ptr(), y.data_ptr(), s.data_ptr(), n, n1, y.shape[0]]
+         for w, y, s, n, n1 in sets], dtype=np.int64).reshape(-1)
+    buf = F.upload_async(buf, dev)
     out = torch.empty((2 * N, 16), dtype=torch.int32, device=dev)
-    _check16("gh_rows", wires, yinv, s, consts, out)
-    _launch("gh_rows", dev, "bp_gh_rows", _ptr(wires), _ptr(yinv), _ptr(s),
-            _ptr(consts), _ptr(out), n, n1, N)
+    _check16("gh_rows", buf, out,
+             *(t for w, y, s, _, _ in sets for t in (w, y, s)))
+    _launch("gh_rows", dev, "bp_gh_rows",
+            ctypes.c_void_p(buf.data_ptr() + 256 * B), _ptr(buf), B,
+            _ptr(out), N)
     return out

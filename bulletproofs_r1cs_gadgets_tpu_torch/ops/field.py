@@ -182,14 +182,29 @@ def words_to_ints(w: np.ndarray) -> list[int]:
     ]
 
 
-def upload(arr: np.ndarray, device) -> torch.Tensor:
-    """A host array as a tensor on `device`: every copy of the backend's
-    data to its device goes through here, and adds its bytes to the
-    ``h2d_bytes`` count of the innermost open span (``utils/metrics``;
-    counted on a CPU device too, where no copy is made)."""
+def _counted(arr: np.ndarray) -> torch.Tensor:
+    """`arr` as a host tensor, its bytes added to the ``h2d_bytes`` count
+    of the innermost open span (``utils/metrics``)."""
     t = torch.from_numpy(arr)
     metrics.count("h2d_bytes", t.nbytes)
-    return t.to(device)
+    return t
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device`: every copy of the backend's
+    data to its device goes through here or :func:`upload_async`, and adds
+    its bytes to the ``h2d_bytes`` count of the innermost open span
+    (counted on a CPU device too, where no copy is made)."""
+    return _counted(arr).to(device)
+
+
+def upload_async(arr: np.ndarray, device) -> torch.Tensor:
+    """:func:`upload` that does not wait for the stream: the copy is
+    queued in stream order and the host goes on while earlier work runs.
+    CUDA stages a pageable source before the call returns, so `arr` may
+    be freed at once; a page-locked copy would not help, since allocating
+    one waits for the card when the cached blocks are busy."""
+    return _counted(arr).to(device, non_blocking=True)
 
 
 def from_points(points: list[RistrettoPoint], device="cpu") -> torch.Tensor:

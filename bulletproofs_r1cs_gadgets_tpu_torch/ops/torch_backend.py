@@ -35,8 +35,12 @@ With ``w5`` and ``winmsm`` on, a verification in the grid range gets its
 G/H coefficient rows from the card (:meth:`TorchBackend.verify_rows`,
 ``ops/verify_rows.py``: ``sc_powers``, ``tape_flatten``, ``tape_sums``
 and ``gh_rows`` from a device copy of the constraint tape), and
-``msm_gens`` walks the words ``gh_rows`` writes; elsewhere, and in
-``batch_verify``, the verifier builds the rows on the host.
+``msm_gens`` walks the words ``gh_rows`` writes; in a ``batch_verify``
+each proof gets its rows so, and one ``gh_rows`` launch sums them,
+rho-weighted and padded to the largest size, into the words its
+``msm_gens`` walks.  Elsewhere (other routes and sizes) the verifier
+builds the rows on the host; a batch whose proofs take both paths sums
+each part where its rows are, in an MSM of its own.
 
 Under the other flags:
 
@@ -336,10 +340,11 @@ class TorchBackend:
         ``winmsm`` off, one ``msm_grid`` (pallas_backend.py:235-261);
         otherwise one ``msm_w4`` launch.  A span ``msm_gens``, its
         children ``seam.encode`` / ``seam.launch`` / ``seam.fetch``.
-        `scalars` may be the device rows of :meth:`verify_rows` instead
-        (:meth:`_msm_gens_rows`); the span counts the rows built on the
+        `scalars` may be device rows instead (:meth:`_msm_gens_rows`): one
+        verification's :meth:`verify_rows`, or a batch's sum of them
+        (``verify_rows.RowSum``); the span counts the rows built on the
         device, ``device_rows``."""
-        if isinstance(scalars, vr.VerifyRows):
+        if isinstance(scalars, (vr.VerifyRows, vr.RowSum)):
             return self._msm_gens_rows(scalars, head_points, gens_share,
                                        padded_n, tail_points)
         metrics.count("device_rows", 0)

@@ -14,8 +14,11 @@ tape that stays on it (:class:`DeviceTape`), and writes them straight as
 the walker's words: four kernels (``ops/cuda_curve.py``, ``sc_powers``,
 ``tape_flatten``, ``tape_sums``, ``gh_rows``).  The host keeps the
 transcript, the points and the few head scalars, for which it fetches wV,
-wc and delta (one sync).  Every value is canonical mod l, so the rows and
-words equal the host path's.
+wc and delta (one sync).  A batch verification (``batch_verify``) sums its
+proofs' rows weighted by its random rho_b: ``gh_rows`` sums the B row sets
+in one launch (:class:`RowSum`), each set's u_g scaled by its rho_b, a
+smaller proof's rows padded with zeros to the batch's largest size.  Every
+value is canonical mod l, so the rows and words equal the host path's.
 """
 
 from __future__ import annotations
@@ -31,9 +34,15 @@ from . import cuda_curve as cc
 from . import field as F
 
 
+def host_words(scalars) -> np.ndarray:
+    """Scalars -> (k, 8) int32 canonical words on the host."""
+    return scvec.from_scalars(list(scalars)).view("<i4")
+
+
 def _words(scalars, device) -> torch.Tensor:
-    """Scalars -> (k, 8) int32 canonical words on `device`."""
-    return F.upload(scvec.from_scalars(list(scalars)).view("<i4"), device)
+    """Scalars -> (k, 8) int32 canonical words on `device`, copied in
+    stream order (the host does not wait)."""
+    return F.upload_async(host_words(scalars), device)
 
 
 def _run_bits(m: int) -> int:
@@ -100,6 +109,35 @@ class DeviceTape:
             np.ascontiguousarray(tape.onec[2], "<u8").view("<i4"), device)
 
 
+def gh_words(rows: list, consts: list) -> torch.Tensor:
+    """(2N, 16) w5 words of the sum of the G/H rows of `rows` (VerifyRows
+    with their challenges replayed, N the largest padded size, a smaller
+    one's rows zero from its own), row set b with the eight constants
+    consts[b]: one ``gh_rows`` launch, after one ``sc_powers`` a set for
+    its IPP s vector."""
+    sets = [(r.wires, r.yinv, r.s_vector(), r.n, r.n1) for r in rows]
+    flat = [c for cs in consts for c in cs]
+    return cc.gh_rows(sets, host_words(flat).reshape(len(rows), 8, 8))
+
+
+class RowSum:
+    """A batch's G/H rows, which its backend's ``msm_gens`` walks as it
+    walks one verification's :class:`VerifyRows`: the sum of its
+    verifications' rows (VerifyRows, padded with zero rows to the largest
+    padded size), verification b weighted by rho_b, which scales its u_g
+    (``gh_rows``' first six constants); `head` and `tail` the batch's
+    weighted head (with B and B_blinding) and tail scalars as (k, 4) u64
+    rows."""
+
+    def __init__(self, rows: list, rhos: list, head, tail):
+        self.rows, self.rhos = rows, rhos
+        self.head, self.tail = head, tail
+
+    def words(self) -> torch.Tensor:
+        return gh_words(self.rows, [r.weighted(rho)
+                                    for r, rho in zip(self.rows, self.rhos)])
+
+
 class VerifyRows:
     """One verification's G/H rows on a :class:`DeviceTape`'s device, for
     n1 phase-1 multipliers of n and padded size N.  The verifier calls
@@ -107,7 +145,8 @@ class VerifyRows:
     :meth:`challenges` in place of the IPP's host scalars, and
     :meth:`sums` for wV, wc and delta; it then hands :meth:`with_scalars`
     of its job to the backend's ``msm_gens`` in place of the scalar rows,
-    and ``msm_gens`` walks :meth:`words`."""
+    and ``msm_gens`` walks :meth:`words`.  A batch hands :meth:`summed`
+    of its verifications' rows instead."""
 
     def __init__(self, tape: DeviceTape, n1: int, padded_n: int):
         self.tape = tape
@@ -184,8 +223,23 @@ class VerifyRows:
         self.tail = job.tail_sc
         return self
 
+    def s_vector(self) -> torch.Tensor:
+        """The IPP's s vector, (N, 8) on the device."""
+        return cc.sc_powers(*s_tables(*self._s, self.dev), self.N)
+
     def words(self) -> torch.Tensor:
         """(2N, 16) w5 words: G's coefficient rows, then H's."""
-        s = cc.sc_powers(*s_tables(*self._s, self.dev), self.N)
-        return cc.gh_rows(self.wires, self.yinv, s,
-                          _words(self._consts, self.dev), self.n, self.n1)
+        return gh_words([self], [self._consts])
+
+    def weighted(self, rho: Scalar) -> list:
+        """``gh_rows``' constants of this verification weighted by `rho`:
+        g and h are linear in u_g, so rho scales u_g's three places."""
+        c = self._consts
+        return [rho * v for v in c[:6]] + c[6:]
+
+    @staticmethod
+    def summed(rows: list, rhos: list, head, tail) -> RowSum:
+        """The rows of a batch's verifications, weighted by `rhos` and
+        padded to the largest padded size, with the batch's head and tail
+        scalar rows."""
+        return RowSum(rows, rhos, head, tail)

@@ -118,7 +118,8 @@ parent, change, change, parent in one call).  Where the hasher has
 times the verifier's G/H rows on the card for ``chip_smoke.py``'s
 depth-253 VSMT-2 proof (2^18 rows) and a depth-128 VSMT-4 proof (2^17):
 each row kernel (``sc_powers`` for z^1..z^m, y^-i and s, ``tape_flatten``,
-``tape_sums``, ``gh_rows``), equal to its plain version, by CUDA events a
+``tape_sums``, ``gh_rows`` over one row set and over a batch's eight,
+``chip_smoke.batch_row_sets``), equal to its plain version, by CUDA events a
 call and the profiler's device time, beside its plain version's time (one
 call) and its bound (``chip_smoke.rows_work``); the tape's device copy
 (``DeviceTape``) built three times, on the host alone and with its upload;
@@ -968,7 +969,9 @@ def verify_rows(bp, torch, cs, cc) -> dict:
         wires = cc.tape_flatten(t.off, t.cidx, t.coeff, zp)
         yinv = cc.sc_powers(*yt, N)
         s = cc.sc_powers(*st, N)
-        consts = vr._words(sc[2:6] + sc[2:6], dev)
+        consts = vr.host_words(sc[2:6] + sc[2:6]).reshape(1, 8, 8)
+        one = [(wires, yinv, s, n, n)]
+        sets, c8 = cs.batch_row_sets(bp, cc, t, n, N, rng)
         T, W, tc = t.cidx.shape[0], t.off.shape[0] - 1, t.ccidx.shape[0]
         work = cs.rows_work(cc, t.m, n, N, T, W, tc)
         calls = {
@@ -987,10 +990,10 @@ def verify_rows(bp, torch, cs, cc) -> dict:
                 lambda: cc.tape_sums(t.ccidx, t.ccoeff, zp, wires, yinv, n),
                 lambda: cc.tape_sums_plain(t.ccidx, t.ccoeff, zp, wires,
                                            yinv, n)),
-            "gh_rows": (
-                "gh_rows",
-                lambda: cc.gh_rows(wires, yinv, s, consts, n, n),
-                lambda: cc.gh_rows_plain(wires, yinv, s, consts, n, n)),
+            "gh_rows": ("gh_rows", lambda: cc.gh_rows(one, consts),
+                        lambda: cc.gh_rows_plain(one, consts)),
+            "gh_rows b8": ("gh_rows_b8", lambda: cc.gh_rows(sets, c8),
+                           lambda: cc.gh_rows_plain(sets, c8)),
         }
         kern = {}
         for key, (wkey, fn, plain) in calls.items():

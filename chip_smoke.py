@@ -109,17 +109,20 @@ non-zero and prints no result):
    raise VerificationError.
 4b. the verifier's G/H row kernels (``sc_powers``, ``tape_flatten``,
    ``tape_sums``, ``gh_rows``) against their plain versions on the card
-   at phase 4's 2^18 shape, over its tape's CSR: equal word for word,
-   each timed beside its plain version and its bound (``rows_work``).
+   at phase 4's 2^18 shape, over its tape's CSR, ``gh_rows`` over one row
+   set and over a batch's eight (each its own z, y, challenges and rho):
+   equal word for word, each timed beside its plain version and its
+   bound (``rows_work``).
 5. the depth-253 batch of eight (different leaves, deterministic prover
    randomness) through ``prove_provers`` as a user calls it (the default
    host pool: each prover's rng is private, so the pool cannot change
    the bytes): wall time, proofs/s and peak device memory; one
    ``batch_verify`` of the eight; proof 0 equals, byte for byte, the
    same prover re-proved alone; a batch holding one tampered proof must
-   raise VerificationError.  Launch counts are taken over the batch's
-   prove and verify (none of the row kernels: ``batch_verify`` builds
-   its rows on the host).
+   raise VerificationError naming its index.  Launch counts are taken
+   over the batch's prove and verify (the row kernels too:
+   ``batch_verify`` builds each proof's rows on the card and sums them
+   in one ``gh_rows`` launch, ``route_kernels`` with a verify).
 6. the equivalence gate of ``bench.py`` stage 5 (:482-627): its depth-8
    VSMT-2 circuit (4,544 multipliers padded to 8192, prover rng 42,
    commitments rng 7) proved under the reference's seven route combos,
@@ -240,7 +243,8 @@ times (CUDA events over back-to-back calls), device times a launch
 (``device_ms_288`` ..., the profiler's) and byte bounds at their callers'
 sizes (``ms_288`` ...); the row kernels their phase-4b records at 2^18
 rows (``sc_powers`` also at z^1..z^m, ``*_z``, and for s, ``ms_s``;
-``gh_rows`` with n1 = n / 2, ``ms_half_phase1``);
+``gh_rows`` with n1 = n / 2, ``ms_half_phase1``, and over a batch's
+eight row sets, ``*_b8``);
 ``library_ms`` null: no PyTorch call computes these functions), and the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -374,7 +378,8 @@ def route_kernels(route, combined: bool = True, verify: bool = False):
     `combined` False is the chunk-list route (``combined_off``, default
     flags): round 1 over the shared tables, then ``msm_w4`` segments and
     ``fold_bits``.  A verify builds its G/H rows on the card
-    (ROWS_KERNELS) with ``w5`` and ``winmsm`` on; a proof never does."""
+    (ROWS_KERNELS) with ``w5`` and ``winmsm`` on, and so does a
+    ``batch_verify``; a proof never does."""
     on, off = _proof_kernels(route, combined)
     rows = set(ROWS_KERNELS)
     if verify and route.w5 and route.winmsm:
@@ -943,13 +948,15 @@ def _popcounts(K: int) -> int:
     return sum(bin(k).count("1") for k in range(K))
 
 
-def rows_work(cc, m: int, n: int, N: int, T: int, W: int, tc: int) -> dict:
+def rows_work(cc, m: int, n: int, N: int, T: int, W: int, tc: int,
+              B: int = BATCH) -> dict:
     """{kernel: (ops, bytes)} for m constraints, n multipliers padded to N,
     T tape terms over W wires and tc constant terms: ``sc_powers`` (the
     bit products of its runs' bases, then a product an output) for z^1..z^m
     (``sc_powers_z``) and for N outputs (y^-i; s the same),
     ``tape_flatten``, ``tape_sums`` and ``gh_rows`` (seven products a
-    row)."""
+    row and row set, 224 B read a row and set and 128 B written a row;
+    ``gh_rows_b8`` over B sets)."""
     R = cc.SP_RUN
     return {
         "sc_powers_z": ({"sc": _popcounts(-(-m // R)) + m}, 32 * m),
@@ -958,7 +965,8 @@ def rows_work(cc, m: int, n: int, N: int, T: int, W: int, tc: int) -> dict:
         "tape_sums": ({"sc_prod": tc + n, "sc": n,
                        "sc_red": -(-tc // cc.TS_SPAN) * 256
                        + -(-n // cc.TS_SPAN) * 256}, 68 * tc + 96 * n),
-        "gh_rows": ({"sc": 7 * N}, 320 * N),
+        "gh_rows": ({"sc": 7 * N}, 352 * N),
+        "gh_rows_b8": ({"sc": 7 * B * N}, (224 * B + 128) * N),
     }
 
 
@@ -2065,6 +2073,31 @@ def phase_full_routes(bp, torch, cc, gens, comp, tape, comms, prover, snap):
     return times, launches, want
 
 
+def batch_row_sets(bp, cc, t, n: int, N: int, rng, B: int = BATCH):
+    """(sets, consts) of ``gh_rows`` over B row sets of the device tape `t`
+    (n multipliers, one phase, padded to N), each from its own random z,
+    y^-1, x, a, u, b and IPP challenges, its constants weighted by its own
+    random rho, as a batch verification's."""
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import verify_rows as vr
+
+    dev = t.off.device
+    sets, consts = [], []
+    for _ in range(B):
+        z, y_inv, x, a, u, b, all_inv, rho = (
+            bp.Scalar.from_bytes_mod_order_wide(rng.bytes(64))
+            for _ in range(8))
+        u_sq = [c * c for c in (
+            bp.Scalar.from_bytes_mod_order_wide(rng.bytes(64))
+            for _ in range(N.bit_length() - 1))]
+        zp = cc.sc_powers(*vr.power_tables(z, 1, t.m, dev), t.m)
+        sets.append((cc.tape_flatten(t.off, t.cidx, t.coeff, zp),
+                     cc.sc_powers(*vr.power_tables(y_inv, 0, N, dev), N),
+                     cc.sc_powers(*vr.s_tables(u_sq, all_inv, dev), N), n, n))
+        consts += [rho * c for c in (x, a, bp.Scalar.one(), u * x, u * a,
+                                     u)] + [x, b]
+    return sets, vr.host_words(consts).reshape(B, 8, 8)
+
+
 def phase_kernels_rows(bp, torch, cc, case, dev) -> dict:
     """The verifier-row kernels (``csrc/verify_rows.cu``) against their
     plain versions on the same CUDA tensors, at phase 4's VSMT-2 depth-253
@@ -2073,10 +2106,13 @@ def phase_kernels_rows(bp, torch, cc, case, dev) -> dict:
     x, a, u, b and IPP challenges.  ``sc_powers`` for z^1..z^m, y^-i and
     the IPP's s vector, ``tape_flatten``, ``tape_sums``, and ``gh_rows``
     with n1 = n (the circuit's one phase) and n1 = n / 2 (u_g = u from n1
-    on): every output equal word for word.  Each record: CUDA-event ms a
-    call (20 calls after a warm-up), the plain version's ms (one call,
-    synchronised), bound (rows_work), and for ``sc_powers`` the same at
-    z^1..z^m (``*_z``) and s (``ms_s``)."""
+    on), and over BATCH row sets of the same tape, each from its own
+    random z, y^-1 and challenges and weighted by its own rho (``_b8``):
+    every output equal word for word.  Each record: CUDA-event ms a call
+    (20 calls after a warm-up), the plain version's ms (one call,
+    synchronised), bound (rows_work), for ``sc_powers`` the same at
+    z^1..z^m (``*_z``) and s (``ms_s``), and for ``gh_rows`` at B = 8
+    (``*_b8``)."""
     import numpy as np
 
     from bulletproofs_r1cs_gadgets_tpu_torch.ops import verify_rows as vr
@@ -2092,7 +2128,8 @@ def phase_kernels_rows(bp, torch, cc, case, dev) -> dict:
     z, y_inv, x, a, u, b, all_inv = sc[:7]
     u_sq = [c * c for c in sc[7:]]
     assert 1 << len(u_sq) == N
-    consts = vr._words([x, a, bp.Scalar.one(), u * x, u * a, u, x, b], dev)
+    consts = vr.host_words([x, a, bp.Scalar.one(), u * x, u * a, u, x,
+                            b]).reshape(1, 8, 8)
     zt = vr.power_tables(z, 1, t.m, dev)
     yt = vr.power_tables(y_inv, 0, N, dev)
     st = vr.s_tables(u_sq, all_inv, dev)
@@ -2100,6 +2137,8 @@ def phase_kernels_rows(bp, torch, cc, case, dev) -> dict:
     wires = cc.tape_flatten(t.off, t.cidx, t.coeff, zp)
     yinv = cc.sc_powers(*yt, N)
     s = cc.sc_powers(*st, N)
+    one, half = [(wires, yinv, s, n, n)], [(wires, yinv, s, n, n // 2)]
+    sets, c8 = batch_row_sets(bp, cc, t, n, N, rng)
     calls = {
         "sc_powers_z": (lambda: cc.sc_powers(*zt, t.m),
                         lambda: cc.sc_powers_plain(*zt, t.m)),
@@ -2114,11 +2153,12 @@ def phase_kernels_rows(bp, torch, cc, case, dev) -> dict:
             lambda: cc.tape_sums(t.ccidx, t.ccoeff, zp, wires, yinv, n),
             lambda: cc.tape_sums_plain(t.ccidx, t.ccoeff, zp, wires, yinv,
                                        n)),
-        "gh_rows": (lambda: cc.gh_rows(wires, yinv, s, consts, n, n),
-                    lambda: cc.gh_rows_plain(wires, yinv, s, consts, n, n)),
-        "gh_rows_n1": (
-            lambda: cc.gh_rows(wires, yinv, s, consts, n, n // 2),
-            lambda: cc.gh_rows_plain(wires, yinv, s, consts, n, n // 2)),
+        "gh_rows": (lambda: cc.gh_rows(one, consts),
+                    lambda: cc.gh_rows_plain(one, consts)),
+        "gh_rows_n1": (lambda: cc.gh_rows(half, consts),
+                       lambda: cc.gh_rows_plain(half, consts)),
+        "gh_rows_b8": (lambda: cc.gh_rows(sets, c8),
+                       lambda: cc.gh_rows_plain(sets, c8)),
     }
     work = rows_work(cc, t.m, n, N, t.cidx.shape[0], t.off.shape[0] - 1,
                      t.ccidx.shape[0])
@@ -2140,6 +2180,8 @@ def phase_kernels_rows(bp, torch, cc, case, dev) -> dict:
     sp["ms_s"], sp["plain_ms_s"] = (got["sc_powers_s"]["ms"],
                                     got["sc_powers_s"]["plain_ms"])
     records["gh_rows"]["ms_half_phase1"] = got["gh_rows_n1"]["ms"]
+    for k, v in got["gh_rows_b8"].items():
+        records["gh_rows"][f"{k}_b8"] = v
     for r in records.values():
         r.update(m=t.m, n=n, N=N, library_ms=None)
     return records
@@ -2194,8 +2236,10 @@ def phase_batch(bp, torch, cc, gens, params, tree):
                  "fold_w3h_comb", "table_w4", "msm_win_pair"):
         assert out["launches"][name] > 0, \
             f"kernel {name} was not launched on the batched path"
-    for name in ROWS_KERNELS:  # batch_verify builds its rows on the host
-        assert not out["launches"][name], f"batch_verify launched {name}"
+    on, _ = route_kernels(bp.Route(), verify=True)
+    for name in ROWS_KERNELS:  # each proof's rows, and their sum, on the card
+        assert name in on and out["launches"][name] > 0, \
+            f"batch_verify did not launch {name}"
 
     prover = provers[0]
     prover.restore(snaps[0])

@@ -22,7 +22,16 @@
   ``batch_verify`` with its ``msm_gens``, a refused batch's
   ``batch_verify.recheck``; with the recorder off nothing is recorded and
   the bytes are the same.
-* The four readers of the cell on synthetic records, and None where the
+* ``batch_verify`` with the G/H rows built on the device (a CPU
+  ``TorchBackend`` whose walker range starts at 1, so its plain kernels
+  build and sum them), on two-phase proofs padded to 64: the honest
+  batch is accepted with 2N ``device_rows`` on its ``msm_gens``, a
+  flipped byte is refused naming exactly its index, a false statement
+  names every index; a batch of two padded sizes is summed on the device
+  too; a batch whose smaller proof keeps the host's rows (the walker
+  starting above its size) and one on a route with ``w5`` off are still
+  judged right, the host's part with ``device_rows`` 0.
+* The five readers of the cell on synthetic records, and None where the
   program recorded nothing for them.
 * The batch traffic through ``benchmark.drive`` at depth 4 on
   ``NativeBackend`` (``prove_provers``' sequential path): a sound run is
@@ -59,6 +68,7 @@ from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import (
 from bulletproofs_r1cs_gadgets_tpu_torch.utils import metrics
 from bulletproofs_r1cs_gadgets_tpu_torch.utils.metrics import Span
 import test_torch_trace as small
+import test_torch_verify_rows as tvr
 
 torch.set_num_threads(1)
 
@@ -71,7 +81,8 @@ with open(os.path.join(bench.ROOT, "benchmark", "configs",
 with open(os.path.join(bench.ROOT, "benchmark", "traffic", "batch.json")) as f:
     TRAFFIC = json.load(f)
 READERS = ("batch_self_ms.batch", "batch_wait_ms.batch",
-           "bverify_host_ms.batch", "kernel_roofline.batch")
+           "bverify_host_ms.batch", "kernel_roofline.batch",
+           "device_rows.batch")
 named_indices = named.load("traffic", "batch").named
 
 
@@ -228,6 +239,96 @@ def test_a_batch_against_another_root_is_refused(service):
     check_other_root(*service)
 
 
+def _batch_rows(spans) -> list:
+    """The ``device_rows`` of each ``msm_gens`` directly under a
+    ``batch_verify``."""
+    tops = {s.id for s in spans if s.name == "batch_verify"}
+    return [s.counts["device_rows"] for s in spans
+            if s.name == "msm_gens" and s.parent in tops]
+
+
+@pytest.fixture(scope="module")
+def two_phase():
+    """B two-phase proofs of one statement (41 phase-1 and 11 phase-2
+    multipliers, padded to 64), each with its own blinding."""
+    return [tvr.two_phase_case() for _ in range(B)]
+
+
+def judge(cases, proofs, be, wrong: bool = False):
+    """None where ``batch_verify`` accepts `proofs` of `cases` on `be`,
+    else the indices its refusal names; with `wrong`, against each case's
+    false statement."""
+    try:
+        batch_verify([c.wrong() if wrong else c.verifier() for c in cases],
+                     proofs, tvr.PC, cases[0].gens, backend=be)
+    except port.VerificationError as err:
+        return named_indices(err)
+    return None
+
+
+def test_device_rows_accept_the_honest_batch(two_phase):
+    metrics.enable()
+    assert judge(two_phase, [c.proof for c in two_phase],
+                 tvr.cpu_backend()) is None
+    assert _batch_rows(metrics.take()) == [2 * 64]
+
+
+def test_device_rows_name_a_flipped_byte(two_phase):
+    bad = [c.proof for c in two_phase]
+    bad[0] = flipped(bad[0])
+    metrics.enable()
+    assert judge(two_phase, bad, tvr.cpu_backend()) == [0]
+    spans = metrics.take()
+    assert _batch_rows(spans) == [2 * 64]
+    (recheck,) = [s for s in spans if s.name == "batch_verify.recheck"]
+    assert recheck.counts["bad"] == 1
+
+
+def test_device_rows_name_every_index_against_another_root(two_phase):
+    assert judge(two_phase, [c.proof for c in two_phase], tvr.cpu_backend(),
+                 wrong=True) == list(range(B))
+
+
+def test_device_rows_sum_a_batch_of_mixed_sizes():
+    """Two-phase proofs of two padded sizes (64 and 32) on the rows
+    backend: one ``gh_rows`` sums every job's rows, the smaller one's
+    padded with zeros (``device_rows`` 2 x 64); the honest batch accepted
+    and a flipped byte named."""
+    cases = [tvr.two_phase_case(links) for links in (40, 10, 40)]
+    proofs = [c.proof for c in cases]
+    metrics.enable()
+    assert judge(cases, proofs, tvr.cpu_backend()) is None
+    bad = list(proofs)
+    bad[1] = flipped(proofs[1])
+    assert judge(cases, bad, tvr.cpu_backend()) == [1]
+    assert _batch_rows(metrics.take()) == [2 * 64, 2 * 64]
+
+
+@pytest.mark.parametrize("kind", ["mixed_sizes", "w5_off"])
+def test_host_rows_judge_a_batch_the_device_does_not_sum(kind):
+    """Two-phase proofs of two padded sizes (64 and 32) on a rows backend
+    whose walker starts above 32, so the smaller proof keeps the host's
+    rows: the host sums its rows into an MSM of their own
+    (``device_rows`` 0) beside the device's sum of the others (2 x 64);
+    or proofs of one size on a route with ``w5`` off, all on the host.
+    The honest batch accepted and a flipped byte named, in either
+    part."""
+    sizes = [40, 10, 40] if kind == "mixed_sizes" else [40, 40, 40]
+    cases = [tvr.two_phase_case(links) for links in sizes]
+    be = (port.TorchBackend("cpu", min_device_n=1, walker_min_n=33)
+          if kind == "mixed_sizes"
+          else tvr.cpu_backend(route=Route(w5=False)))
+    proofs = [c.proof for c in cases]
+    metrics.enable()
+    assert judge(cases, proofs, be) is None
+    for at in (0, 1):
+        bad = list(proofs)
+        bad[at] = flipped(proofs[at])
+        assert judge(cases, bad, be) == [at]
+    want = [0, 2 * 64] if kind == "mixed_sizes" else [0]
+    assert _batch_rows(metrics.take()) == want * 3
+
+
 def _small_batch(be, seeds=(31, 32, 33)):
     built = [small._prover(s) for s in seeds]
     proofs = prove_provers([p for p, _ in built], small.GENS, backend=be)
@@ -303,12 +404,14 @@ SYNTHETIC = [
     _span("seam.fetch", 7.0, 7.5, 8, 6, 1),
     _span("batch_verify", 12.0, 15.0, 9, None, 9),
     _span("batch_verify.jobs", 12.0, 14.0, 10, 9, 9),
-    _span("msm_gens", 14.2, 14.7, 11, 9, 9),
+    _span("msm_gens", 14.2, 14.7, 11, 9, 9)._replace(
+        counts={"device_rows": 1 << 19}),
     _span("seam.fetch", 14.5, 14.6, 12, 11, 9),
 ]
 EXPECTED = {"batch_self_ms.batch": 1e3 * (10.0 - 1.0 - 4.0),
             "batch_wait_ms.batch": 1e3 * (0.25 + 0.5),
-            "bverify_host_ms.batch": 1e3 * (3.0 - 0.5)}
+            "bverify_host_ms.batch": 1e3 * (3.0 - 0.5),
+            "device_rows.batch": 1 << 19}
 
 
 def _trace(wall, busy):

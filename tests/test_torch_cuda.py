@@ -13,7 +13,8 @@ lowered) and a batch of three proofs (``prove_provers``) through
 ``TorchBackend("cuda")`` against the host engine's bytes; the equivalence
 gate's depth-8 proof on the default route and with ``winmsm`` off; the
 verifier's G/H row kernels against their plain versions and the host's
-rows at VSMT-2 depth 4 and VSMT-4 depth 128, and on edge shapes.  On a
+rows at VSMT-2 depth 4 and VSMT-4 depth 128, on edge shapes, and a
+batch's rows summed over 2 and 8 row sets and over two padded sizes.  On a
 machine with two cards: a two-shard ``ShardedWalkMsm`` over cuda:0 and
 cuda:1, and a backend on cuda:1 driven from the main thread (cuda:0
 current) and from pool threads, byte-identical to cuda:0 (skipped on one
@@ -1024,10 +1025,10 @@ def test_verify_rows_match_plain_on_card(cuda_device, circuit, monkeypatch):
     sums = cc.tape_sums(t.ccidx, t.ccoeff, zp, rows.wires, yinv, n)
     assert torch.equal(sums, cc.tape_sums_plain(t.ccidx, t.ccoeff, zp,
                                                 rows.wires, yinv, n))
-    consts = vr._words(rows._consts, dev)
+    consts = vr.host_words(rows._consts).reshape(1, 8, 8)
     words = rows.words()
-    assert torch.equal(words, cc.gh_rows_plain(rows.wires, yinv, s, consts,
-                                               n, rows.n1))
+    assert torch.equal(words, cc.gh_rows_plain(
+        [(rows.wires, yinv, s, n, rows.n1)], consts))
     assert torch.equal(words, torch.cat([ck.w5_words(host.g, dev),
                                          ck.w5_words(host.h, dev)]))
     metrics.take()
@@ -1042,3 +1043,91 @@ def test_verify_rows_match_plain_on_card(cuda_device, circuit, monkeypatch):
     assert not cs.verdict(bp, case.verifier(), cs.tampered(bp, case.proof),
                           case.gens, backend)
     assert not cs.verdict(bp, case.wrong(), case.proof, case.gens, backend)
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_batch_rows_match_plain_on_card(cuda_device, B):
+    """A batch's rows on the card (``gh_rows`` over B row sets of distinct
+    transcripts of the depth-4 VSMT-2 proof, weighted by their rhos) equal
+    the summed kernel's plain version on the same CUDA tensors and the
+    words of the host's rho-weighted sum of the jobs' g and h; a
+    ``batch_verify`` of B copies of the proof through the card's rows
+    accepts with 2N ``device_rows`` and names a flipped byte."""
+    import chip_smoke as cs
+    import bulletproofs_r1cs_gadgets_tpu_torch as bp
+    import test_torch_verify_rows as tvr
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import verify_rows as vr
+    from bulletproofs_r1cs_gadgets_tpu_torch.utils import metrics
+
+    dev = cuda_device
+    backend = TorchBackend(dev)
+    case = cs.vsmt2_case(bp, cs.SMALL_DEPTH, backend)
+    rows, rhos, g, h = tvr.batch_rows(case, backend, B)
+    words = vr.VerifyRows.summed(rows, rhos, None, None).words()
+    assert torch.equal(words, tvr.summed_plain(rows, rhos))
+    assert torch.equal(words, torch.cat([ck.w5_words(g, dev),
+                                         ck.w5_words(h, dev)]))
+    proofs = [case.proof] * B
+    metrics.take()
+    metrics.enable()
+    try:
+        batch_verify([case.verifier() for _ in proofs], proofs,
+                     PedersenGens.default(), case.gens, backend=backend)
+        spans = metrics.take()
+        proofs[B - 1] = cs.tampered(bp, case.proof)
+        with pytest.raises(VerificationError, match=rf"\[{B - 1}\]"):
+            batch_verify([case.verifier() for _ in proofs], proofs,
+                         PedersenGens.default(), case.gens, backend=backend)
+    finally:
+        metrics.disable()
+        metrics.take()
+    assert tvr._device_rows(spans) == [2 * rows[0].N]
+
+
+def test_mixed_size_batch_on_card(cuda_device):
+    """A batch of two padded sizes on the card: VSMT-2 proofs at depth 4
+    (4,096) and depth 8 (8,192).  One ``gh_rows`` sums the three row
+    sets, the smaller ones adding nothing from their own size on: equal
+    to the plain version on the same CUDA tensors and to the words of the
+    host's rho-weighted sum of the jobs' rows padded with zeros; a
+    ``batch_verify`` of the three accepts with 2 x 8,192 ``device_rows``
+    on its one ``msm_gens`` and names a flipped byte in a smaller proof."""
+    import chip_smoke as cs
+    import bulletproofs_r1cs_gadgets_tpu_torch as bp
+    import numpy as np
+    import test_torch_verify_rows as tvr
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops import verify_rows as vr
+    from bulletproofs_r1cs_gadgets_tpu_torch.utils import metrics
+
+    dev = cuda_device
+    backend = TorchBackend(dev)
+    small = cs.vsmt2_case(bp, cs.SMALL_DEPTH, backend)
+    big = cs.vsmt2_case(bp, 8, backend)
+    rng = np.random.RandomState(8)
+    rhos = [bp.Scalar.one()] + [
+        bp.Scalar.from_bytes_mod_order_wide(rng.bytes(64)) for _ in range(2)]
+    rows, g, h = tvr.summed_rows(
+        [(small, small.proof), (big, big.proof),
+         (small, tvr.variant(small.proof, 1))], backend, rhos)
+    assert [r.N for r in rows] == [4096, 8192, 4096]
+    words = vr.VerifyRows.summed(rows, rhos, None, None).words()
+    assert words.shape == (2 * 8192, 16)
+    assert torch.equal(words, tvr.summed_plain(rows, rhos))
+    assert torch.equal(words, torch.cat([ck.w5_words(g, dev),
+                                         ck.w5_words(h, dev)]))
+    cases = [small, big, small]
+    proofs = [c.proof for c in cases]
+    metrics.take()
+    metrics.enable()
+    try:
+        batch_verify([c.verifier() for c in cases], proofs,
+                     PedersenGens.default(), big.gens, backend=backend)
+        spans = metrics.take()
+        proofs[2] = cs.tampered(bp, small.proof)
+        with pytest.raises(VerificationError, match=r"\[2\]"):
+            batch_verify([c.verifier() for c in cases], proofs,
+                         PedersenGens.default(), big.gens, backend=backend)
+    finally:
+        metrics.disable()
+        metrics.take()
+    assert tvr._device_rows(spans) == [2 * 8192]

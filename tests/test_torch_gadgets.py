@@ -447,6 +447,94 @@ _DEVICE_ROWS = (
      "    tail_points: list\n    padded_n: int\n"
      "    rows: object = None          # the device's G/H rows (g, h None)\n"),
 )
+# the batch verifier's device rows: each job's rows built on the card, and
+# the rho-weighted sum of the jobs that have them formed there, the other
+# jobs' on the host, each part its own MSM (ops/verify_rows.py)
+_BATCH_COMBINE = """\
+    rhos = [Scalar.one()] + [
+        Scalar.from_bytes_mod_order_wide(secrets.token_bytes(64))
+        for _ in jobs[1:]
+    ]
+    B_row = scvec.scale(jobs[0].B_scalar_row[None, :], rhos[0])
+    Bb_row = scvec.scale(jobs[0].B_blinding_row[None, :], rhos[0])
+    for j, r in zip(jobs[1:], rhos[1:]):
+        B_row = scvec.add(B_row, scvec.scale(j.B_scalar_row[None, :], r))
+        Bb_row = scvec.add(
+            Bb_row, scvec.scale(j.B_blinding_row[None, :], r)
+        )
+
+    def _pad(arr: np.ndarray, max_pad: int) -> np.ndarray:
+        if arr.shape[0] == max_pad:
+            return arr
+        return np.concatenate([arr, scvec.zeros(max_pad - arr.shape[0])])
+
+    # The jobs whose G/H rows the backend's device built sum them there
+    # (ops/verify_rows.py), the others on the host: each part is one MSM
+    # over the shared generators, and the batch's MSM is their sum.
+    msms = []
+    for part in (
+        [(j, r) for j, r in zip(jobs, rhos) if j.rows is None],
+        [(j, r) for j, r in zip(jobs, rhos) if j.rows is not None],
+    ):
+        if not part:
+            continue
+        max_pad = max(j.padded_n for j, _ in part)
+        head_sc = np.concatenate([scvec.scale(j.head_sc, r) for j, r in part])
+        head_points = [p for j, _ in part for p in j.head_points]
+        tail_sc = np.concatenate([scvec.scale(j.tail_sc, r) for j, r in part])
+        tail_points = [p for j, _ in part for p in j.tail_points]
+        if not msms:
+            # the shared basepoints, once
+            head_sc = np.concatenate([head_sc, B_row, Bb_row])
+            head_points = head_points + [pc_gens.B, pc_gens.B_blinding]
+        if part[0][0].rows is not None:
+            scalars_arr = part[0][0].rows.summed(
+                [j.rows for j, _ in part], [r for _, r in part],
+                head_sc, tail_sc,
+            )
+        else:
+            g = scvec.scale(_pad(part[0][0].g, max_pad), part[0][1])
+            h = scvec.scale(_pad(part[0][0].h, max_pad), part[0][1])
+            for j, r in part[1:]:
+                g = scvec.add(g, scvec.scale(_pad(j.g, max_pad), r))
+                h = scvec.add(h, scvec.scale(_pad(j.h, max_pad), r))
+            scalars_arr = np.concatenate([head_sc, g, h, tail_sc])
+        msms.append((scalars_arr, head_points, max_pad, tail_points))
+    metrics.mark(None)
+    mega = RistrettoPoint.identity()
+    for scalars_arr, points, max_pad, tail_points in msms:
+        mega = mega + _run_msm(
+            backend, scalars_arr, points, bp_gens.share(0), max_pad,
+            tail_points,
+        )
+"""
+
+
+def _batch_combine(jax: str) -> tuple[str, str]:
+    """(the JAX batch verifier's combine as the trace lines leave it, the
+    port's)."""
+    start = jax.index("    max_pad = max(j.padded_n for j in jobs)\n")
+    block = jax[start : jax.index("    if mega.is_identity():\n", start)]
+    mark = "    mega = _run_msm("
+    assert block.count(mark) == 1
+    return block.replace(mark, "    metrics.mark(None)\n" + mark), _BATCH_COMBINE
+
+
+_BATCH_ROWS = (
+    ("    metrics.mark(\"batch_verify.jobs\")\n",
+     "    metrics.mark(\"batch_verify.jobs\")\n"
+     "    rows = getattr(backend, \"verify_rows\", None)\n"),
+    ("                lambda vp: vp[0]._verification_job(vp[1], pc_gens,"
+     " bp_gens),\n",
+     "                lambda vp: vp[0]._verification_job(\n"
+     "                    vp[1], pc_gens, bp_gens, rows\n"
+     "                ),\n"),
+    _batch_combine((ROOT / JAX_PKG / "core" / "verifier.py").read_text()),
+    ("            backend,\n            np.concatenate(\n",
+     "            backend,\n"
+     "            j.rows.with_scalars(j) if j.rows is not None else"
+     " np.concatenate(\n"),
+)
 TRACED = {
     "core/prover.py": (
         _IMPORT_METRICS,
@@ -512,7 +600,7 @@ TRACED = {
          "    metrics.mark(\"batch_verify.recheck\")\n    bad = []\n"),
         ("            bad.append(i)\n",
          "            bad.append(i)\n    metrics.count(\"bad\", len(bad))\n"),
-    ),
+    ) + _BATCH_ROWS,
     # the batch's top span ``prove_batch`` over the staged path (moved into
     # ``_prove_staged``), its phases and the pool's per-prover phases
     "parallel/batch.py": (

@@ -7,10 +7,13 @@ terms, ``TapeArrays.flatten``'s wL / wR / wO / wV / wc, y^-i, the IPP's s
 vector, delta, ``_verification_job``'s g, h, head and B rows, and the words
 ``chunks.w5_words`` makes of g and h.  The circuits: the depth-4 VSMT-2
 golden circuit (2,272 multipliers padded to 4,096) and a two-phase circuit
-(phase-2 multipliers, so u_g = u from n1 < n, and padding).  A verification
-through the device rows accepts a good proof and rejects a flipped byte and
-a wrong root; ``batch_verify``, a backend without the capability and the
-routes and sizes it does not serve keep the host's rows.  Tolerance: exact.
+(phase-2 multipliers, so u_g = u from n1 < n, and padding).  A batch's
+rows (``gh_rows`` over B row sets, each weighted by its rho) equal the
+host's rho-weighted sum of its jobs' g and h, at B = 1, 2 and 8 over
+distinct transcripts, and over two padded sizes.  A verification
+through the device rows accepts a good proof and rejects a flipped byte
+and a wrong root; a backend without the capability and the routes and
+sizes it does not serve keep the host's rows.  Tolerance: exact.
 """
 
 import re
@@ -24,6 +27,7 @@ import bulletproofs_r1cs_gadgets_tpu_torch as bp
 import chip_smoke as cs
 from bulletproofs_r1cs_gadgets_tpu_torch import scvec
 from bulletproofs_r1cs_gadgets_tpu_torch.core import verifier as vmod
+from bulletproofs_r1cs_gadgets_tpu_torch.core.ipp import InnerProductProof
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import cuda_curve as cc
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import verify_rows as vr
@@ -204,6 +208,111 @@ def test_device_rows_equal_the_host_arrays(circuit, request, monkeypatch):
     assert torch.equal(rows.words(), want)
 
 
+def variant(proof, b: int):
+    """`proof` with its eight phase-1 and T points rotated by b over their
+    slots (A_I1, A_O1, S1, T_1 ... T_6), its IPP L points rotated by b and
+    its IPP `a` moved by b: another transcript for each b < 8 (other y, z,
+    u, x and IPP challenges), so other rows.  The rows need no valid
+    proof; b = 0 is `proof`."""
+    pts = [proof.A_I1, proof.A_O1, proof.S1,
+           proof.T_1, proof.T_3, proof.T_4, proof.T_5, proof.T_6]
+    pts = pts[b % 8:] + pts[: b % 8]
+    ipp = proof.ipp_proof
+    k = b % len(ipp.L_vec)
+    return bp.R1CSProof(
+        *pts[:3], proof.A_I2, proof.A_O2, proof.S2, *pts[3:], proof.t_x,
+        proof.t_x_blinding, proof.e_blinding,
+        InnerProductProof(ipp.L_vec[k:] + ipp.L_vec[:k], ipp.R_vec,
+                          ipp.a + bp.Scalar(b), ipp.b))
+
+
+def summed_rows(items: list, backend, rhos: list):
+    """(the VerifyRows of each (case, proof) of `items`, the host's sums g
+    and h of the same proofs' host jobs weighted by `rhos`, each padded
+    with zero rows to the largest padded size as ``batch_verify`` pads)."""
+    rows, host = [], []
+    for case, proof in items:
+        host.append(case.verifier()._verification_job(proof, PC, case.gens))
+        dev = case.verifier()._verification_job(proof, PC, case.gens,
+                                                 backend.verify_rows)
+        rows.append(dev.rows)
+    N = max(j.padded_n for j in host)
+    g = h = scvec.zeros(N)
+    for j, rho in zip(host, rhos):
+        pad = scvec.zeros(N - j.padded_n)
+        g = scvec.add(g, scvec.scale(np.concatenate([j.g, pad]), rho))
+        h = scvec.add(h, scvec.scale(np.concatenate([j.h, pad]), rho))
+    return rows, g, h
+
+
+def batch_rows(case: cs.Case, backend, B: int):
+    """(the VerifyRows of B variants of the case's proof, rhos, the host's
+    rho-weighted sums g and h of the same variants' host jobs); rho_0 = 1
+    as ``batch_verify`` draws it, the others fixed."""
+    rng = np.random.RandomState(21 + B)
+    rhos = [bp.Scalar.one()] + [
+        bp.Scalar.from_bytes_mod_order_wide(rng.bytes(64))
+        for _ in range(B - 1)]
+    rows, g, h = summed_rows([(case, variant(case.proof, b))
+                              for b in range(B)], backend, rhos)
+    return rows, rhos, g, h
+
+
+def summed_plain(rows: list, rhos: list) -> torch.Tensor:
+    """The plain version of ``gh_rows`` over `rows`' sets weighted by
+    `rhos`."""
+    dev = rows[0].dev
+    sets = [(r.wires, r.yinv, cc.sc_powers(*vr.s_tables(*r._s, dev), r.N),
+             r.n, r.n1) for r in rows]
+    consts = vr.host_words([c for r, rho in zip(rows, rhos)
+                            for c in r.weighted(rho)])
+    return cc.gh_rows_plain(sets, consts.reshape(len(rows), 8, 8))
+
+
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("circuit", CIRCUITS)
+def test_batch_rows_equal_the_host_sum(circuit, B, request):
+    """``gh_rows`` over a batch's B row sets (``RowSum``, the words its
+    ``msm_gens`` walks) against ``w5_words`` of the host's rho-weighted
+    sum of the jobs' g and h, the plain version of the summed kernel, and
+    at B = 1 the one-set words of ``VerifyRows.words`` and the one-set
+    plain formula (``gh_scalars_plain``, then the w5 recode)."""
+    case = request.getfixturevalue(circuit)
+    rows, rhos, g, h = batch_rows(case, cpu_backend(), B)
+    assert len({r.yinv[1].numpy().tobytes() for r in rows}) == B
+    words = vr.VerifyRows.summed(rows, rhos, None, None).words()
+    want = torch.cat([ck.w5_words(g, "cpu"), ck.w5_words(h, "cpu")])
+    assert torch.equal(words, want)
+    assert torch.equal(summed_plain(rows, rhos), want)
+    if B == 1:
+        assert torch.equal(rows[0].words(), want)
+        r = rows[0]
+        one = cc.gh_scalars_plain(
+            r.wires, r.yinv, cc.sc_powers(*vr.s_tables(*r._s, "cpu"), r.N),
+            vr._words(r._consts, "cpu"), r.n, r.n1)
+        assert torch.equal(cc._w5_codes(torch.cat(one)), want)
+
+
+def test_mixed_size_rows_equal_the_host_sum():
+    """A batch of two padded sizes (two-phase proofs padded to 64 and to
+    32): the smaller proof's rows add nothing from its own size on, and
+    its h reads its own s backwards, so the summed words equal the host's
+    sum of the jobs' rows padded with zeros to 64."""
+    big, small = two_phase_case(40), two_phase_case(10)
+    rng = np.random.RandomState(5)
+    rhos = [bp.Scalar.one()] + [
+        bp.Scalar.from_bytes_mod_order_wide(rng.bytes(64)) for _ in range(2)]
+    rows, g, h = summed_rows([(big, big.proof), (small, small.proof),
+                              (big, variant(big.proof, 1))],
+                             cpu_backend(), rhos)
+    assert [r.N for r in rows] == [64, 32, 64]
+    words = vr.VerifyRows.summed(rows, rhos, None, None).words()
+    want = torch.cat([ck.w5_words(g, "cpu"), ck.w5_words(h, "cpu")])
+    assert words.shape == (128, 16)
+    assert torch.equal(words, want)
+    assert torch.equal(summed_plain(rows, rhos), want)
+
+
 def edge_checks(dev) -> None:
     """``sc_powers`` at sizes around its run, against ``scvec.powers``;
     ``tape_flatten`` with a wire longer than ``TS_REDUCE`` terms and empty
@@ -295,8 +404,9 @@ def test_verify_on_device_rows_accepts_and_rejects(circuit, request,
 
 def test_host_rows_where_the_device_does_not_build_them(two_phase,
                                                         monkeypatch):
-    """``batch_verify``, a backend without ``verify_rows`` and the sizes
-    and routes ``verify_rows`` declines run the host's rows."""
+    """A backend without ``verify_rows`` and the sizes and routes
+    ``verify_rows`` declines run the host's rows, in a verification and
+    in a ``batch_verify``."""
     spy = Spy(monkeypatch)
     case = two_phase
     metrics.take()
@@ -304,7 +414,7 @@ def test_host_rows_where_the_device_does_not_build_them(two_phase,
     try:
         bp.batch_verify([case.verifier(), case.verifier()],
                         [case.proof, case.proof], PC, case.gens,
-                        backend=cpu_backend())
+                        backend=cpu_backend(route=bp.Route(w5=False)))
         for be in (NativeBackend(),
                    bp.TorchBackend("cpu", min_device_n=1),  # walks from 2049
                    cpu_backend(route=bp.Route(w5=False)),
