@@ -32,9 +32,9 @@ What sits behind the engine's backend seam is the port's device layer:
   ops/cuda_curve.py     kernel wrappers + plain versions + launch counts
   ops/build.py          nvcc build of csrc/*.cu, ctypes binding
   ops/torch_backend.py  TorchBackend (the seam: msm, msm_gens,
-                        phase_commitments, ipp_create and their batches)
-                        and Route (its kernels under the reference's
-                        BPTPU_* route flags)
+                        phase_commitments, ipp_create and their batches;
+                        one route, chosen by size) and Route (no fields,
+                        accepted and ignored by TorchBackend)
   ops/native_backend.py NativeBackend: the JAX package's single-core C++
                         CPU backend, copied (the host leg of the proof
                         equivalence gate; not exported here, as it runs

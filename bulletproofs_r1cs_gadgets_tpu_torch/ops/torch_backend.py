@@ -3,14 +3,14 @@
 The engine (``core/prover.py``, ``core/verifier.py``) reaches the device
 through a narrow seam: ``phase_commitments`` / ``ipp_create`` for the
 prover and ``msm_gens`` / ``msm`` for the verifier.  :class:`TorchBackend`
-implements that seam on fourteen kernels, following the JAX package's
-``PallasBackend`` under each of its route flags (:class:`Route`, the
-``BPTPU_*`` names of pallas_backend.py:61-98).
+implements that seam on the port's kernels, following the JAX package's
+``PallasBackend`` under its default flags.  It has one route, and size
+alone picks each branch of it.
 
-The grid routes serve sizes in the reference's grid range
+The grid branches serve sizes in the reference's grid range
 (``walker_min_n`` .. ``WALKER_MAX_N``: more than one 2048-point chunk, at
 most 128 of them), and their rounds run while the side n >= COMB_MIN_N
-(the reference's CHUNK).  Under the default flags:
+(the reference's CHUNK):
 
 * every walk over the SHARED generators (the phase-1 commitments, IPP
   round 1 and the verifier's G/H segments) runs the w5 walker
@@ -31,50 +31,33 @@ most 128 of them), and their rounds run while the side n >= COMB_MIN_N
   computes every job's L and R (the flotilla);
 * every other MSM is one ``msm_w4`` launch.
 
-With ``w5`` and ``winmsm`` on, a verification in the grid range gets its
-G/H coefficient rows from the card (:meth:`TorchBackend.verify_rows`,
-``ops/verify_rows.py``: ``sc_powers``, ``tape_flatten``, ``tape_sums``
-and ``gh_rows`` from a device copy of the constraint tape), and
-``msm_gens`` walks the words ``gh_rows`` writes; in a ``batch_verify``
-each proof gets its rows so, and one ``gh_rows`` launch sums them,
-rho-weighted and padded to the largest size, into the words its
-``msm_gens`` walks.  Elsewhere (other routes and sizes) the verifier
-builds the rows on the host; a batch whose proofs take both paths sums
-each part where its rows are, in an MSM of its own.
+A verification in the grid range gets its G/H coefficient rows from the
+card (:meth:`TorchBackend.verify_rows`, ``ops/verify_rows.py``:
+``sc_powers``, ``tape_flatten``, ``tape_sums`` and ``gh_rows`` from a
+device copy of the constraint tape), and ``msm_gens`` walks the words
+``gh_rows`` writes; in a ``batch_verify`` each proof gets its rows so,
+and one ``gh_rows`` launch sums them, rho-weighted and padded to the
+largest size, into the words its ``msm_gens`` walks.  At other sizes the
+verifier builds the rows on the host; a batch whose proofs take both
+paths sums each part where its rows are, in an MSM of its own.
 
-Under the other flags:
-
-* ``w5`` off: the shared tables are ``table_w4`` tables walked by
-  ``msm_win`` with w4 words (pallas_backend.py:108-115, :176-193);
-* ``winmsm`` off: no tables.  Phase 1 and the verifier's G/H are one
-  ``msm_grid`` launch per segment, chained (:255-256, :329-331); the grid
-  rounds are two ``msm_w4_pair`` launches over [G | H] (:885-902) and a
-  ``fold_c`` per side, in place from round 2 on (:1069-1076);
-* ``w3h`` off: the round-1 transition folds each side with ``fold_c``
-  into its half of C and the combined rounds fold with ``fold_c_comb``
-  (:1036, :1057-1063), with plain factor-vector scales (:989-992);
-* ``pairwalk`` off: a combined round's L is one ``msm_win`` walk and its
-  R one wrap walk, or under ``wrapmsm`` off two chained walks
-  (:858-872);
-* ``flotilla`` off: frozen batch rounds take one ``msm_w4_pair`` per job
-  (:471-475).
-
-The reference's ``BPTPU_TBLTIER`` picks the TPU's half-capacity table
-shape (:1038-1040); the port's tables are sized to the data, with no
-capacity tiers, so it has no counterpart here.
+The reference's other route flags (``BPTPU_*``, pallas_backend.py:61-98)
+pick kernels that lose to these on the card, and the port reads none of
+them.  Their kernels (``msm_win``, ``msm_grid``, ``fold_c_comb``) stay
+in ``cuda_curve``, each held to its plain version.
 
 The half-width folds split each fold constant c as alpha / beta
 (``ck.half_gcd_split``) and fold by beta * L + alpha * R; beta^-1 goes
 into the host factor vectors, whose two pieces then differ by the ratio
 beta_A / beta_B (the full bookkeeping of pallas_backend.py:964-1004).
 
-Proof bytes do not depend on the route: every commitment and every L/R
-point is the same group element whichever kernels compute it, and
-ristretto compression is canonical.  The host-side Q terms and blinding
-heads, the factor-vector bookkeeping, the frozen-tail helpers and the
-batch scheduler are the JAX package's (``ops/pallas_backend.py``
-:317-532, :540-654, :657-1103), re-homed here because that module imports
-JAX.
+Proof bytes do not depend on which kernels compute a point: every
+commitment and every L/R point is the same group element as the host
+engine's, and ristretto compression is canonical.  The host-side Q terms
+and blinding heads, the factor-vector bookkeeping, the frozen-tail
+helpers and the batch scheduler are the JAX package's
+(``ops/pallas_backend.py`` :317-532, :540-654, :657-1103), re-homed here
+because that module imports JAX.
 
 Scalar vectors arrive as ``(n, 4) uint64`` numpy arrays (``core/scvec``);
 points live on the device as flat ``(n, 4, 8)`` int32 tensors (one launch
@@ -87,7 +70,7 @@ import functools
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -138,30 +121,8 @@ TAPE_CACHE = 2
 
 @dataclass(frozen=True)
 class Route:
-    """Which kernels the backend's routes launch: the reference's route
-    flags (``BPTPU_<FIELD>``, pallas_backend.py:61-98), all on by
-    default.  The port has no table tiers, so ``BPTPU_TBLTIER`` is not
-    read.  Proof bytes never depend on any field; ``walker_min_n``,
-    ``frozen_max_side`` and ``COMB_MIN_N`` decide at what size a route
-    starts."""
-
-    winmsm: bool = True
-    w3h: bool = True
-    wrapmsm: bool = True
-    pairwalk: bool = True
-    flotilla: bool = True
-    w5: bool = True
-
-    @classmethod
-    def from_env(cls, env=None) -> "Route":
-        """The flags from ``BPTPU_*`` in `env` (default: the process
-        environment), with the reference's rule: any value but "0" is
-        on."""
-        env = os.environ if env is None else env
-        return cls(**{
-            f.name: env.get(f"BPTPU_{f.name.upper()}", "1") != "0"
-            for f in fields(cls)
-        })
+    """No fields: the backend has one route.  Kept so that callers which
+    pass ``TorchBackend(route=Route())`` keep working."""
 
 
 def _as_array(scalars) -> np.ndarray:
@@ -181,10 +142,10 @@ class TorchBackend:
     ``frozen_max_side`` is the IPP's frozen-tail side cap; lowering it (to
     0 to disable freezing) lets small CPU tests walk the unfrozen rounds.
     ``walker_min_n`` is the smallest walk over the shared generators that
-    takes a grid route (the reference's: more than one 2048-point chunk;
+    takes a grid branch (the reference's: more than one 2048-point chunk;
     up to ``WALKER_MAX_N``); lowering it lets small CPU tests reach the
-    grid routes.  ``route`` picks the kernels of each route (default:
-    :meth:`Route.from_env`).  Proof bytes depend on none of them."""
+    grid branches.  ``route`` is accepted and ignored (:class:`Route`).
+    Proof bytes depend on none of these."""
 
     def __init__(self, device="cuda", min_device_n: int = MIN_DEVICE_N,
                  frozen_max_side: int = FROZEN_MAX_SIDE,
@@ -202,7 +163,6 @@ class TorchBackend:
         self.min_device_n = min_device_n
         self.frozen_max_side = frozen_max_side
         self.walker_min_n = walker_min_n
-        self.route = Route.from_env() if route is None else route
         self._gens_cache: dict = {}
         self._point_cache: dict = {}
         self._tapes: dict = {}
@@ -231,20 +191,17 @@ class TorchBackend:
         return got[:n]
 
     def _gens_table(self, gens_share, n: int, which: str) -> torch.Tensor:
-        """Shared table of the first >= n generators, built once per gens
-        object (``PallasBackend._gens_table``): ``table_w5``, or
-        ``table_w4`` with ``w5`` off (the key carries the width).  It
-        covers n rounded up to a power of two (at most the capacity), so
-        the phase-1 walk over the multipliers and the IPP's round 1 over
-        the padded size share one build."""
-        w5 = self.route.w5
-        key = (id(gens_share._gens), which, "tbl5" if w5 else "tbl4")
+        """Shared ``table_w5`` table of the first >= n generators, built
+        once per gens object (``PallasBackend._gens_table``).  It covers n
+        rounded up to a power of two (at most the capacity), so the
+        phase-1 walk over the multipliers and the IPP's round 1 over the
+        padded size share one build."""
+        key = (id(gens_share._gens), which, "tbl5")
         got = self._gens_cache.get(key)
         if got is None or got.shape[0] < n:
             cap = gens_share._gens.gens_capacity
             m = max(n, min(1 << (n - 1).bit_length(), cap))
-            pts = self._gens(gens_share, m, which)
-            got = cc.table_w5(pts) if w5 else cc.table_w4(pts)
+            got = cc.table_w5(self._gens(gens_share, m, which))
             self._gens_cache[key] = got
         return got
 
@@ -254,13 +211,11 @@ class TorchBackend:
         this backend's device: a :class:`verify_rows.VerifyRows` that
         ``msm_gens`` takes in place of the scalar rows.  None where the
         rows would walk no w5 table (a size outside the walker range, or
-        ``winmsm`` or ``w5`` off): those keep the host's rows.  The
+        below ``min_device_n``): those keep the host's rows.  The
         device copy of a tape is made at its first verification and kept
         (the newest ``TAPE_CACHE``, keyed by the tape object, which the
         cache holds)."""
-        route = self.route
-        if not (route.winmsm and route.w5 and self.walks(padded_n)
-                and 2 * padded_n >= self.min_device_n):
+        if not (self.walks(padded_n) and 2 * padded_n >= self.min_device_n):
             return None
         key = (id(tape), n, nv)
         with self._tapes_lock:
@@ -273,41 +228,20 @@ class TorchBackend:
         return vr.VerifyRows(got[1], n1, padded_n)
 
     def walks(self, n: int) -> bool:
-        """Whether n shared generators take a grid route (the reference's
-        capacity arrays, ``_gens_big``): the walker, or ``msm_grid`` with
-        ``winmsm`` off."""
+        """Whether a walk over n shared generators takes the w5 walker (the
+        reference's capacity arrays, ``_gens_big``)."""
         return self.walker_min_n <= n <= WALKER_MAX_N
 
-    def shared_words(self, arr) -> torch.Tensor:
-        """Words of scalar rows for a walk over the shared tables: w5
-        bytes, or w4 nibbles with ``w5`` off."""
-        enc = ck.w5_words if self.route.w5 else ck.w4_words
-        return enc(arr, self.device)
-
-    def shared_walk(self, table, words, v, chain=None, **kw):
-        """One walk over a shared table: ``msm_win5``, or ``msm_win`` with
-        ``w5`` off."""
-        if chain is None:
-            chain = F.identity_points(1, self.device)
-        walk = cc.msm_win5 if self.route.w5 else cc.msm_win
-        return walk(table, words, chain, v, **kw)
-
     def _shared_msm(self, gens_share, n, which, arr, chain=None):
-        """acc + <arr, first n generators of `which`>: a walk over the
-        shared table, or with ``winmsm`` off one ``msm_grid`` launch over
-        the cached generators."""
-        if self.route.winmsm:
-            table = self._gens_table(gens_share, n, which)
-            with metrics.span("seam.encode"):
-                words = self.shared_words(arr)
-            with metrics.span("seam.launch"):
-                return self.shared_walk(table, words, n, chain)
+        """chain (default: the identity) + <arr, first n generators of
+        `which`>: one ``msm_win5`` walk over the shared table."""
+        table = self._gens_table(gens_share, n, which)
         with metrics.span("seam.encode"):
-            words = ck.w4_words(arr, self.device)
+            words = ck.w5_words(arr, self.device)
         with metrics.span("seam.launch"):
             if chain is None:
                 chain = F.identity_points(1, self.device)
-            return cc.msm_grid(self._gens(gens_share, n, which), words, chain)
+            return cc.msm_win5(table, words, chain, n)
 
     def _cached_point(self, tag: str, point: RistrettoPoint) -> torch.Tensor:
         key = (tag, point.compress())
@@ -336,8 +270,8 @@ class TorchBackend:
     ) -> RistrettoPoint:
         """Verifier mega-MSM over [head, G(padded_n), H(padded_n), tail]:
         in the grid range the chain head ``msm_w4`` -> G -> H -> tail
-        ``msm_w4``, G and H each a walk over the shared table or, with
-        ``winmsm`` off, one ``msm_grid`` (pallas_backend.py:235-261);
+        ``msm_w4``, G and H each a walk over the shared table
+        (pallas_backend.py:235-261);
         otherwise one ``msm_w4`` launch.  A span ``msm_gens``, its
         children ``seam.encode`` / ``seam.launch`` / ``seam.fetch``.
         `scalars` may be device rows instead (:meth:`_msm_gens_rows`): one
@@ -406,8 +340,8 @@ class TorchBackend:
             tail_words = ck.w4_words(rows.tail, dev)
         with metrics.span("seam.launch"):
             acc = ck.msm_chain(head, head_words)
-            acc = self.shared_walk(tables[0], words, N, acc)
-            acc = self.shared_walk(tables[1], words, N, acc, woff=N)
+            acc = cc.msm_win5(tables[0], words, acc, N)
+            acc = cc.msm_win5(tables[1], words, acc, N, woff=N)
             acc = ck.msm_chain(tail, tail_words, acc)
         with metrics.span("seam.fetch"):
             return ck.fetch_points([acc])[0]
@@ -439,7 +373,7 @@ class TorchBackend:
         i_blinding, o_blinding, s_blinding, B_blinding, offset,
     ):
         """Launch the three phase-1 MSMs; returns their device
-        accumulators (no sync) and, on the grid routes, the blinding heads
+        accumulators (no sync) and, in the grid range, the blinding heads
         i/o/s_blinding * B_blinding as host points to add after the fetch
         (pallas_backend.py:317-356)."""
         assert offset == 0, "phase-2 device commitments not yet routed"
@@ -524,9 +458,8 @@ class TorchBackend:
         """Inner-product arguments for B proofs in lockstep: per round,
         every job's L/R MSMs launch, then ONE sync fetches them all.  When
         more than one job is active and every active job is frozen, the
-        round is a flotilla round (unless the route's ``flotilla`` is
-        off): one ``msm_lane`` launch over every job's frozen pack
-        (pallas_backend.py:429-537).  A thread pool runs
+        round is a flotilla round: one ``msm_lane`` launch over every
+        job's frozen pack (pallas_backend.py:429-537).  A thread pool runs
         the jobs' host stages; each job's transcript order is unchanged,
         only device work interleaves.
 
@@ -585,8 +518,7 @@ class TorchBackend:
                                             round=len(s.L_vec) + 1, m=s.n // 2)
                 rounds = [s.round for s in active]
                 owners = rounds if batch is None else [batch]
-                if (self.route.flotilla and len(active) > 1
-                        and all(s.frozen for s in active)
+                if (len(active) > 1 and all(s.frozen for s in active)
                         and 2 * len(active) <= FLOTILLA_MAX_SEGMENTS):
                     ids = tuple(id(s) for s in active)
                     if ids != flot_ids:
@@ -732,19 +664,20 @@ class _IppJob:
     out = D_L + c * D_R with at most two c values (one breakpoint, see
     :func:`_ratio_pieces`), and F folds by one scalar on host.  The
     factors multiply into the L/R MSM *scalars*, so a fold needs no
-    per-point scalars: a constant fold ``fold_c(_comb)``, a ``fold_bits``
-    launch with ones on the left, or a half-width ``fold_w3h(_comb)``
-    launch by beta * D_L + alpha * D_R with beta^-1 folded into F.  In the
-    grid range round 1 walks the unfolded generators over the shared
-    tables (or, with ``winmsm`` off, every round while n >= COMB_MIN_N is
-    two ``msm_w4_pair`` launches and ``fold_c`` folds); then, with enough
-    points left, the job moves to the combined layout (C = [G' | H'] and
-    its ``table_w4`` table, one ``msm_win_pair`` per round) while
-    n >= COMB_MIN_N.  Once both sides fit the frozen side cap the job
-    switches to the frozen tail (one ``msm_w4_pair`` launch per round, or
-    its share of a batch's ``msm_lane`` launch; no folds).  Q terms are
-    added on host in round_finish.  :class:`TorchBackend`'s module
-    docstring lists the kernels of each route."""
+    per-point scalars: a constant fold ``fold_c``, a ``fold_bits`` launch
+    with ones on the left, or a half-width ``fold_w3h(_comb)`` launch by
+    beta * D_L + alpha * D_R with beta^-1 folded into F.  In the grid
+    range round 1 walks the unfolded generators over the shared tables;
+    then, with enough points left, the job moves to the combined layout
+    (C = [G' | H'] and its ``table_w4`` table, one ``msm_win_pair`` and
+    one ``fold_w3h_comb`` per round) while n >= COMB_MIN_N, and with
+    fewer (padded n = 2 * COMB_MIN_N) round 1 folds each side with
+    ``fold_c``.  The rounds after take the chunk-list route (``msm_w4``
+    per side, ``fold_bits``) until both sides fit the frozen side cap;
+    then the job switches to the frozen tail (one ``msm_w4_pair`` launch
+    per round, or its share of a batch's ``msm_lane`` launch; no folds).
+    Q terms are added on host in round_finish.  The module docstring
+    lists the kernels of each branch."""
 
     def __init__(
         self, backend: TorchBackend, transcript, Q, G_factors, H_factors,
@@ -756,8 +689,6 @@ class _IppJob:
         self.round = None
         self.dev = backend.device
         self.max_side = backend.frozen_max_side
-        self.route = backend.route
-        self.backend = backend
         self.t = transcript
         self.n = padded_n
         self.a = _as_array(a)
@@ -786,20 +717,15 @@ class _IppJob:
         # n >= COMB_MIN_N, after a walker round 1)
         self.C = self.tC = None
         self._walked = False  # this round walked the shared tables
-        # grid range: grid rounds while n >= COMB_MIN_N (the reference's
-        # capacity arrays); G / H are the shared generator cache until the
-        # first fold, the job's own tensors after it
-        self.grid = False
-        self._owns = False
         if padded_n <= self.max_side:
             # small proof: frozen from round 1, no generator folds at all
             self._freeze(self.G, self.H, padded_n)
         elif backend.walks(padded_n):
-            self.grid = True
-            if self.route.winmsm:
-                # round 1 walks the unfolded generators: the shared tables
-                self.tG = backend._gens_table(gens_share, padded_n, "G")
-                self.tH = backend._gens_table(gens_share, padded_n, "H")
+            # grid range: round 1 walks the unfolded generators over the
+            # shared tables (G / H are the shared generator cache until
+            # the first fold, the job's own tensors after it)
+            self.tG = backend._gens_table(gens_share, padded_n, "G")
+            self.tH = backend._gens_table(gens_share, padded_n, "H")
 
     def _freeze(self, G, H, S: int) -> None:
         """Enter frozen-tail mode with side size S (factor vectors start
@@ -864,64 +790,36 @@ class _IppJob:
         with metrics.span("ipp.scalars"):
             scG_L, scH_L, scG_R, scH_R = self._round_scalars()
         n = self.n
-        # R's G part stops at a_R's zero tail (round 1)
-        vR = max(1, self._nzR) if self._nzR < n else n
-        if self.C is not None and n >= COMB_MIN_N:
+        if self.C is not None:
             # combined round (pallas_backend.py:841-872): words
-            # [scG_L | scH_L | scG_R | scH_R]; both walks in ONE launch, or
-            # with pairwalk off L in one walk and R in a wrap walk (two
-            # chained walks with wrapmsm off)
+            # [scG_L | scH_L | scG_R | scH_R]; both walks in ONE launch
             with metrics.span("seam.encode"):
                 words = ck.w4_words(
                     np.concatenate([scG_L, scH_L, scG_R, scH_R]), self.dev
                 )
-            walk_L, walk_R = ck.comb_walks(n)
             with metrics.span("seam.launch"):
-                if self.route.pairwalk:
-                    pair = cc.msm_win_pair(
-                        self.tC, words, F.identity_points(2, self.dev),
-                        (walk_L, walk_R),
-                    )
-                    return pair[0:1], pair[1:2]
-                ident = F.identity_points(1, self.dev)
-                accL = cc.msm_win(self.tC, words, ident, *walk_L)
-                if self.route.wrapmsm:
-                    return accL, cc.msm_win(self.tC, words, ident, *walk_R)
-                accR = cc.msm_win(self.tC, words, ident, n, 0, 2 * n)
-                accR = cc.msm_win(self.tC, words, accR, n, 3 * n, 3 * n)
-                return accL, accR
+                pair = cc.msm_win_pair(
+                    self.tC, words, F.identity_points(2, self.dev),
+                    ck.comb_walks(n),
+                )
+            return pair[0:1], pair[1:2]
         if self.tG is not None:
             # round 1 over the shared tables (pallas_backend.py:873-884):
-            # G words [scG_R | scG_L], H words [scH_L | scH_R]
-            be = self.backend
+            # G words [scG_R | scG_L], H words [scH_L | scH_R]; R's G part
+            # stops at a_R's zero tail
+            vR = max(1, self._nzR) if self._nzR < n else n
             with metrics.span("seam.encode"):
-                wG = be.shared_words(np.concatenate([scG_R, scG_L]))
-                wH = be.shared_words(np.concatenate([scH_L, scH_R]))
+                wG = ck.w5_words(np.concatenate([scG_R, scG_L]), self.dev)
+                wH = ck.w5_words(np.concatenate([scH_L, scH_R]), self.dev)
             with metrics.span("seam.launch"):
-                accL = be.shared_walk(self.tG, wG, n, poff=n, woff=n)
-                accL = be.shared_walk(self.tH, wH, n, chain=accL)
-                accR = be.shared_walk(self.tG, wG, vR)
-                accR = be.shared_walk(self.tH, wH, n, chain=accR, poff=n,
-                                      woff=n)
+                ident = F.identity_points(1, self.dev)
+                accL = cc.msm_win5(self.tG, wG, ident, n, poff=n, woff=n)
+                accL = cc.msm_win5(self.tH, wH, accL, n)
+                accR = cc.msm_win5(self.tG, wG, ident, vR)
+                accR = cc.msm_win5(self.tH, wH, accR, n, poff=n, woff=n)
             self.tG = self.tH = None
             self._walked = True
             return accL, accR
-        if self.grid and n >= COMB_MIN_N:
-            # grid round with winmsm off (pallas_backend.py:885-902): the G
-            # pair walks [scG_R | scG_L] (R's part to the zero tail), the H
-            # pair [scH_L | scH_R] chained from it, crossed
-            with metrics.span("seam.encode"):
-                wG = ck.w4_words(np.concatenate([scG_R, scG_L]), self.dev)
-            with metrics.span("seam.launch"):
-                pG = cc.msm_w4_pair(
-                    self.G[: 2 * n], wG, F.identity_points(2, self.dev), n,
-                    lo_limit=vR,
-                )
-            with metrics.span("seam.encode"):
-                wH = ck.w4_words(np.concatenate([scH_L, scH_R]), self.dev)
-            with metrics.span("seam.launch"):
-                pH = cc.msm_w4_pair(self.H[: 2 * n], wH, pG.flip(0), n)
-            return pH[0:1], pH[1:2]
         with metrics.span("seam.launch"):
             ptsL, ptsR = ck.pack_pair(self.G, self.H, n)
         accs = []
@@ -974,8 +872,7 @@ class _IppJob:
         # half-width splits on the combined rounds and the round-1
         # transition (pallas_backend.py:964-1004): beta^-1 folds into the
         # factor vectors, so the pieces' ratio picks up beta_A / beta_B
-        use_w3h = (self.route.w3h and not self.frozen and n >= COMB_MIN_N
-                   and (self.C is not None or to_comb))
+        use_w3h = self.C is not None or to_comb
         if use_w3h:
             sG = [ck.half_gcd_split(c.v, _L) for c in cG]
             sH = [ck.half_gcd_split(c.v, _L) for c in cH]
@@ -1011,15 +908,12 @@ class _IppJob:
         if self.C is not None:
             # combined fold (pallas_backend.py:1027-1046): both sides into
             # a NEW tensor (blocks run in any order, so never in place),
-            # half-width or, with w3h off, by the constants; then the next
-            # round's table in the old table's storage, or the tail once
-            # the sides are one chunk
+            # half-width; then the next round's table in the old table's
+            # storage, or the tail once the sides are one chunk
             with metrics.span("seam.encode"):
-                words = (ck.w3h_fold_words([sG, sH], self.dev) if use_w3h
-                         else ck.c_fold_words([cG, cH], self.dev))
+                words = ck.w3h_fold_words([sG, sH], self.dev)
             with metrics.span("seam.launch"):
-                fold = cc.fold_w3h_comb if use_w3h else cc.fold_c_comb
-                self.C = fold(self.C, words, rbp)
+                self.C = cc.fold_w3h_comb(self.C, words, rbp)
                 if n >= 2 * COMB_MIN_N:
                     self.tC = cc.table_w4(self.C, out=self.tC)
                 else:
@@ -1030,34 +924,25 @@ class _IppJob:
             # round 1 -> combined layout (pallas_backend.py:1047-1068):
             # each side folds into its half of C, one table over both
             C = torch.empty((2 * n, 4, 8), dtype=torch.int32, device=self.dev)
-            sides = ((self.G, sG, cG), (self.H, sH, cH))
-            for k, (src, split, consts) in enumerate(sides):
-                out = C[k * n : (k + 1) * n]
+            for k, (src, split) in enumerate(((self.G, sG), (self.H, sH))):
                 with metrics.span("seam.encode"):
-                    words = (ck.w3h_fold_words([split], self.dev) if use_w3h
-                             else ck.c_fold_words([consts], self.dev))
+                    words = ck.w3h_fold_words([split], self.dev)
                 with metrics.span("seam.launch"):
-                    fold = cc.fold_w3h if use_w3h else cc.fold_c
-                    fold(src[: 2 * n], words, rbp, out=out)
+                    cc.fold_w3h(src[: 2 * n], words, rbp,
+                                out=C[k * n : (k + 1) * n])
             with metrics.span("seam.launch"):
                 self.tC = cc.table_w4(C)
             self.C, self.G, self.H = C, None, None
-            self.grid = False
             return
-        if self.grid and n >= COMB_MIN_N:
+        if walked and n >= COMB_MIN_N:
             # grid fold (pallas_backend.py:1069-1076): padded n = 4096's
-            # round 1, and every grid round with winmsm off; in place once
-            # the job owns the tensors (the reference's donated variant)
+            # round 1, one fold by the constants per side
             with metrics.span("seam.encode"):
                 wG = ck.c_fold_words([cG], self.dev)
                 wH = ck.c_fold_words([cH], self.dev)
-            own = self._owns
             with metrics.span("seam.launch"):
-                self.G = cc.fold_c(self.G[: 2 * n], wG, rbp,
-                                   out=self.G[:n] if own else None)
-                self.H = cc.fold_c(self.H[: 2 * n], wH, rbp,
-                                   out=self.H[:n] if own else None)
-            self._owns = True
+                self.G = cc.fold_c(self.G[: 2 * n], wG, rbp)
+                self.H = cc.fold_c(self.H[: 2 * n], wH, rbp)
             return
         if n <= self.max_side // 2:
             # both sides (size 2n) fit the cap: freeze pre-fold and absorb

@@ -6,18 +6,16 @@
 Measures, for a VSMT-2 depth-253 proof (143,704 multipliers padded to
 2^18) through ``TorchBackend("cuda")``:
 
-1. six routes of the single-proof path in one process: the combined
-   route (the default: shared-generator walks on ``msm_win5``, then IPP
-   rounds 2-7 on the combined layout, ``msm_win_pair`` +
-   ``fold_w3h_comb`` + ``table_w4``), the w5 route (the combined layout
-   off, its threshold COMB_MIN_N raised above 2^18, so rounds 2+ run
-   ``msm_w4`` + ``fold_bits``), the chunk-list route (``walker_min_n``
-   above 2^18, every walk on ``msm_w4``) and three of the reference's
-   route flags (``Route``): winmsm off (``msm_grid``, ``msm_w4_pair`` and
-   ``fold_c`` grid rounds), w3h off (``fold_c`` / ``fold_c_comb``) and w5
-   off (``table_w4`` + ``msm_win`` shared walks); warm prove and verify
-   times in the routes' order and back, twice, each proof checked by the
-   port's verifier and all routes' bytes equal;
+1. three routes of the single-proof path in one process, each picked
+   by a size threshold of the port's one route: the combined route (the
+   default: shared-generator walks on ``msm_win5``, then IPP rounds 2-7
+   on the combined layout, ``msm_win_pair`` + ``fold_w3h_comb`` +
+   ``table_w4``), the w5 route (the combined layout off, its threshold
+   COMB_MIN_N raised above 2^18, so rounds 2+ run ``msm_w4`` +
+   ``fold_bits``) and the chunk-list route (``walker_min_n`` above 2^18,
+   every walk on ``msm_w4``); warm prove and verify times in the routes'
+   order and back, twice, each proof checked by the port's verifier and
+   all routes' bytes equal;
 2. one ``torch.profiler`` trace per route of a warm prove and a verify:
    wall time, device time (the union of the device intervals), the
    device's idle share (1 - device / wall) and device time per kernel;
@@ -148,7 +146,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ROUTES = ["w4", "w5", "comb", "winmsm_off", "w3h_off", "w5_off"]
+ROUTES = ["w4", "w5", "comb"]
 ROUTE_ORDER = (ROUTES + ROUTES[::-1]) * 2
 BATCH = 8
 FOLD_WIDE = 1 << 17  # the chunk-list route's first fold_bits round
@@ -707,20 +705,12 @@ def single(bp, torch, cs, cc, ck, F, gens, params, tree, args) -> dict:
         prover.rng = np.random.RandomState(cs.SEED)
 
     # 1-2. the three routes of one proof
-    shared = bp.TorchBackend("cuda", route=bp.Route())
-    def flags(**over):
-        return (bp.TorchBackend("cuda", route=bp.Route(**over)),
-                contextlib.nullcontext)
-
+    shared = bp.TorchBackend("cuda")
     routes = {  # name: (backend, context of its proves)
-        "w4": (bp.TorchBackend("cuda", walker_min_n=2 * cs.GENS_N,
-                               route=bp.Route()),
+        "w4": (bp.TorchBackend("cuda", walker_min_n=2 * cs.GENS_N),
                contextlib.nullcontext),
         "w5": (shared, cs.combined_off),
         "comb": (shared, contextlib.nullcontext),
-        "winmsm_off": flags(winmsm=False),
-        "w3h_off": flags(w3h=False),
-        "w5_off": flags(w5=False),
     }
 
     if args.routes:
@@ -817,7 +807,7 @@ def batch8(bp, torch, cs, gens, params, tree) -> dict:
         for i in range(BATCH)
     ]
     snaps = [p.snapshot() for p in jobs]
-    bb = bp.TorchBackend("cuda", route=bp.Route())
+    bb = bp.TorchBackend("cuda")
     batch_ctx = {"w5": cs.combined_off, "comb": contextlib.nullcontext}
 
     def batch(workers, route):

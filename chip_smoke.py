@@ -5,10 +5,11 @@
 
 Drives the port's main paths, a VSMT-2 depth-253 membership proof
 (143,704 multipliers padded to 2^18) proved alone (on the default route
-and on the reference's route flags) and a batch of eight proved through
+and on the chunk-list route) and a batch of eight proved through
 ``prove_provers`` and verified by one ``batch_verify``, through
 ``TorchBackend("cuda")``, the reference's equivalence gate (one depth-8
-proof down every route), and the multi-device layer and the stream
+proof down both routes and the host paths), and the multi-device layer
+and the stream
 (depth-253 proofs placed over the cards, the sharded walk at 2^18, a
 stream of twelve), the device-oracle path (``DeviceBackend``,
 ``proving_step``, the batched generator derivation, ``MsmEngine``), the
@@ -43,7 +44,10 @@ non-zero and prints no result):
    combined tensor (round 2) and an 8192-point one (round 7, one side on
    the edge pairs; breakpoints inside a block), table_w4 over 2^18
    points, msm_win_pair at IPP
-   rounds 2 (n = 2^16) and 7 (n = 2048); the route flags' kernels:
+   rounds 2 (n = 2^16) and 7 (n = 2048); the kernels of the reference's
+   route flags (each must launch here: no path of the port's one route
+   launches fold_c_comb, msm_win or msm_grid, and only padded n =
+   4096's round 1 fold_c):
    fold_c over the 2^18 generators into 2^17 (random constants split at
    round 1's breakpoint, the edge constants 0, 1, L - 1) and over 4096
    into 2048 (breakpoints on and inside a warp), each in place, each
@@ -97,16 +101,14 @@ non-zero and prints no result):
    verifier; every kernel of the default route but the flotilla's must
    have launched (launch counts over the cold prove, the verify and the
    warm proves), the verifier's row kernels among them
-   (``route_kernels`` with a verify); then the same prover and rng, each on a fresh backend,
-   on the default route, with w3h, winmsm, w5, and pairwalk with wrapmsm
-   off (``Route``), and on the chunk-list route (``combined_off``:
-   msm_w4 segments and fold_bits from round 2), each cold and warm (wall
-   time, device-synchronised): every proof byte-identical, verified on
-   the winmsm-off and w5-off routes, each route's launches the kernels
-   of its route and none of another's (``route_kernels``), and each
-   route-flag kernel launched (the row kernels on no route but a
-   default-flag verify); a tampered proof and a wrong root must
-   raise VerificationError.
+   (``route_kernels`` with a verify); then the same prover and rng, each
+   on a fresh backend, on the default route and on the chunk-list route
+   (``combined_off``: msm_w4 segments and fold_bits from round 2), each
+   cold and warm (wall time, device-synchronised): both proofs
+   byte-identical, each route's launches the kernels of its route and
+   none of another's (``route_kernels``; the row kernels only in a
+   verify); a tampered proof and a wrong root must raise
+   VerificationError.
 4b. the verifier's G/H row kernels (``sc_powers``, ``tape_flatten``,
    ``tape_sums``, ``gh_rows``) against their plain versions on the card
    at phase 4's 2^18 shape, over its tape's CSR, ``gh_rows`` over one row
@@ -125,14 +127,13 @@ non-zero and prints no result):
    in one ``gh_rows`` launch, ``route_kernels`` with a verify).
 6. the equivalence gate of ``bench.py`` stage 5 (:482-627): its depth-8
    VSMT-2 circuit (4,544 multipliers padded to 8192, prover rng 42,
-   commitments rng 7) proved under the reference's seven route combos,
-   through ``prove_provers`` (three provers) with the flotilla off and
-   on, through the port's ``NativeBackend`` and through the host path (a
+   commitments rng 7) proved on the default and the chunk-list route,
+   through ``prove_provers`` (three provers, flotilla rounds), through
+   the port's ``NativeBackend`` and through the host path (a
    low-priority process, ``chip_smoke.py --gate-host``, started before
    phase 2): one byte string, which verifies, and a tampered copy is
-   rejected; each combo must launch the kernels of its route and none
-   of another's (``route_kernels``), and every route-flag kernel must
-   have launched (counts over the gate).
+   rejected; each route must launch the kernels of its route and none
+   of another's (``route_kernels``).
 7. placement (the reference's dry run C): phase 5's first four
    depth-253 provers, restored to their state before proving, through
    ``prove_provers_devices`` over the visible cards (with one card, two
@@ -314,8 +315,10 @@ REPLACES = {
     "tape_sums": f"{_JV}:250",
     "gh_rows": f"{_JV}:269",
 }
-# the kernels the route flags add (ported in the same slice): every one
-# must launch in phase 6 and on the full-width routes
+# the kernels of the reference's other route flags (ported in the same
+# slice): phase 2 launches each (phase_kernels_flags) and holds it to its
+# plain version; of the port's paths only padded n = 4096's round 1
+# launches one (fold_c, phase 3)
 FLAG_KERNELS = ("fold_c", "fold_c_comb", "msm_win", "msm_grid")
 # the device-oracle path's kernels (phase 10; TorchBackend launches none)
 ORACLE_KERNELS = ("padd", "pdbl", "smul_lanes", "msm_block_totals",
@@ -323,9 +326,11 @@ ORACLE_KERNELS = ("padd", "pdbl", "smul_lanes", "msm_block_totals",
                   "poseidon_permute", "poseidon_chain")
 # kernels no path calls: mul_fq's one caller on a path, the port's
 # Poseidon, runs poseidon_perm since it was written (and no path of the JAX
-# package calls the Pallas mul_fq); phase 2 still holds it to its plain
-# version and times it
-OFF_PATH = ("mul_fq",)
+# package calls the Pallas mul_fq); msm_win, msm_grid and fold_c_comb are
+# the kernels of the reference's route flags, which the port's one route
+# does not take; phase 2 still holds each to its plain version and times
+# it
+OFF_PATH = ("mul_fq", "msm_win", "msm_grid", "fold_c_comb")
 # the verifier's G/H row kernels: a verify on the default route launches
 # them (phase 4b holds them to their plain versions)
 ROWS_KERNELS = ("sc_powers", "tape_flatten", "tape_sums", "gh_rows")
@@ -355,64 +360,39 @@ ORACLE_B, ORACLE_W = 8, 254  # phase 10 (b): proofs x (leaf + 253 nodes)
 ORACLE_MSM_N = 1 << 16  # phase 10 (b) points, (d) MsmEngine points
 # digits -16 in windows 0..49 and 1 in window 50
 ALL_MINUS_16 = (1 << 250) - 16 * ((1 << 250) - 1) // 31
-# The reference's seven route combos of its equivalence gate
-# (bench.py:550-563, the environment's defaults all on), as overrides of
-# the port's Route() fields (TBLTIER has no counterpart: the port has no
-# table tiers).
-_OFF3 = dict(wrapmsm=False, pairwalk=False)
-GATE_COMBOS = {
-    "default": {},
-    "W3H=0": dict(w3h=False, **_OFF3),
-    "WINMSM=0": dict(winmsm=False, **_OFF3),
-    "WINMSM=0,W3H=0": dict(winmsm=False, w3h=False, **_OFF3),
-    "WRAPMSM=1,TBLTIER=1": dict(pairwalk=False),
-    "PAIRWALK=1": {},
-    "W5=0": dict(w5=False),
-}
+# The port's routes, each a padded size's branches of the one route:
+# True is the default (the combined layout from IPP round 2), False the
+# chunk-list route (``combined_off``: round 1 over the shared tables, then
+# ``msm_w4`` segments and ``fold_bits``).  Phases 4 and 6 prove on both.
+ROUTES = {"default": True, "combined off": False}
 
 
-def route_kernels(route, combined: bool = True, verify: bool = False):
+def route_kernels(combined: bool = True, verify: bool = False):
     """(launched, not launched): the kernels a proof (and with `verify`
-    a verify) on `route` must launch and must not, for a padded size
-    whose IPP reaches the combined layout (at least 4 * COMB_MIN_N).
-    `combined` False is the chunk-list route (``combined_off``, default
-    flags): round 1 over the shared tables, then ``msm_w4`` segments and
-    ``fold_bits``.  A verify builds its G/H rows on the card
-    (ROWS_KERNELS) with ``w5`` and ``winmsm`` on, and so does a
-    ``batch_verify``; a proof never does."""
-    on, off = _proof_kernels(route, combined)
+    a verify) must launch and must not, for a padded size whose IPP
+    reaches the combined layout (at least 4 * COMB_MIN_N), on the default
+    route or with `combined` False the chunk-list route.  A verify builds
+    its G/H rows on the card (ROWS_KERNELS), and so does a
+    ``batch_verify``; a proof never does.  No path launches a kernel of
+    FLAG_KERNELS at this size."""
+    comb = {"fold_w3h", "fold_w3h_comb", "table_w4", "msm_win_pair"}
+    if combined:
+        on, off = {"table_w5", "msm_win5"} | comb, set(FLAG_KERNELS)
+    else:
+        on = {"table_w5", "msm_win5", "msm_w4", "fold_bits"}
+        off = comb | set(FLAG_KERNELS)
     rows = set(ROWS_KERNELS)
-    if verify and route.w5 and route.winmsm:
+    if verify:
         return on | rows, off
     return on, off | rows
 
 
-def _proof_kernels(route, combined: bool):
-    if not combined:
-        return ({"table_w5", "msm_win5", "msm_w4", "fold_bits"},
-                {"fold_w3h", "fold_w3h_comb", "table_w4", "msm_win_pair",
-                 "msm_win", "fold_c", "fold_c_comb", "msm_grid"})
-    if not route.winmsm:  # no tables: msm_grid, msm_w4_pair grid rounds
-        return ({"msm_grid", "fold_c", "msm_w4_pair"},
-                {"table_w5", "msm_win5", "table_w4", "msm_win", "msm_win_pair",
-                 "fold_w3h", "fold_w3h_comb", "fold_c_comb"})
-    on, off = {"table_w4"}, {"msm_grid"}
-    shared = ({"table_w5", "msm_win5"}, {"msm_win"})
-    fold = ({"fold_w3h", "fold_w3h_comb"}, {"fold_c", "fold_c_comb"})
-    pair = ({"msm_win_pair"}, {"msm_win"})
-    for flag, (yes, no) in ((route.w5, shared), (route.w3h, fold),
-                            (route.pairwalk, pair)):
-        on |= yes if flag else no
-        off |= no if flag else yes
-    return on, off - on
-
-
-def check_route(tag: str, ran: dict, route, combined: bool = True,
+def check_route(tag: str, ran: dict, combined: bool = True,
                 verify: bool = False) -> None:
     """Fail unless the launch counts `ran` of one route's run (a proof,
     or with `verify` a proof and a verify) hold
-    route_kernels(route, combined, verify)."""
-    on, off = route_kernels(route, combined, verify)
+    route_kernels(combined, verify)."""
+    on, off = route_kernels(combined, verify)
     missing = sorted(k for k in on if not ran.get(k, 0))
     stray = sorted(k for k in off if ran.get(k, 0))
     assert not missing and not stray, \
@@ -1588,18 +1568,21 @@ def fold_c_ops(codes_pairs, brk: int, v: int) -> tuple[dict, dict, dict]:
 
 
 def phase_kernels_flags(bp, torch, cc, F, gens, dev, rng):
-    """The route flags' kernels at their routes' shapes: fold_c over the
-    2^18 generators into 2^17 (random constants split at round 1's
-    breakpoint; the edge constants 0, 1, L - 1; the in-place form) and
-    over 4096 into 2048 (padded n = 4096's round 1); fold_c_comb over a
-    2^18-point combined tensor; msm_win over a 2^18-point combined table
-    at round 2's L walk and R wrap walk and over the table_w4 of the 2^18
-    shared generators at phase 1's 143,704 points; msm_grid over 143,704
-    generators at offset 0 and at a chunk offset.  Each exact against its
-    plain version on the same CUDA tensors, subsets against the host."""
+    """FLAG_KERNELS, the kernels of the reference's route flags, at those
+    routes' shapes: fold_c over the 2^18 generators into 2^17 (random
+    constants split at round 1's breakpoint; the edge constants 0, 1,
+    L - 1; the in-place form) and over 4096 into 2048 (padded n = 4096's
+    round 1); fold_c_comb over a 2^18-point combined tensor; msm_win over
+    a 2^18-point combined table at round 2's L walk and R wrap walk and
+    over the table_w4 of the 2^18 shared generators at phase 1's 143,704
+    points; msm_grid over 143,704 generators at offset 0 and at a chunk
+    offset.  Each exact against its plain version on the same CUDA
+    tensors, subsets against the host; each must have launched here."""
     import numpy as np
 
     from bulletproofs_r1cs_gadgets_tpu_torch.ops import chunks as ck
+
+    before = dict(cc.LAUNCHES)
 
     P, L = bp.P, bp.L
     N = GENS_N
@@ -1804,6 +1787,8 @@ def phase_kernels_flags(bp, torch, cc, F, gens, dev, rng):
                  ladder_w4_ops(gw.cpu().numpy(), -(-N1 // 128)),
                  N1 * 160 + 2 * 128),
     )
+    for name in FLAG_KERNELS:
+        assert cc.LAUNCHES[name] > before[name], f"kernel {name} not launched"
     return records
 
 
@@ -1889,17 +1874,17 @@ class combined_off:
 
 def phase_bytes(bp, torch, cc, gens_small):
     params, tree = build_tree(bp, SMALL_DEPTH)
-    backend = bp.TorchBackend("cuda", route=bp.Route())
+    backend = bp.TorchBackend("cuda")
     comp, tape, comms, prover = synthesize(bp, params, tree, SMALL_DEPTH, 11)
     log(f"  depth {SMALL_DEPTH}: {prover.num_multipliers()} multipliers")
-    folds = cc.LAUNCHES["fold_c"]
+    cc.reset_launches()
     t0 = time.time()
     proof_dev = prover.prove(gens_small, backend=backend)
     torch.cuda.synchronize()
     log(f"  port prove {time.time() - t0:.2f} s")
     # padded n = 4096: round 1 folds each side with fold_c
     # (pallas_backend.py:1069-1076)
-    assert cc.LAUNCHES["fold_c"] - folds == 2, "round 1 did not run fold_c"
+    assert cc.LAUNCHES["fold_c"] == 2, "round 1 did not run fold_c"
     comp, tape, comms_h, prover_h = synthesize(
         bp, params, tree, SMALL_DEPTH, 11
     )
@@ -1949,6 +1934,7 @@ def phase_bytes(bp, torch, cc, gens_small):
         assert got.to_bytes() == want.to_bytes(), \
             f"batched proof {i} differs from the prover proved alone"
     log("  batched proofs byte-identical to the provers proved alone")
+    return dict(cc.LAUNCHES)
 
 
 def phase_full(bp, torch, cc, gens, params, tree):
@@ -1959,7 +1945,7 @@ def phase_full(bp, torch, cc, gens, params, tree):
     log(f"  depth {DEPTH}: {prover.num_multipliers()} multipliers, "
         f"tree + synthesis {out['setup_s']:.2f} s")
     snap = prover.snapshot()
-    backend = bp.TorchBackend("cuda", route=bp.Route())
+    backend = bp.TorchBackend("cuda")
     torch.cuda.reset_peak_memory_stats()
     cc.reset_launches()
     t0 = time.time()
@@ -1979,7 +1965,7 @@ def phase_full(bp, torch, cc, gens, params, tree):
         warm.append(time.time() - t0)
     out["warm_prove_s"] = warm
     out["launches"] = dict(cc.LAUNCHES)
-    check_route("default", out["launches"], bp.Route(), verify=True)
+    check_route("default", out["launches"], verify=True)
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"  cold prove {out['cold_prove_s']:.2f} s, warm "
         f"{warm[0]:.2f} / {warm[1]:.2f} s, verify {out['verify_s']:.2f} s, "
@@ -1990,7 +1976,7 @@ def phase_full(bp, torch, cc, gens, params, tree):
             or name in FLAG_KERNELS or name in ORACLE_KERNELS, \
             f"kernel {name} was not launched on the single-proof path"
     out["routes"], out["route_launches"], route_bytes = phase_full_routes(
-        bp, torch, cc, gens, comp, tape, comms, prover, snap
+        bp, torch, cc, gens, prover, snap
     )
 
     # negative cases: a flipped proof byte (the IPP's `a` scalar) and a
@@ -2014,27 +2000,13 @@ def phase_full(bp, torch, cc, gens, params, tree):
     return out
 
 
-# phase 4's routes: overrides of Route() (pallas_backend.py:61-98); None
-# is the chunk-list route, default flags under ``combined_off``
-FULL_ROUTES = {
-    "default": {},
-    "w3h off": dict(w3h=False),
-    "winmsm off": dict(winmsm=False),
-    "w5 off": dict(w5=False),
-    "pairwalk, wrapmsm off": dict(pairwalk=False, wrapmsm=False),
-    "combined off": None,
-}
-
-
-def phase_full_routes(bp, torch, cc, gens, comp, tape, comms, prover, snap):
-    """The same prover and rng under each of FULL_ROUTES, each on a fresh
-    backend: every proof byte-identical to the default route's (the L/R
-    points are the same group elements).  Each route proves cold (its
-    generators and tables built) and warm, wall time device-synchronised;
-    the verifier runs on the two routes whose verifier differs (winmsm
-    off: msm_grid; w5 off: msm_win over table_w4).  Each route's launches
-    must hold route_kernels.  Returns the times and the launch counts of
-    these proofs and verifies, and the proof bytes (prover rng SEED)."""
+def phase_full_routes(bp, torch, cc, gens, prover, snap):
+    """The same prover and rng on each of ROUTES, each on a fresh backend:
+    both proofs byte-identical (the L/R points are the same group
+    elements).  Each route proves cold (its generators and tables built)
+    and warm, wall time device-synchronised, and its launches must hold
+    route_kernels.  Returns the times and the launch counts of these
+    proofs, and the proof bytes (prover rng SEED)."""
     import contextlib
 
     import numpy as np
@@ -2046,31 +2018,22 @@ def phase_full_routes(bp, torch, cc, gens, comp, tape, comms, prover, snap):
 
     times, want = {}, None
     cc.reset_launches()
-    for name, over in FULL_ROUTES.items():
-        route = bp.Route(**(over or {}))
-        be = bp.TorchBackend("cuda", route=route)
+    for name, combined in ROUTES.items():
+        be = bp.TorchBackend("cuda")
         before = dict(cc.LAUNCHES)
-        with combined_off() if over is None else contextlib.nullcontext():
+        with contextlib.nullcontext() if combined else combined_off():
             got, cold_ms = prove(be)
             _, warm_ms = prove(be)
         if want is None:
             want = got.to_bytes()
         assert got.to_bytes() == want, f"route {name}: proof bytes differ"
         times[name] = dict(cold_ms=cold_ms, warm_ms=warm_ms)
-        if name in ("winmsm off", "w5 off"):
-            _, times[name]["verify_ms"] = timed_once(
-                torch, lambda: verify(bp, comp, tape, comms, got, gens, be)
-            )
         be.evict_gens()
         ran = {k: cc.LAUNCHES[k] - before[k] for k in cc.LAUNCHES}
-        check_route(name, ran, route, combined=over is not None,
-                    verify="verify_ms" in times[name])
+        check_route(name, ran, combined)
         log(f"  route {name}: byte-identical, {times[name]}, launches "
             f"{ {k: v for k, v in ran.items() if v} }")
-    launches = dict(cc.LAUNCHES)
-    for name in FLAG_KERNELS:
-        assert launches[name] > 0, f"kernel {name} not launched on a route"
-    return times, launches, want
+    return times, dict(cc.LAUNCHES), want
 
 
 def batch_row_sets(bp, cc, t, n: int, N: int, rng, B: int = BATCH):
@@ -2208,7 +2171,7 @@ def phase_batch(bp, torch, cc, gens, params, tree):
     snaps = [p.snapshot() for p in provers[:PLACED]]
     out["setup_s"] = time.time() - t0
     log(f"  {BATCH} provers synthesized in {out['setup_s']:.2f} s")
-    backend = bp.TorchBackend("cuda", route=bp.Route())
+    backend = bp.TorchBackend("cuda")
     torch.cuda.reset_peak_memory_stats()
     cc.reset_launches()
     t0 = time.time()
@@ -2236,7 +2199,7 @@ def phase_batch(bp, torch, cc, gens, params, tree):
                  "fold_w3h_comb", "table_w4", "msm_win_pair"):
         assert out["launches"][name] > 0, \
             f"kernel {name} was not launched on the batched path"
-    on, _ = route_kernels(bp.Route(), verify=True)
+    on, _ = route_kernels(verify=True)
     for name in ROWS_KERNELS:  # each proof's rows, and their sum, on the card
         assert name in on and out["launches"][name] > 0, \
             f"batch_verify did not launch {name}"
@@ -2314,48 +2277,47 @@ def gate_host_proof_hex() -> str:
 
 
 def phase_gate(bp, torch, cc, host):
-    """The gate's proof through TorchBackend under each of the seven route
-    combos (GATE_COMBOS, a fresh backend each, its generator cache evicted
-    after), through prove_provers with three provers with the flotilla
-    off and on, through the port's NativeBackend and through the host
-    path (`host`, the ``--gate-host`` process, about a minute of one
-    core): one byte string.
-    The common proof verifies and a tampered copy is rejected; each
-    combo's launches hold route_kernels, and every kernel of FLAG_KERNELS
-    launches in the gate.  Returns the launch counts and the times."""
+    """The gate's proof through TorchBackend on each of ROUTES (a fresh
+    backend each, its generator cache evicted after), through
+    prove_provers with three provers (flotilla rounds run), through the
+    port's NativeBackend and through the host path (`host`, the
+    ``--gate-host`` process, about a minute of one core): one byte
+    string.  The common proof verifies and a tampered copy is rejected;
+    each route's launches hold route_kernels.  Returns the launch counts
+    and the times."""
+    import contextlib
+
     circuit = gate_circuit(bp)
     gens = bp.BulletproofGens(GATE_N)
     results, times = {}, {}
     cc.reset_launches()
-    for tag, over in GATE_COMBOS.items():
+    for tag, combined in ROUTES.items():
         before = dict(cc.LAUNCHES)
-        route = bp.Route(**over)
-        backend = bp.TorchBackend("cuda", route=route)
+        backend = bp.TorchBackend("cuda")
         comms, prover = gate_prover(bp, circuit)
-        proof, times[tag] = timed_once(
-            torch, lambda: prover.prove(gens, backend=backend)
-        )
+        with contextlib.nullcontext() if combined else combined_off():
+            proof, times[tag] = timed_once(
+                torch, lambda: prover.prove(gens, backend=backend)
+            )
         backend.evict_gens()
         results[tag] = proof.to_bytes()
         ran = {k: cc.LAUNCHES[k] - before[k] for k in cc.LAUNCHES}
-        check_route(tag, ran, route)
+        check_route(tag, ran, combined)
         log(f"  {tag}: {times[tag]:.1f} ms, launches "
             f"{ {k: v for k, v in ran.items() if v} }")
-    for flot in (False, True):
-        tag = f"batch(FLOTILLA={int(flot)})"
-        backend = bp.TorchBackend("cuda", route=bp.Route(flotilla=flot))
-        provers = [gate_prover(bp, circuit)[1] for _ in range(3)]
-        lanes = cc.LAUNCHES["msm_lane"]
-        proofs, times[tag] = timed_once(
-            torch, lambda: bp.prove_provers(provers, gens, backend=backend)
-        )
-        backend.evict_gens()
-        assert len({p.to_bytes() for p in proofs}) == 1, f"{tag} differs"
-        assert (cc.LAUNCHES["msm_lane"] > lanes) == flot, \
-            f"{tag}: flotilla rounds {cc.LAUNCHES['msm_lane'] - lanes}"
-        results[tag] = proofs[0].to_bytes()
-        log(f"  {tag}: 3 proofs in {times[tag]:.1f} ms, "
-            f"{cc.LAUNCHES['msm_lane'] - lanes} flotilla rounds")
+    tag = "batch"
+    backend = bp.TorchBackend("cuda")
+    provers = [gate_prover(bp, circuit)[1] for _ in range(3)]
+    lanes = cc.LAUNCHES["msm_lane"]
+    proofs, times[tag] = timed_once(
+        torch, lambda: bp.prove_provers(provers, gens, backend=backend)
+    )
+    backend.evict_gens()
+    assert len({p.to_bytes() for p in proofs}) == 1, f"{tag} differs"
+    assert cc.LAUNCHES["msm_lane"] > lanes, f"{tag}: no flotilla round"
+    results[tag] = proofs[0].to_bytes()
+    log(f"  {tag}: 3 proofs in {times[tag]:.1f} ms, "
+        f"{cc.LAUNCHES['msm_lane'] - lanes} flotilla rounds")
     from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import (
         NativeBackend,
     )
@@ -2377,7 +2339,7 @@ def phase_gate(bp, torch, cc, host):
         + str({k: v[:8].hex() for k, v in results.items()})
     )
     comp, tape = circuit[:2]
-    backend = bp.TorchBackend("cuda", route=bp.Route())
+    backend = bp.TorchBackend("cuda")
     common = bp.R1CSProof.from_bytes(blobs.pop())
     verify(bp, comp, tape, comms, common, gens, backend)
     try:
@@ -2391,8 +2353,6 @@ def phase_gate(bp, torch, cc, host):
         f"({len(common.to_bytes())} B), verified, tampered copy rejected")
     launches = dict(cc.LAUNCHES)
     log(f"  launches {launches}")
-    for name in FLAG_KERNELS:
-        assert launches[name] > 0, f"kernel {name} not launched in the gate"
     return launches, times
 
 
@@ -3591,7 +3551,7 @@ def phase_zoo(bp, torch, cc, gens, host):
     ``--zoo-host`` process), verified through the backend, a tampered
     copy rejected; per circuit its padded size, prove and verify wall
     times and launch counts (counted from 0 before each prove)."""
-    backend = bp.TorchBackend("cuda", route=bp.Route())
+    backend = bp.TorchBackend("cuda")
     out, launches = {}, dict.fromkeys(cc.LAUNCHES, 0)
     proofs = {}
     for i, name in enumerate(ZOO):
@@ -3818,7 +3778,7 @@ def main() -> int:
         with Phase("2 kernels vs plain"):
             records = phase_kernels(bp, torch, cc, F, gens, dev)
         with Phase("3 byte identity"):
-            phase_bytes(bp, torch, cc, gens_small)
+            small_launches = phase_bytes(bp, torch, cc, gens_small)
         with Phase("tree"):
             params, tree = build_tree(bp, DEPTH)
         with Phase("4 full proof"):
@@ -3849,10 +3809,10 @@ def main() -> int:
     with Phase("12 sharded oracle path"):
         shoracle, shoracle_launches = phase_sharded_oracle(
             bp, torch, cc, F, gens, full, reuse, oracle)
-    runs = (full["launches"], full["route_launches"], batch["launches"],
-            gate_launches, placed["launches"], sharded["launches"],
-            stream["launches"], oracle.pop("launches"), zoo_launches,
-            shoracle_launches)
+    runs = (small_launches, full["launches"], full["route_launches"],
+            batch["launches"], gate_launches, placed["launches"],
+            sharded["launches"], stream["launches"], oracle.pop("launches"),
+            zoo_launches, shoracle_launches)
     kernels = [
         dict(
             name=name, route="cuda", source=SOURCES[name],

@@ -304,20 +304,19 @@ def test_device_rows_sum_a_batch_of_mixed_sizes():
     assert _batch_rows(metrics.take()) == [2 * 64, 2 * 64]
 
 
-@pytest.mark.parametrize("kind", ["mixed_sizes", "w5_off"])
+@pytest.mark.parametrize("kind", ["mixed_sizes", "all_host"])
 def test_host_rows_judge_a_batch_the_device_does_not_sum(kind):
     """Two-phase proofs of two padded sizes (64 and 32) on a rows backend
     whose walker starts above 32, so the smaller proof keeps the host's
     rows: the host sums its rows into an MSM of their own
     (``device_rows`` 0) beside the device's sum of the others (2 x 64);
-    or proofs of one size on a route with ``w5`` off, all on the host.
-    The honest batch accepted and a flipped byte named, in either
-    part."""
+    or proofs of one size on a backend whose walker starts above 64, all
+    on the host.  The honest batch accepted and a flipped byte named, in
+    either part."""
     sizes = [40, 10, 40] if kind == "mixed_sizes" else [40, 40, 40]
     cases = [tvr.two_phase_case(links) for links in sizes]
-    be = (port.TorchBackend("cpu", min_device_n=1, walker_min_n=33)
-          if kind == "mixed_sizes"
-          else tvr.cpu_backend(route=Route(w5=False)))
+    be = port.TorchBackend("cpu", min_device_n=1,
+                           walker_min_n=33 if kind == "mixed_sizes" else 65)
     proofs = [c.proof for c in cases]
     metrics.enable()
     assert judge(cases, proofs, be) is None

@@ -11,7 +11,7 @@ carry-chain multiply and squaring against ``fe_mul`` on edge operands),
 and a proof, a proof on the combined IPP route (its threshold
 lowered) and a batch of three proofs (``prove_provers``) through
 ``TorchBackend("cuda")`` against the host engine's bytes; the equivalence
-gate's depth-8 proof on the default route and with ``winmsm`` off; the
+gate's depth-8 proof against ``NativeBackend``'s bytes; the
 verifier's G/H row kernels against their plain versions and the host's
 rows at VSMT-2 depth 4 and VSMT-4 depth 128, on edge shapes, and a
 batch's rows summed over 2 and 8 row sets and over two padded sizes.  On a
@@ -336,20 +336,24 @@ def test_carry_chain_multiply_matches_fe_mul_on_card(cuda_device):
 
 def test_gate_routes_on_card_match(cuda_device):
     """bench.py's gate circuit (VSMT-2 depth 8, padded 8192) on the card:
-    the default route and winmsm off give one proof, which verifies."""
+    the port's route and the host's ``NativeBackend`` give one proof,
+    which verifies on the card."""
     import chip_smoke as cs
     import bulletproofs_r1cs_gadgets_tpu_torch as bp
+    from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import (
+        NativeBackend,
+    )
 
     circuit = cs.gate_circuit(bp)
     gens = BulletproofGens(cs.GATE_N)
+    backend = TorchBackend(cuda_device)
     proofs = []
-    for route in (bp.Route(), bp.Route(winmsm=False)):
-        backend = TorchBackend(cuda_device, route=route)
+    for be in (backend, NativeBackend()):
         comms, prover = cs.gate_prover(bp, circuit)
-        proofs.append(prover.prove(gens, backend=backend))
+        proofs.append(prover.prove(gens, backend=be))
     assert proofs[0].to_bytes() == proofs[1].to_bytes()
     comp, tape = circuit[:2]
-    cs.verify(bp, comp, tape, comms, proofs[1], gens, backend)
+    cs.verify(bp, comp, tape, comms, proofs[0], gens, backend)
 
 
 def _chain(cs, v, v2, links=32):
@@ -619,8 +623,8 @@ def test_windowed_msm_lane_matches_plain_on_card(cuda_device, v):
 
 @pytest.mark.parametrize("v", [2048, 1 << 17])
 def test_constant_fold_designs_match_plain_on_card(cuda_device, v):
-    """fold_c at the default route's 2,048 outputs (padded n = 4096's
-    round 1) and at 2^17 (round 1 of the winmsm-off and w3h-off routes),
+    """fold_c at the port's 2,048 outputs (padded n = 4096's round 1) and
+    at 2^17 (round 1 of the reference's winmsm-off and w3h-off routes),
     by the library's choice (group, then thread) and under each design:
     random constants split inside a warp, the edge constants (0, 1) split
     at 0, and (L - 1, all -8 digits) split at v; each in place; then

@@ -1,5 +1,5 @@
-"""The port's route flags (``Route``) and their kernels against the JAX
-package.
+"""The port's one route, and the kernels of the reference's other route
+flags, against the JAX package.
 
 * Kernel level: the plain versions of ``fold_c``, ``fold_c_comb`` and
   ``msm_grid`` equal the JAX package's TPU kernels run once each under
@@ -10,22 +10,25 @@ package.
   chunk's ends and the breakpoint's neighbourhood: the plain versions
   fold those lanes' points), ``msm_grid_acc`` over one chunk at a chunk
   offset, with every eighth word row nonzero and a chained accumulator;
-  and the host ``scalar_mul`` / ``multiscalar_mul`` on a subset.  (``msm_win``'s plain version is held against
+  and the host ``scalar_mul`` / ``multiscalar_mul`` on a subset, with the
+  combined fold's breakpoint at either end, ``msm_grid`` chained at both
+  ends of its points, and ``msm_win``'s wrap walk as two chained walks and
+  as ``msm_win_pair``'s R.  (``msm_win``'s plain version is held against
   ``msm_win_dyn``'s straight and wrap walks in tests/test_torch_comb.py,
   beside the interpret-mode walker that file already runs.)  The port's
   constant-fold words are the rows of the reference's ``_c_fold_words``.
-* Proof level: under each of the reference's seven route combos
-  (``chip_smoke.GATE_COMBOS``, bench.py:550-563), at padded n = 2 *
-  COMB_MIN_N (the shape of padded n = 4096), and for a batch of two
-  through ``prove_provers`` with the flotilla off and on, the port's
-  ``TorchBackend("cpu", route=...)`` proof is byte-identical to the JAX
+  No backend path launches ``msm_win``, ``msm_grid`` or ``fold_c_comb``:
+  these tests are what holds them.
+* Proof level: on the one route, at padded n = 2 * COMB_MIN_N (the shape
+  of padded n = 4096), on the chunk-list route, and for a batch of two
+  through ``prove_provers`` unfrozen and frozen (the flotilla), the
+  port's ``TorchBackend("cpu")`` proof is byte-identical to the JAX
   package's host proof of the same seeded circuit.  The grid thresholds
   are lowered as tests/test_torch_backend.py lowers them, so that every
-  route runs at 64 multipliers, and each route's kernel calls are
-  counted.  The verifier's two grid routes (``winmsm`` off, ``w5`` off)
-  accept the proof and reject a tampered copy.
-* The port's ``NativeBackend`` gives the JAX package's bytes, and
-  ``Route.from_env`` reads the reference's ``BPTPU_*`` names.
+  branch runs at 64 multipliers, and each geometry's kernel calls are
+  counted exactly, for a proof and for a verify.  The ``BPTPU_*``
+  variables change none of them, and ``Route`` has no fields.
+* The port's ``NativeBackend`` gives the JAX package's bytes.
 
 CPU tensors route to the plain versions.  Tolerance: exact (equal
 points, equal words, equal bytes).
@@ -47,7 +50,6 @@ from bulletproofs_r1cs_gadgets_tpu.core.pedersen import (
 )
 from bulletproofs_r1cs_gadgets_tpu.core.scalar import Scalar as JScalar
 from bulletproofs_r1cs_gadgets_tpu.ops import chunks as jck
-from bulletproofs_r1cs_gadgets_tpu.ops import pallas_backend as pbm
 from bulletproofs_r1cs_gadgets_tpu.ops import pallas_curve as pc
 from bulletproofs_r1cs_gadgets_tpu.ops.field import STORE, limbs_to_int
 from bulletproofs_r1cs_gadgets_tpu.utils.constants import L, P
@@ -68,7 +70,13 @@ from bulletproofs_r1cs_gadgets_tpu_torch.ops import cuda_curve as cc
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import field as F
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import torch_backend as tb
 from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import NativeBackend
-from test_torch_backend import CIRCUITS, COMB_CHUNK, _host_proof, count_calls
+from test_torch_backend import (
+    CIRCUITS,
+    COMB_CHUNK,
+    WALKER_MIN_N,
+    _host_proof,
+    count_calls,
+)
 
 # The plain versions run many small tensor ops: intra-op threads gain
 # nothing there and contend with the other test workers' processes.
@@ -268,51 +276,120 @@ def test_c_fold_words_are_the_reference_rows():
         assert cs.decode_w4(row) % L == c
 
 
+
+
+def _rows(n: int, seed: int) -> np.ndarray:
+    """n random scalar rows, the first three 0, 1 and L - 1."""
+    rows = scvec.from_wide_bytes(np.random.RandomState(seed).bytes(64 * n))
+    rows[:3] = scvec.from_ints([0, 1, L - 1])
+    return rows
+
+
+@pytest.mark.parametrize("bp", [0, 8], ids=["breakpoint-0", "breakpoint-end"])
+def test_fold_c_comb_breakpoint_at_either_end_matches_host(bp):
+    """Both sides of the combined fold against host arithmetic with the
+    breakpoint at 0 (every output takes a side's second constant) and at
+    v (its first)."""
+    v = 8
+    pts = F.from_raw(JBulletproofGens(4 * v).G_raw(4 * v))
+    host = F.to_points(pts)
+    got = F.to_points(
+        cc.fold_c_comb(pts, _c_words(CONSTS[:2], CONSTS[2:]), bp))
+    for s in range(2):
+        side = host[2 * v * s : 2 * v * (s + 1)]
+        for i in range(v):
+            c = Scalar(CONSTS[2 * s + (0 if i < bp else 1)])
+            assert got[s * v + i] == side[i] + side[i + v].scalar_mul(c), \
+                (s, i)
+
+
+@pytest.mark.parametrize("poff", [0, 48], ids=["first-points", "last-points"])
+def test_msm_grid_chained_at_either_end_matches_host(poff):
+    """``msm_grid`` from a non-identity accumulator over the first and
+    the last 16 of 64 points (the view ending at the tensor's end)."""
+    pts = F.from_raw(JBulletproofGens(64).G_raw(64))
+    rows = _rows(16, 22)
+    B = PedersenGens.default().B
+    got = F.to_points(cc.msm_grid(pts, ck.w4_words(rows, "cpu"),
+                                  F.from_points([B]), poff=poff))
+    assert got[0] == B + multiscalar_mul(scvec.to_scalars(rows),
+                                         F.to_points(pts[poff : poff + 16]))
+
+
+def test_msm_win_wrap_walk_is_two_chained_walks_and_the_pair_r():
+    """A combined round's R (``ck.comb_walks``' second walk, which wraps
+    from rows [0, n) to [3n, 4n)) as one ``msm_win`` wrap walk, as two
+    chained straight walks and as ``msm_win_pair``'s second row: the host
+    MSM; its L walk is the pair's first row."""
+    n = 8
+    pts = F.from_raw(JBulletproofGens(4 * n).G_raw(4 * n))
+    tbl = cc.table_w4(pts)
+    rows = _rows(4 * n, 23)
+    words = ck.w4_words(rows, "cpu")
+    ident = F.identity_points(1)
+    walk_L, walk_R = ck.comb_walks(n)
+    wrap = cc.msm_win(tbl, words, ident, *walk_R)
+    chained = cc.msm_win(tbl, words, ident, n, 0, 2 * n)
+    chained = cc.msm_win(tbl, words, chained, n, 3 * n, 3 * n)
+    pair = cc.msm_win_pair(tbl, words, F.identity_points(2), (walk_L, walk_R))
+    sc, P_ = scvec.to_scalars(rows), F.to_points(pts)
+    want = (multiscalar_mul(sc[2 * n : 3 * n], P_[:n])
+            + multiscalar_mul(sc[3 * n :], P_[3 * n :]))
+    got = F.to_points(torch.cat([wrap, chained, pair[1:]]))
+    assert got == [want] * 3
+    assert F.to_points(cc.msm_win(tbl, words, ident, *walk_L)) == \
+        F.to_points(pair[:1])
+
+
 # --------------------------------------------------------------- proofs
 CIRCUIT = "bound"  # 64 padded multipliers
-# Prove-only kernel calls of each route on CIRCUIT with COMB_MIN_N = 8,
-# walker_min_n = 1, frozen_max_side = 8: round 1 at n = 32, the grid /
-# combined rounds at n = 16 and 8, the tail round at n = 4 (the freeze),
-# two frozen rounds.
-_TAIL = {"msm_w4": 2, "msm_w4_pair": 2}
+# Prove-only kernel calls of the one route on CIRCUIT with COMB_MIN_N = 8,
+# walker_min_n = 1, frozen_max_side = 8: round 1 at n = 32 over the shared
+# tables, the combined rounds at n = 16 and 8, the tail round at n = 4
+# (the freeze), two frozen rounds.
 _W5_ROUND1 = {"table_w5": 2, "msm_win5": 9}
-ROUTE_CALLS = {
-    "default": dict(_W5_ROUND1, fold_w3h=2, table_w4=2, msm_win_pair=2,
-                    fold_w3h_comb=2, **_TAIL),
-    "W3H=0": dict(_W5_ROUND1, fold_c=2, table_w4=2, msm_win=6,
-                  fold_c_comb=2, **_TAIL),
-    "WINMSM=0": dict(msm_grid=5, fold_c=6, msm_w4=2, msm_w4_pair=8),
-    "WINMSM=0,W3H=0": dict(msm_grid=5, fold_c=6, msm_w4=2, msm_w4_pair=8),
-    "WRAPMSM=1,TBLTIER=1": dict(_W5_ROUND1, fold_w3h=2, table_w4=2,
-                                msm_win=4, fold_w3h_comb=2, **_TAIL),
-    "PAIRWALK=1": dict(_W5_ROUND1, fold_w3h=2, table_w4=2, msm_win_pair=2,
-                       fold_w3h_comb=2, **_TAIL),
-    "W5=0": dict(table_w4=4, msm_win=9, fold_w3h=2, msm_win_pair=2,
-                 fold_w3h_comb=2, **_TAIL),
-}
-_PROVED: dict = {}  # Route -> (proof, kernel calls): duplicate combos run once
+ROUTE_CALLS = dict(_W5_ROUND1, fold_w3h=2, table_w4=2, msm_win_pair=2,
+                   fold_w3h_comb=2, msm_w4=2, msm_w4_pair=2)
+# The reference's route flags, every one of which the port ignores.
+REFERENCE_FLAGS = ("WINMSM", "W3H", "WRAPMSM", "PAIRWALK", "FLOTILLA", "W5",
+                   "TBLTIER")
 
 
-def _prove(route: Route, monkeypatch):
-    if route not in _PROVED:
-        monkeypatch.setattr(tb, "COMB_MIN_N", COMB_CHUNK)
-        calls = count_calls(monkeypatch, tuple(cc.LAUNCHES))
-        backend = TorchBackend("cpu", min_device_n=1, frozen_max_side=8,
-                               walker_min_n=1, route=route)
-        comms, proof = CIRCUITS[CIRCUIT].prove(backend)
-        _PROVED[route] = (comms, proof, {k: v for k, v in calls.items() if v})
-    return _PROVED[route]
+def _prove_route(monkeypatch):
+    """(commitments, proof, kernel calls) of CIRCUIT on the one route
+    with the thresholds above, on a fresh backend."""
+    monkeypatch.setattr(tb, "COMB_MIN_N", COMB_CHUNK)
+    calls = count_calls(monkeypatch, tuple(cc.LAUNCHES))
+    backend = TorchBackend("cpu", min_device_n=1, frozen_max_side=8,
+                           walker_min_n=1, route=Route())
+    comms, proof = CIRCUITS[CIRCUIT].prove(backend)
+    return comms, proof, {k: v for k, v in calls.items() if v}
 
 
-@pytest.mark.parametrize("combo", list(cs.GATE_COMBOS))
+# the reference's name for the combination of its flags the port runs
+@pytest.mark.parametrize("combo", ["default"])
 def test_route_proof_matches_host(combo, monkeypatch):
-    route = Route(**cs.GATE_COMBOS[combo])
     comms_ref, ref = _host_proof(CIRCUIT)
-    comms, proof, calls = _prove(route, monkeypatch)
+    comms, proof, calls = _prove_route(monkeypatch)
     assert comms == comms_ref
     assert proof.to_bytes() == ref.to_bytes()
-    assert calls == ROUTE_CALLS[combo]
-    cs.check_route(combo, calls, route)  # what chip_smoke.py holds the card to
+    assert calls == ROUTE_CALLS
+    cs.check_route(combo, calls)  # what chip_smoke.py holds the card to
+
+
+def test_route_has_no_fields_and_the_environment_picks_nothing(monkeypatch):
+    """``Route`` has no fields, and with every one of the reference's
+    ``BPTPU_*`` route flags off in the environment a proof still launches
+    the one route's kernels and gives the host's bytes."""
+    assert dataclasses.fields(Route) == ()
+    with pytest.raises(TypeError):
+        Route(w5=False)
+    for name in REFERENCE_FLAGS:
+        monkeypatch.setenv(f"BPTPU_{name}", "0")
+    comms_ref, ref = _host_proof(CIRCUIT)
+    comms, proof, calls = _prove_route(monkeypatch)
+    assert comms == comms_ref and proof.to_bytes() == ref.to_bytes()
+    assert calls == ROUTE_CALLS
 
 
 def test_combined_off_route_matches_host(monkeypatch):
@@ -322,38 +399,18 @@ def test_combined_off_route_matches_host(monkeypatch):
     comms_ref, ref = _host_proof(CIRCUIT)
     calls = count_calls(monkeypatch, tuple(cc.LAUNCHES))
     backend = TorchBackend("cpu", min_device_n=1, frozen_max_side=8,
-                           walker_min_n=1, route=Route())
+                           walker_min_n=1)
     with cs.combined_off():
         comms, proof = CIRCUITS[CIRCUIT].prove(backend)
     assert tb.COMB_MIN_N == tb.CHUNK
     assert comms == comms_ref and proof.to_bytes() == ref.to_bytes()
     ran = {k: v for k, v in calls.items() if v}
     assert ran == dict(_W5_ROUND1, fold_bits=6, msm_w4=6, msm_w4_pair=2)
-    cs.check_route("combined off", ran, Route(), combined=False)
+    cs.check_route("combined off", ran, combined=False)
     # the default route's check refuses these counts
     missing = r"not launched \['fold_w3h', 'fold_w3h_comb', 'msm_win_pair'"
     with pytest.raises(AssertionError, match=missing):
-        cs.check_route("default", ran, Route())
-
-
-@pytest.mark.parametrize("combo", ["WINMSM=0", "W5=0"])
-def test_route_verifier_accepts_and_rejects(combo, monkeypatch):
-    """The verifier's G/H segments: two ``msm_grid`` launches with winmsm
-    off, two ``msm_win`` walks over ``table_w4`` tables with w5 off."""
-    route = Route(**cs.GATE_COMBOS[combo])
-    comms, ref = _host_proof(CIRCUIT)
-    circ = CIRCUITS[CIRCUIT]
-    backend = TorchBackend("cpu", min_device_n=1, walker_min_n=1, route=route)
-    calls = count_calls(monkeypatch, ("msm_grid", "msm_win", "table_w4"))
-    circ.verify(comms, R1CSProof.from_bytes(ref.to_bytes()), backend)
-    if route.winmsm:
-        assert calls == {"msm_grid": 0, "msm_win": 2, "table_w4": 2}
-    else:
-        assert calls == {"msm_grid": 2, "msm_win": 0, "table_w4": 0}
-    raw = bytearray(ref.to_bytes())
-    raw[len(raw) - 64] ^= 1  # low byte of the IPP's `a` scalar
-    with pytest.raises(VerificationError):
-        circ.verify(comms, R1CSProof.from_bytes(bytes(raw)), backend)
+        cs.check_route("default", ran)
 
 
 def test_padded_two_chunks_folds_round_one_with_fold_c(monkeypatch):
@@ -366,7 +423,7 @@ def test_padded_two_chunks_folds_round_one_with_fold_c(monkeypatch):
     calls = count_calls(monkeypatch, ("fold_c", "fold_bits", "msm_win5",
                                       "fold_w3h", "msm_win_pair"))
     backend = TorchBackend("cpu", min_device_n=1, frozen_max_side=8,
-                           walker_min_n=1, route=Route())
+                           walker_min_n=1)
     comms, proof = CIRCUITS[CIRCUIT].prove(backend)
     assert comms == comms_ref and proof.to_bytes() == ref.to_bytes()
     # fold_bits at n = 16 and 8 (the freeze at 4)
@@ -374,28 +431,86 @@ def test_padded_two_chunks_folds_round_one_with_fold_c(monkeypatch):
                      "fold_w3h": 0, "msm_win_pair": 0}
 
 
-@pytest.mark.parametrize("flotilla, lane_rounds", [(False, 0), (True, 2)])
-def test_batch_flotilla_off_and_on_matches_host(flotilla, lane_rounds,
+# Every kernel call of a proof of CIRCUIT at the default COMB_MIN_N (no
+# combined rounds at 64 multipliers), by the sizes that choose the
+# branches: (frozen_max_side, walker_min_n, calls).  Phase 1 is three
+# msm_w4 launches below the walker range and five msm_win5 walks over two
+# table_w5 tables in it; the IPP has six rounds, n = 32 .. 1.
+GEOMETRY_CALLS = {
+    # frozen from round 1: an msm_w4_pair launch a round
+    "frozen-from-round-1": (1024, WALKER_MIN_N,
+                            {"msm_w4": 3, "msm_w4_pair": 6}),
+    # msm_w4 per side at n = 32, 16, 8, fold_bits at 32 and 16, the freeze
+    # at 8, then three frozen rounds
+    "chunk-list-then-freeze": (16, WALKER_MIN_N,
+                               {"msm_w4": 9, "fold_bits": 4,
+                                "msm_w4_pair": 3}),
+    # msm_w4 per side and fold_bits in every round
+    "never-frozen": (0, WALKER_MIN_N, {"msm_w4": 15, "fold_bits": 12}),
+    # round 1 over the shared tables, then as chunk-list-then-freeze
+    "walker-then-freeze": (16, 1, {"table_w5": 2, "msm_win5": 9,
+                                   "msm_w4": 4, "fold_bits": 4,
+                                   "msm_w4_pair": 3}),
+}
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRY_CALLS))
+def test_one_route_launches_by_size(geometry, monkeypatch):
+    max_side, walker_min_n, want = GEOMETRY_CALLS[geometry]
+    comms_ref, ref = _host_proof(CIRCUIT)
+    calls = count_calls(monkeypatch, tuple(cc.LAUNCHES))
+    backend = TorchBackend("cpu", min_device_n=1, frozen_max_side=max_side,
+                           walker_min_n=walker_min_n)
+    comms, proof = CIRCUITS[CIRCUIT].prove(backend)
+    assert comms == comms_ref and proof.to_bytes() == ref.to_bytes()
+    assert {k: v for k, v in calls.items() if v} == want
+
+
+# Every kernel call of a verification of CIRCUIT: in the walker range the
+# row kernels build G/H's words and two msm_win5 walks take them between
+# the head's and the tail's msm_w4; below it one msm_w4 launch.
+VERIFY_CALLS = {
+    "walker-range": (1, {"sc_powers": 3, "tape_flatten": 1, "tape_sums": 1,
+                         "gh_rows": 1, "table_w5": 2, "msm_win5": 2,
+                         "msm_w4": 2}),
+    "below-walker-range": (WALKER_MIN_N, {"msm_w4": 1}),
+}
+
+
+@pytest.mark.parametrize("where", list(VERIFY_CALLS))
+def test_one_route_verify_launches_by_size(where, monkeypatch):
+    walker_min_n, want = VERIFY_CALLS[where]
+    comms, ref = _host_proof(CIRCUIT)
+    backend = TorchBackend("cpu", min_device_n=1, walker_min_n=walker_min_n)
+    calls = count_calls(monkeypatch, tuple(cc.LAUNCHES))
+    CIRCUITS[CIRCUIT].verify(comms, R1CSProof.from_bytes(ref.to_bytes()),
+                             backend)
+    assert {k: v for k, v in calls.items() if v} == want
+
+
+@pytest.mark.parametrize("frozen, lane_rounds", [(False, 0), (True, 2)])
+def test_batch_flotilla_off_and_on_matches_host(frozen, lane_rounds,
                                                 monkeypatch):
     """Two provers of the same seeded circuit through ``prove_provers``
     (as bench.py's gate batches three): two copies of the host proof.
-    Each job freezes at n = 4, so rounds n = 2 and 1 are frozen: one
-    ``msm_lane`` per round with the flotilla on, one ``msm_w4_pair`` per
-    job and round with it off."""
+    Frozen (side cap 8), each job freezes at n = 4, so rounds n = 2 and 1
+    are frozen: one ``msm_lane`` per round for both jobs (the flotilla).
+    Never frozen (side cap 0), every round is each job's own ``msm_w4``
+    pair and ``fold_bits`` folds: no ``msm_lane``, no ``msm_w4_pair``."""
     comms_ref, ref = _host_proof(CIRCUIT)
     monkeypatch.setattr(tb, "COMB_MIN_N", COMB_CHUNK)
     calls = count_calls(monkeypatch, ("msm_lane", "msm_w4_pair"))
     circ = CIRCUITS[CIRCUIT]
     built = [circ.build() for _ in range(2)]
-    backend = TorchBackend("cpu", min_device_n=1, frozen_max_side=8,
-                           walker_min_n=1, route=Route(flotilla=flotilla))
+    backend = TorchBackend("cpu", min_device_n=1,
+                           frozen_max_side=8 if frozen else 0,
+                           walker_min_n=1)
     gens = BulletproofGens(circ.capacity)
     proofs = prove_provers([p for _, p in built], gens, backend=backend,
                            host_workers=1)
     assert all(c == comms_ref for c, _ in built)
     assert [p.to_bytes() for p in proofs] == [ref.to_bytes()] * 2
-    assert calls == {"msm_lane": lane_rounds,
-                     "msm_w4_pair": 0 if flotilla else 2 * 2}
+    assert calls == {"msm_lane": lane_rounds, "msm_w4_pair": 0}
 
 
 def test_native_backend_matches_the_jax_package():
@@ -410,26 +525,3 @@ def test_native_backend_matches_the_jax_package():
     if jnb.native_available():
         _, want = CIRCUITS[CIRCUIT].prove(jnb.NativeBackend(), pkg="jax")
         assert got.to_bytes() == want.to_bytes()
-
-
-def test_route_from_env_reads_the_reference_flags(monkeypatch):
-    names = [f.name for f in dataclasses.fields(Route)]
-    # the reference's module flags read the same environment at import
-    assert Route.from_env() == Route(**{
-        name: getattr(pbm, f"_{name.upper()}") for name in names
-    })
-    for name in names:
-        monkeypatch.delenv(f"BPTPU_{name.upper()}", raising=False)
-    assert Route.from_env() == Route()
-    assert TorchBackend("cpu").route == Route()
-    for name in names:
-        var = f"BPTPU_{name.upper()}"
-        off = dataclasses.replace(Route(), **{name: False})
-        assert Route.from_env({var: "0"}) == off
-        for value in ("1", "", "no"):  # anything but "0" is on
-            assert Route.from_env({var: value}) == Route()
-        monkeypatch.setenv(var, "0")
-        assert TorchBackend("cpu").route == off
-        monkeypatch.delenv(var)
-    route = Route(w5=False)
-    assert TorchBackend("cpu", route=route).route is route

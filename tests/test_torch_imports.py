@@ -40,10 +40,10 @@ def test_port_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None\n"
         "import bulletproofs_r1cs_gadgets_tpu_torch as bp\n"
         "from bulletproofs_r1cs_gadgets_tpu_torch import prove_provers, "
-        "batch_verify, Route\n"
+        "batch_verify, Route, TorchBackend\n"
         "from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import "
         "NativeBackend\n"
-        "assert Route.from_env({'BPTPU_W5': '0'}).w5 is False\n"
+        "TorchBackend('cpu', route=Route())\n"
         "assert NativeBackend().threads == 1\n"
         "assert not hasattr(bp, 'NativeBackend')\n"
         "import bulletproofs_r1cs_gadgets_tpu_torch.ops.build\n"

@@ -29,8 +29,9 @@ import torch
 import bulletproofs_r1cs_gadgets_tpu_torch as port
 from benchmark import drive, named, program_spans
 from benchmark import run as bench
-from bulletproofs_r1cs_gadgets_tpu_torch import Route, TorchBackend
+from bulletproofs_r1cs_gadgets_tpu_torch import TorchBackend
 from bulletproofs_r1cs_gadgets_tpu_torch.ops import field
+from bulletproofs_r1cs_gadgets_tpu_torch.ops import torch_backend as tb
 from bulletproofs_r1cs_gadgets_tpu_torch.ops.native_backend import (
     NativeBackend)
 from bulletproofs_r1cs_gadgets_tpu_torch.utils import metrics
@@ -260,8 +261,11 @@ def test_a_batch_gives_a_tree_per_proof(flotilla):
     its phases, one ``phase_commitments`` and one ``ipp_create`` for the
     batch, under which each proof's IPP is an ``ipp.job`` whose steps ran
     on the pool's threads; the round's one sync (and the flotilla's
-    shared launch) recorded once, under the batch's ``ipp_create``."""
-    be = TorchBackend("cpu", min_device_n=1, route=Route(flotilla=flotilla))
+    shared launch) recorded once, under the batch's ``ipp_create``.  The
+    flotilla runs where the jobs are frozen (from round 1 here); with no
+    freezing (side cap 0) each job launches its own rounds."""
+    be = TorchBackend("cpu", min_device_n=1,
+                      frozen_max_side=tb.FROZEN_MAX_SIDE if flotilla else 0)
     provers = [_prover(seed)[0] for seed in (21, 22)]
     metrics.enable()
     try:

@@ -12,8 +12,8 @@ rows (``gh_rows`` over B row sets, each weighted by its rho) equal the
 host's rho-weighted sum of its jobs' g and h, at B = 1, 2 and 8 over
 distinct transcripts, and over two padded sizes.  A verification
 through the device rows accepts a good proof and rejects a flipped byte
-and a wrong root; a backend without the capability and the routes and
-sizes it does not serve keep the host's rows.  Tolerance: exact.
+and a wrong root; a backend without the capability and the sizes it does
+not serve keep the host's rows.  Tolerance: exact.
 """
 
 import re
@@ -404,9 +404,9 @@ def test_verify_on_device_rows_accepts_and_rejects(circuit, request,
 
 def test_host_rows_where_the_device_does_not_build_them(two_phase,
                                                         monkeypatch):
-    """A backend without ``verify_rows`` and the sizes and routes
-    ``verify_rows`` declines run the host's rows, in a verification and
-    in a ``batch_verify``."""
+    """A backend without ``verify_rows`` and the sizes ``verify_rows``
+    declines run the host's rows, in a verification and in a
+    ``batch_verify``."""
     spy = Spy(monkeypatch)
     case = two_phase
     metrics.take()
@@ -414,11 +414,12 @@ def test_host_rows_where_the_device_does_not_build_them(two_phase,
     try:
         bp.batch_verify([case.verifier(), case.verifier()],
                         [case.proof, case.proof], PC, case.gens,
-                        backend=cpu_backend(route=bp.Route(w5=False)))
+                        backend=bp.TorchBackend("cpu", min_device_n=1))
         for be in (NativeBackend(),
                    bp.TorchBackend("cpu", min_device_n=1),  # walks from 2049
-                   cpu_backend(route=bp.Route(w5=False)),
-                   cpu_backend(route=bp.Route(winmsm=False))):
+                   # in the walker range, below min_device_n
+                   bp.TorchBackend("cpu", min_device_n=1 << 20,
+                                   walker_min_n=1)):
             assert getattr(be, "verify_rows", lambda *a: None)(
                 None, 0, 0, 0, case.gens.gens_capacity) is None
             assert cs.verdict(bp, case.verifier(), case.proof, case.gens, be)
@@ -432,18 +433,17 @@ def test_host_rows_where_the_device_does_not_build_them(two_phase,
     assert set(_device_rows(spans)) <= {0}
 
 
-@pytest.mark.parametrize("combo", ["default", "W5=0", "WINMSM=0"])
+@pytest.mark.parametrize("combo", ["default"])
 def test_a_verify_launches_the_row_kernels_of_its_route(combo, two_phase,
                                                         monkeypatch):
-    """``chip_smoke.route_kernels`` with a verify: the row kernels on the
-    default flags, none with w5 or winmsm off."""
+    """``chip_smoke.route_kernels`` with a verify: the row kernels, in the
+    walker range (the id is the reference's name of the port's route)."""
     from test_torch_backend import count_calls
 
-    route = bp.Route(**cs.GATE_COMBOS[combo])
     calls = count_calls(monkeypatch, cs.ROWS_KERNELS)
     assert cs.verdict(bp, two_phase.verifier(), two_phase.proof,
-                      two_phase.gens, cpu_backend(route=route))
-    on, off = cs.route_kernels(route, verify=True)
+                      two_phase.gens, cpu_backend())
+    on, off = cs.route_kernels(verify=True)
     rows = set(cs.ROWS_KERNELS)
     assert {k for k, v in calls.items() if v} == on & rows
     assert rows <= on | off
